@@ -1,0 +1,109 @@
+"""Expression evaluation: typed IR -> ColVal over a Batch.
+
+Reference: presto_tpu/exec/compiler.py (`eval_expr`, `eval_predicate`,
+`to_column`).  Evaluation is eager: each IR call runs its torch ops on
+the batch's device as it is reached.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from presto_tpu_torch.batch import Batch, Column, Dictionary
+from presto_tpu_torch.exec.colval import ColVal
+from presto_tpu_torch.functions import scalar as scalar_fns
+from presto_tpu_torch.plan import ir
+
+
+class EvalContext:
+    """Carries scalar-subquery results (python scalars) into evaluation."""
+
+    def __init__(self, scalar_results: Dict[int, tuple] | None = None):
+        self.scalar_results = scalar_results or {}  # plan_id -> (value, valid)
+
+
+def eval_expr(expr: ir.RowExpr, batch: Batch, ctx: EvalContext) -> ColVal:
+    if isinstance(expr, ir.Ref):
+        c = batch.columns[expr.name]
+        return ColVal(c.data, c.valid, c.type, c.dictionary)
+    if isinstance(expr, ir.Lit):
+        if expr.value is None:
+            return ColVal(False, False, expr.type)
+        return ColVal(expr.value, None, expr.type)
+    if isinstance(expr, ir.ScalarSub):
+        v, valid = ctx.scalar_results[expr.plan_id]
+        return ColVal(v, None if valid else False, expr.type)
+    if isinstance(expr, ir.CastExpr):
+        return scalar_fns.emit_cast(eval_expr(expr.arg, batch, ctx),
+                                    expr.type, expr.safe)
+    if isinstance(expr, ir.Call):
+        if any(isinstance(a, ir.LambdaExpr) for a in expr.args):
+            raise NotImplementedError(
+                f"lambda arguments ({expr.fn}) are not ported")
+        args = [eval_expr(a, batch, ctx) for a in expr.args]
+        return scalar_fns.lookup(expr.fn).emit(args)
+    raise NotImplementedError(
+        f"cannot evaluate {type(expr).__name__} in presto_tpu_torch")
+
+
+def eval_predicate(expr: ir.RowExpr, batch: Batch,
+                   ctx: EvalContext) -> torch.Tensor:
+    """Boolean expression -> row mask (SQL: NULL predicate == not selected)."""
+    v = eval_expr(expr, batch, ctx)
+    data = v.data
+    if not isinstance(data, torch.Tensor) or data.ndim == 0:
+        data = torch.full((batch.capacity,), bool(data), dtype=torch.bool,
+                          device=batch.device)
+    mask = data
+    if v.valid is not None:
+        mask = mask & _expand_valid(v.valid, batch.capacity, batch.device)
+    return mask
+
+
+def to_column(v: ColVal, capacity: int, device: torch.device) -> Column:
+    """Materialize a ColVal as a full-capacity Column on `device`."""
+    data = v.data
+    if not isinstance(data, torch.Tensor) or data.ndim == 0:
+        if isinstance(data, (str, bytes)):
+            # string literal column: single-entry dictionary
+            import numpy as np
+
+            vals = np.empty(1, dtype=object)
+            vals[0] = data
+            codes = torch.zeros((capacity,), dtype=torch.int32,
+                                device=device)
+            return Column(codes, _expand_valid(v.valid, capacity, device),
+                          v.type, Dictionary(vals))
+        dt = scalar_fns.torch_dtype(v.type)
+        data = torch.full((capacity,), data.item() if isinstance(
+            data, torch.Tensor) else data, dtype=dt, device=device)
+    return Column(data, _expand_valid(v.valid, capacity, device), v.type,
+                  v.dictionary)
+
+
+def python_value(v: ColVal):
+    """The python value of a scalar ColVal (None when NULL)."""
+    valid = v.valid
+    if isinstance(valid, torch.Tensor):
+        valid = bool(valid.reshape(-1)[0])
+    if valid is False:
+        return None
+    data = v.data
+    if isinstance(data, torch.Tensor):
+        data = data.reshape(-1)[0].item()
+    if v.dictionary is not None:
+        return v.dictionary.values[int(data)]
+    return data
+
+
+def _expand_valid(valid, capacity: int, device: torch.device):
+    if valid is None:
+        return None
+    if not isinstance(valid, torch.Tensor):
+        return torch.full((capacity,), bool(valid), dtype=torch.bool,
+                          device=device)
+    if valid.ndim == 0:
+        return valid.expand(capacity)
+    return valid

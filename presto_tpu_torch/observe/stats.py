@@ -1,0 +1,333 @@
+"""Query + per-operator statistics.
+
+Reference parity: execution/QueryStats.java + operator/OperatorStats.java
+(recorded by OperationTimer around every getOutput/addInput,
+operator/Driver.java:380) and the query lifecycle states of
+QueryStateMachine (execution/QueryStateMachine.java: QUEUED → PLANNING →
+RUNNING → FINISHED/FAILED).  Per-node stats are collected in dynamic
+execution; compiled/distributed execution reports fragment-level timings
+(the whole plan is one fused XLA program — there is no per-operator
+boundary at runtime, which is the point of the design; attribution
+INSIDE those programs comes from XLA cost analysis + the profiler via
+observe/profile.py, and the host-visible lifecycle from the span
+recorder in observe/trace.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from contextlib import contextmanager
+from typing import Dict, Optional
+
+_query_ids = itertools.count(1)
+
+
+@dataclasses.dataclass
+class NodeStats:
+    """Per-plan-node runtime stats (reference: OperatorStats)."""
+
+    node_kind: str = ""
+    rows_out: int = 0
+    wall_ns: int = 0
+    invocations: int = 0
+
+
+@dataclasses.dataclass
+class QueryStats:
+    """Reference: execution/QueryStats.java, trimmed to the engine's
+    phases; phase_ns keys: parse, plan, execute (plan includes analysis
+    + optimization; execute includes any XLA compile)."""
+
+    query_id: str = ""
+    sql: str = ""
+    state: str = "QUEUED"
+    create_time: float = 0.0
+    end_time: float = 0.0
+    phase_ns: Dict[str, int] = dataclasses.field(default_factory=dict)
+    execution_mode: str = ""  # dynamic | compiled | distributed
+    output_rows: int = 0
+    error: Optional[str] = None
+    peak_memory_bytes: int = 0
+    spilled_bytes: int = 0
+    spilled_partitions: int = 0
+    recovered_buckets: int = 0  # grouped-execution buckets loaded from ckpt
+    # spill-tiered degradation (exec/spill_exec.py, docs/SPILL.md):
+    # partitions spilled as checksummed PTPG frames, bytes written,
+    # partitions restored (unspilled), recursive re-partition rounds,
+    # and the query's deepest tier engaged (0 resident / 1 partial
+    # spill / 2 recursive partitioning — a high-water mark, not a sum).
+    # spilled_bytes/spilled_partitions above stay as legacy aliases.
+    # Spill-I/O recovery events (spill_enospc, spill_rewrites,
+    # spill_df_resident) ride the `recovery` dict below.
+    spill_partitions: int = 0
+    spill_bytes: int = 0
+    spill_restores: int = 0
+    spill_recursions: int = 0
+    degradation_tier: int = 0
+    # sort economics (ordering-aware execution, plan/properties.py):
+    # sorts the executor routed (taken) vs avoided (elided: presorted
+    # kernel variants, memo replays, satisfied ORDER BYs), memo replays
+    # specifically, and ordering-claim guard trips (each one a
+    # fell-back-to-the-sort-path event — correctness kept, sort paid).
+    # Compiled/chunked modes count TRACE-TIME routing decisions (the
+    # program runs the same ops every call); dynamic mode counts per
+    # execution.
+    sorts_taken: int = 0
+    sorts_elided: int = 0
+    sort_memo_hits: int = 0
+    ordering_guard_trips: int = 0
+    # materialized views (exec/matview.py): refreshes that delta-folded
+    # vs degraded to full recompute (degrade is LOUD — it shows here and
+    # in the REFRESH result row), splits the delta actually scanned vs
+    # the source total (delta cost ∝ delta, not history), and SELECTs
+    # the containment matcher served from an MV snapshot.
+    mv_refresh_delta: int = 0
+    mv_refresh_full: int = 0
+    mv_delta_splits: int = 0
+    mv_source_splits: int = 0
+    mv_routed: int = 0
+    # compile economics (exec/compile_cache.py): XLA programs this query
+    # BUILT (compiles; compile_ms is the AOT lower+compile wall),
+    # executables it reused from the shared memo / persistent disk cache
+    # (compile_cache_hits — disk hits observed via jax.monitoring), and
+    # shared-memo entries a compile-ahead thread had ready before the
+    # query thread asked (compile_ahead_hits).  A warm same-process
+    # re-run of a cached query reports compiles == 0 (asserted in
+    # tier-1); a cold process over a warmed cache dir reports
+    # compile_cache_hits > 0.
+    compiles: int = 0
+    compile_ms: float = 0.0
+    compile_cache_hits: int = 0
+    compile_ahead_hits: int = 0
+    # dynamic filtering (plan/runtime_filters.py): build-side runtime
+    # filters produced / applied at probe scans, rows pruned before the
+    # join (dynamic + cluster modes count rows; compiled/chunked modes
+    # count TRACE-TIME routing decisions, like the sort economics),
+    # whole chunks skipped by the chunked runner, shard stripes pruned
+    # by runtime domains, and cluster-side wall spent waiting on the
+    # filter side channel (bounded by dynamic_filtering_wait_ms).
+    df_filters_produced: int = 0
+    df_filters_applied: int = 0
+    df_rows_pruned: int = 0
+    df_chunks_pruned: int = 0
+    df_splits_pruned: int = 0
+    df_wait_ms: float = 0.0
+    # fragment fusion (plan/distribute.fuse_fragments): fragments this
+    # cluster query spliced into fused shard_map super-fragments (0 =
+    # the per-fragment HTTP path ran, incl. after a fused-attempt
+    # fallback), exchange page bytes that crossed the host HTTP path
+    # (pulled for non-result exchange edges: coordinator-observed +
+    # fused-task counters; per-worker aggregates live on /v1/info), and
+    # the trace-time estimate of bytes the fused program moved through
+    # ICI collectives instead (all_to_all / all_gather payloads x ndev).
+    fragments_fused: int = 0
+    exchange_bytes_host: int = 0
+    exchange_bytes_collective: int = 0
+    # multi-host lane: the slice of the collective estimate that rode
+    # the cross-process (DCN) fabric — a gang-fused query moves bytes
+    # here instead of exchange_bytes_host
+    exchange_bytes_dcn: int = 0
+    # sketch lane (ROADMAP 6, docs/PERF.md): bytes of fixed-width
+    # mergeable sketch state (HLL registers / KLL summaries) that moved
+    # over merge edges INSTEAD of a hash repartition of input rows — a
+    # sketch-only aggregate reports 0 repartition exchange bytes and
+    # puts its (tiny) partial-state gather here.  On the fused mesh the
+    # global-HLL edge lowers to one lax.pmax; those payload bytes count
+    # here, not in exchange_bytes_collective.
+    exchange_bytes_sketch: int = 0
+    # opt-in approximation rewrites (plan/optimizer.py behind session
+    # prefer_approx_distinct): count(DISTINCT x) calls replaced with
+    # approx_distinct(x) in this query's plan
+    approx_rewrites: int = 0
+    # fusion economics (plan/fusion_cost.py): per-edge fuse-vs-cut
+    # verdicts of the cost model — exchange edges spliced into a fused
+    # program (== fragments_fused), edges kept on the HTTP path, edges
+    # where the runtime decision memo overrode the model (a recorded
+    # misprediction of THIS shape flipped them), the wall spent pricing
+    # edges, and the per-reason skip counts: cost (model priced CUT
+    # cheaper), kind (fragment_fusion_kinds excluded), memo (decision-
+    # memo override), cross_host (no declared mesh) — exported like
+    # agg_strategy as presto_tpu_query_fusion_skips_total{reason}.
+    fusion_edges_fused: int = 0
+    fusion_edges_cut: int = 0
+    fusion_edges_mispredicted: int = 0
+    fusion_cost_ms: float = 0.0
+    fusion_skips: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # serving tier (server/serving.py): prepared-statement economics —
+    # binds through the typed aval path (plan + executable shared across
+    # parameter VALUES), warm binds that skipped parse/plan/compile
+    # entirely (a registry dict hit + device transfer), and EXECUTEs
+    # that fell back to text substitution (string/NULL params, static
+    # parameter positions like LIMIT ?, subquery params) where the plan
+    # is value-keyed.  result_cache_hit flags a query served straight
+    # from the serving result cache with no execution at all;
+    # resource_group / admission_wait_ms record the admission decision
+    # (reference: query JSON resourceGroupId + queuedTime).
+    prepared_binds: int = 0
+    prepared_plan_hits: int = 0
+    prepared_fallbacks: int = 0
+    # query coalescing (server/serving.QueryCoalescer): concurrent
+    # EXECUTEs of the SAME prepared signature stacked into a leading
+    # batch axis and served by ONE vmap-batched XLA launch.
+    # coalesced_batch_size: how many queries shared this query's launch
+    # (0 = ran solo; every batch member records the same size).
+    # coalesce_ms: micro-batch window wait the LEADER paid collecting
+    # riders (riders record 0 — their wait overlaps the leader's).
+    # coalesce_batches: batches this query led (leader-only, 0 or 1).
+    # coalesce_fallbacks: batch memberships abandoned for a solo re-run
+    # (batched build/launch failed or the leader faulted — correctness
+    # kept, amortization lost).
+    coalesced_batch_size: int = 0
+    coalesce_ms: float = 0.0
+    coalesce_batches: int = 0
+    coalesce_fallbacks: int = 0
+    # adaptive aggregation economics (plan/agg_strategy.py, ROADMAP 2):
+    # partial_agg_ratio — the LAST reduction ratio a partial stage
+    # observed (live rows in / groups out; ~1.0 means the partial stage
+    # reduced nothing).  partial_aggs_bypassed — bypass events: chunked
+    # flips to the pass-through lane plus pass-through executions served
+    # in dynamic/cluster mode.  partial_aggs_reenabled — hysteresis
+    # recoveries (a probe saw the ratio come back and re-armed the
+    # partial stage).  agg_strategy — how each executed grouped
+    # aggregate was planned: strategy name -> count (one_pass /
+    # final_only / two_phase; exported like `recovery` as
+    # presto_tpu_query_agg_strategy_total{strategy}).
+    partial_agg_ratio: float = 0.0
+    partial_aggs_bypassed: int = 0
+    partial_aggs_reenabled: int = 0
+    agg_strategy: Dict[str, int] = dataclasses.field(default_factory=dict)
+    result_cache_hit: int = 0
+    resource_group: str = ""
+    admission_wait_ms: float = 0.0
+    # write subsystem (exec/writer.py, PageSink SPI): rows/bytes a
+    # CTAS/INSERT streamed into connector sinks, files the commit
+    # published (0 for append-SPI connectors like memory), and the wall
+    # spent in page coercion/layout/sink appends + the finish/commit
+    # step.  Exported like every numeric counter through the metrics
+    # registry (observe/metrics.py).
+    rows_written: int = 0
+    bytes_written: int = 0
+    write_files: int = 0
+    write_ms: float = 0.0
+    # tracing (observe/trace.py): this query's trace id, the recorded
+    # span dicts (coordinator + merged worker spans; chrome-exportable
+    # via trace.chrome_trace / GET /v1/query/{id}/trace), and the count
+    # of foreign-trace spans the coordinator refused to merge (a worker
+    # that never saw the X-Presto-Trace header recorded a worker-LOCAL
+    # trace — the degradation is counted, never an error)
+    trace_id: str = ""
+    trace_spans: Optional[list] = None
+    trace_spans_dropped: int = 0
+    # cluster-mode recovery counters (parallel/retry.RunContext.count):
+    # http_retries, pages_retried, workers_quarantined, workers_readmitted,
+    # hedges_launched, hedges_won, task_cancels, query_retries,
+    # deadline_expired, tasks_rerun (task-granular restart),
+    # journal_writes, queries_adopted, adoption_ms (journaled
+    # failover, parallel/journal.py) — see docs/ROBUSTNESS.md for the
+    # schema; every key auto-exports through
+    # presto_tpu_query_recovery_total{kind} (observe/metrics.py)
+    recovery: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # id(plan node) -> NodeStats; populated in dynamic mode
+    node_stats: Dict[int, NodeStats] = dataclasses.field(default_factory=dict)
+    # rendered plan (annotated with per-node stats when collected) for
+    # the web UI's plan pane (reference: webapp plan.jsx consuming
+    # /v1/query/{id}?pretty)
+    plan_text: str = ""
+
+    @property
+    def total_ns(self) -> int:
+        return sum(self.phase_ns.values())
+
+    def summary(self) -> str:
+        ph = ", ".join(f"{k}={v / 1e6:.1f}ms" for k, v in self.phase_ns.items())
+        return (f"[{self.query_id}] {self.state} mode={self.execution_mode} "
+                f"rows={self.output_rows} {ph}")
+
+
+class QueryMonitor:
+    """Tracks one query execution: phase timings and node stats
+    (reference: QueryStateMachine + event/QueryMonitor.java; the
+    reference's span tracer, metrics registry and event dispatch are not
+    ported in this slice)."""
+
+    def __init__(self, session, sql: str):
+        self.session = session
+        self.stats = QueryStats(
+            query_id=f"q_{next(_query_ids)}",
+            sql=sql,
+            create_time=time.time(),
+        )
+        self.collect_node_stats = bool(
+            session.properties.get("collect_node_stats", False))
+
+    @classmethod
+    def begin(cls, session, sql: str):
+        mon = cls(session, sql)
+        with session.history_lock:
+            session.history.append(mon.stats)
+        return mon
+
+    @contextmanager
+    def phase(self, name: str):
+        self.stats.state = {"parse": "PLANNING", "plan": "PLANNING",
+                            "execute": "RUNNING"}.get(name, "RUNNING")
+        t0 = time.perf_counter_ns()
+        try:
+            yield
+        finally:
+            self.stats.phase_ns[name] = (
+                self.stats.phase_ns.get(name, 0) + time.perf_counter_ns() - t0)
+
+    def record_node(self, node, rows_out: int, wall_ns: int) -> None:
+        ns = self.stats.node_stats.setdefault(
+            id(node), NodeStats(node_kind=type(node).__name__))
+        ns.rows_out = rows_out
+        ns.wall_ns += wall_ns
+        ns.invocations += 1
+
+    def finish(self, result) -> None:
+        self.stats.state = "FINISHED"
+        self.stats.end_time = time.time()
+        plan = getattr(self, "plan", None)
+        if plan is not None and not self.stats.plan_text:
+            if self.stats.node_stats:
+                self.stats.plan_text = annotated_plan(
+                    plan.root, plan.subplans, self.stats)
+            else:
+                from presto_tpu_torch.plan.nodes import plan_tree_str
+
+                self.stats.plan_text = plan_tree_str(plan.root)
+        self.stats.output_rows = len(result)
+
+    def fail(self, error: BaseException) -> None:
+        self.stats.state = "FAILED"
+        self.stats.end_time = time.time()
+        self.stats.error = f"{type(error).__name__}: {error}"
+
+
+def annotated_plan(plan_root, subplans, stats: QueryStats) -> str:
+    """EXPLAIN ANALYZE rendering: the logical plan with per-node rows and
+    wall time (reference: PlanPrinter.textDistributedPlan with stats,
+    fed by ExplainAnalyzeOperator)."""
+    from presto_tpu_torch.plan.nodes import plan_tree_str
+
+    def annotate(node):
+        ns = stats.node_stats.get(id(node))
+        if ns is None:
+            return ""
+        # recorded walls are inclusive of children; report self time
+        child = sum(stats.node_stats[id(c)].wall_ns for c in node.sources
+                    if id(c) in stats.node_stats)
+        excl = max(ns.wall_ns - child, 0)
+        return f"   <- rows={ns.rows_out} time={excl / 1e6:.2f}ms"
+
+    lines = [plan_tree_str(plan_root, annotate=annotate)]
+    for pid, sub in sorted(subplans.items()):
+        lines.append(f"\nSubplan {pid}:")
+        lines.append(plan_tree_str(sub, 1, annotate=annotate))
+    ph = ", ".join(f"{k}: {v / 1e6:.1f}ms" for k, v in stats.phase_ns.items())
+    lines.append(f"\nQuery {stats.query_id}: {ph}; output rows: "
+                 f"{stats.output_rows}")
+    return "\n".join(lines)
