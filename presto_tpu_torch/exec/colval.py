@@ -13,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
+
 from presto_tpu_torch.batch import Dictionary
 from presto_tpu_torch.types import Type
 
@@ -38,3 +40,13 @@ def all_valid(*vals):
     for x in vals:
         v = and_valid(v, x.valid if isinstance(x, ColVal) else x)
     return v
+
+
+def translate_codes(frm: Dictionary, to: Dictionary) -> np.ndarray:
+    """Host LUT mapping codes in `frm` to codes in `to` (-1 = not
+    present): joins and compares string columns whose dictionaries
+    differ."""
+    idx = np.searchsorted(to.values, frm.values)
+    idx = np.clip(idx, 0, max(len(to) - 1, 0))
+    ok = (len(to) > 0) & (to.values[idx] == frm.values)
+    return np.where(ok, idx, -1).astype(np.int32)

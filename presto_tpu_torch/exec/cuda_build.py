@@ -33,6 +33,13 @@ SIGNATURES = {
              ctypes.c_int, ctypes.c_int, _P, _P, _P]),
         "presto_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "block_gather": {
+        "block_gather_u32": (
+            ctypes.c_int,
+            [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, _P, _P, _P]),
+        "presto_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

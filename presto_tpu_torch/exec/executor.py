@@ -1,16 +1,20 @@
 """Local query executor: logical plan -> torch kernels -> host result.
 
 Reference: presto_tpu/exec/executor.py.  This slice ports the dynamic
-executor for scan -> filter -> project -> aggregate -> sort/limit ->
-output, the path of TPC-H Q1 and Q6.  Each node materializes a
-whole-column Batch on the session's device; filters AND into `sel`.
+executor for scan -> filter -> project -> join -> aggregate ->
+sort/topn/limit -> output, the path of TPC-H Q1, Q3, Q6 and Q18.  Each
+node materializes a whole-column Batch on the session's device; filters
+AND into `sel`.  Joins run INNER, LEFT, RIGHT (the mirrored LEFT), SEMI,
+ANTI and MARK, as index joins or sort joins (`kernels.build_probe`),
+always resident.
 
 Not ported yet, and raising NotImplementedError when reached: compiled
 and chunked execution, distributed execution, float32_compute, every
-statement other than a query, and every plan node outside the slice
-(Join, Window, TopN, Union, ...).  Ordering-aware execution (sort
-elision, the sort and group-id memos) is not ported either; it never
-changes results, only which sorts run.
+statement other than a query, FULL and CROSS joins, and every plan node
+outside the slice (Window, Union, ...).  Ordering-aware execution (sort
+elision, the sort, group-id and build-order memos), dynamic filtering
+and spill degradation are not ported either; none of them changes
+results, only which sorts run and which rows are pruned early.
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ import torch
 
 from presto_tpu_torch import session_ctx
 from presto_tpu_torch import types as T
-from presto_tpu_torch.batch import Batch, Column, column_from_numpy, to_numpy
+from presto_tpu_torch.batch import (Batch, Column, Dictionary,
+                                    column_from_numpy, to_numpy)
 from presto_tpu_torch.exec import kernels as K
+from presto_tpu_torch.exec.colval import translate_codes
 from presto_tpu_torch.exec.compiler import (EvalContext, eval_expr,
                                             eval_predicate, to_column)
 from presto_tpu_torch.functions.scalar import torch_dtype
@@ -100,6 +106,9 @@ class Executor:
         self.device = session.device
         self.monitor = monitor  # QueryMonitor collecting per-node stats
         self.ctx = EvalContext()
+        # plan DAGs (transitive semi-join inference shares a filter
+        # subquery between both join sides) run each shared node once
+        self._shared_results: Dict[int, tuple] = {}
 
     # ------------------------------------------------------------------
     def run(self, plan: P.QueryPlan) -> QueryResult:
@@ -137,6 +146,16 @@ class Executor:
 
     # ------------------------------------------------------------------
     def exec_node(self, node: P.PlanNode) -> Batch:
+        if not getattr(node, "shared_subtree", False):
+            return self._exec_node_inner(node)
+        hit = self._shared_results.get(id(node))
+        if hit is not None and hit[0] is node:
+            return hit[1]
+        b = self._exec_node_inner(node)
+        self._shared_results[id(node)] = (node, b)
+        return b
+
+    def _exec_node_inner(self, node: P.PlanNode) -> Batch:
         name = type(node).__name__
         method = getattr(self, f"_exec_{name.lower()}", None)
         if method is None:
@@ -371,11 +390,257 @@ class Executor:
         keys = [(b.columns[s], asc, nf) for s, asc, nf in node.keys]
         return K.gather_batch(b, K.sort_perm(b, keys))
 
-    def _exec_limit(self, node: P.Limit) -> Batch:
+    def _exec_topn(self, node: P.TopN) -> Batch:
+        """TopN = key sort + k-row gather (reference: TopNOperator's
+        bounded heap), without a full-capacity gather of every column."""
         b = self.exec_node(node.source)
-        n = min(int(node.count), b.capacity)
+        keys = [(b.columns[s], asc, nf) for s, asc, nf in node.keys]
+        perm = K.sort_perm(b, keys)  # masked rows sort last
+        k = min(int(node.count), b.capacity)
+        if k == b.capacity:
+            return K.gather_batch(b, perm)
+        out = K.gather_batch(b, perm[:k])
+        live = torch.arange(k, device=self.device) < b.sel.sum()
+        return out.with_sel(out.sel & live)
+
+    def _exec_limit(self, node: P.Limit) -> Batch:
+        return self._limit(self.exec_node(node.source), node.count)
+
+    @staticmethod
+    def _limit(b: Batch, n: int) -> Batch:
+        n = min(int(n), b.capacity)
         rank = torch.cumsum(b.sel.to(torch.int32), 0)
         return b.with_sel(b.sel & (rank <= n))
+
+    # ---- joins -------------------------------------------------------
+    def _exec_join(self, node: P.Join) -> Batch:
+        if node.join_type in ("FULL", "CROSS"):
+            raise NotImplementedError(
+                f"{node.join_type} joins are not ported to presto_tpu_torch")
+        left = self.exec_node(node.left)
+        right = self.exec_node(node.right)
+        if node.join_type == "RIGHT":
+            # RIGHT = mirrored LEFT with output order left-cols-first
+            node = P.Join(node.right, node.left, "LEFT",
+                          [(rk, lk) for lk, rk in node.criteria], node.filter)
+            left, right = right, left
+        return self._join_batches(left, right, node)
+
+    def _join_batches(self, left: Batch, right: Batch, node: P.Join) -> Batch:
+        jt = node.join_type
+        if right.capacity == 0:
+            return self._empty_build_join(left, right, node)
+        lkeys = [left.columns[lk] for lk, _ in node.criteria]
+        rkeys = [right.columns[rk] for _, rk in node.criteria]
+        lkeys, rkeys = _unify_key_dictionaries(lkeys, rkeys)
+        # SQL equi-join: NULL never matches NULL
+        lsel = left.sel
+        rsel = right.sel
+        for c in lkeys:
+            if c.valid is not None:
+                lsel = lsel & c.valid
+        for c in rkeys:
+            if c.valid is not None:
+                rsel = rsel & c.valid
+        probe = self._index_probe(node, left, right, lkeys, rkeys, lsel,
+                                  rsel)
+        if probe is not None:
+            index_ridx, counts = probe
+        else:
+            index_ridx = None
+            rkey, layout = K.pack_keys(rkeys, rsel, extra_cols=lkeys)
+            lkey = K.pack_with_layout(lkeys, lsel, layout)
+            order, lb, ub = K.build_probe(rkey, lkey)
+            counts = ub - lb
+
+        if jt == "MARK":  # filter-free by construction (planner)
+            return self._mark_join(left, right, node, lkeys, rkeys, counts)
+        if jt in ("SEMI", "ANTI") and node.filter is None:
+            found = counts > 0
+            return left.with_sel(left.sel & (found if jt == "SEMI"
+                                             else ~found))
+        # a dense unique build has at most one match: no host sync
+        max_matches = 1 if index_ridx is not None else \
+            (int(counts.max()) if counts.shape[0] else 0)
+        if max_matches > 1:
+            return self._expanding_join(left, right, node, order, lb, counts)
+        found = counts > 0
+        if index_ridx is not None:
+            ridx = index_ridx
+        else:
+            ridx = order[lb.clamp(0, max(order.shape[0] - 1, 0)).long()]
+        rbatch = K.gather_batch(right, ridx, idx_valid=found)
+        merged = dict(left.columns)
+        merged.update(rbatch.columns)
+        if node.filter is not None:
+            found = found & eval_predicate(node.filter,
+                                           Batch(merged, left.sel), self.ctx)
+            # data is independent of the match mask: only the validity
+            # tightens
+            for name, c in rbatch.columns.items():
+                v = found if c.valid is None else (c.valid & found)
+                merged[name] = Column(c.data, v, c.type, c.dictionary)
+        if jt == "SEMI":
+            return left.with_sel(left.sel & found)
+        if jt == "ANTI":
+            return left.with_sel(left.sel & ~found)
+        if jt == "INNER":
+            return Batch(merged, left.sel & found)
+        return Batch(merged, left.sel)  # LEFT
+
+    def _empty_build_join(self, left: Batch, right: Batch,
+                          node: P.Join) -> Batch:
+        """Zero-capacity build: no row matches; emit the no-match result
+        shape directly."""
+        jt = node.join_type
+        if jt == "SEMI":
+            return left.with_sel(torch.zeros_like(left.sel))
+        if jt == "ANTI":
+            return left
+        merged = dict(left.columns)
+        never = torch.zeros((left.capacity,), dtype=torch.bool,
+                            device=self.device)
+        if jt == "MARK":
+            # x IN (empty) is FALSE, never NULL, for every probe
+            merged[node.mark] = Column(never, None, T.BOOLEAN, None)
+            return Batch(merged, left.sel)
+        for name, t in node.right.outputs():
+            c = right.columns[name]
+            shape = (left.capacity,) + tuple(c.data.shape[1:])
+            merged[name] = Column(
+                torch.zeros(shape, dtype=c.data.dtype, device=self.device),
+                never, t, c.dictionary)
+        return Batch(merged, never if jt == "INNER" else left.sel)
+
+    def _index_probe(self, node, left, right, lkeys, rkeys, lsel, rsel):
+        """Index join: a dense (or block-strided) unique build key puts
+        the match of probe key k at a computed row, so the probe is ONE
+        gather, no sorts (hint from plan/optimizer._index_lookup_info).
+        Returns (ridx, counts), or None for the sort join: no hint, a
+        probe much wider than a strided build, or a build whose rows do
+        not hold the claimed layout (checked on the host)."""
+        il = getattr(node, "index_lookup", None)
+        if il is None or len(lkeys) != 1 \
+                or lkeys[0].dictionary is not None \
+                or rkeys[0].dictionary is not None \
+                or lkeys[0].data.ndim != 1:
+            return None
+        bk = il.get("block_keys", 1)
+        br = il.get("block_rows", 1)
+        strided = (bk, br) != (1, 1)
+        full_build = right.capacity == il["rows"]
+        if not (full_build or strided):
+            return None
+        if strided and lkeys[0].data.shape[0] > 2 * right.capacity:
+            # the index gather runs at probe capacity, the sort join's
+            # output at its own: gate to probes not much wider than the
+            # build
+            return None
+        nrows = right.capacity
+        rk = rkeys[0].data.to(torch.int64)
+        ar = torch.arange(nrows, dtype=torch.int64, device=self.device)
+        # row i holds key base + (i // br) * bk + i % br; dense layouts
+        # are the bk == br == 1 case
+        base = torch.tensor(il["min"], dtype=torch.int64,
+                            device=self.device) if full_build else rk[0]
+        expect = base + (ar // br) * bk + ar % br if strided else base + ar
+        if bool((rsel & (rk != expect)).any()):
+            return None
+        lk = lkeys[0].data.to(torch.int64)
+        off = lk - base
+        if strided:
+            pos_raw = (off // bk) * br + off % bk
+            in_slot = (off % bk) < br  # keys between blocks miss
+        else:
+            pos_raw = off
+            in_slot = torch.ones_like(off, dtype=torch.bool)
+        pos = pos_raw.clamp(0, nrows - 1).to(torch.int32)
+        in_range = (off >= 0) & (pos_raw < nrows) & in_slot
+        p = pos.long()
+        found = lsel & in_range & rsel[p] & (rk[p] == lk)
+        return pos, found.to(torch.int32)
+
+    def _mark_join(self, left, right, node, lkeys, rkeys, counts) -> Batch:
+        """Presto semiJoinOutput NULL semantics: TRUE on match; without a
+        match the mark is NULL (not FALSE) when the probe key is NULL or
+        the build side holds any NULL key, so `x NOT IN (sub)` filters
+        the row."""
+        merged = dict(left.columns)
+        found = counts > 0
+        lvalid = None
+        for c in lkeys:
+            if c.valid is not None:
+                lvalid = c.valid if lvalid is None else (lvalid & c.valid)
+        rnull = None
+        for c in rkeys:
+            if c.valid is not None:
+                has = (right.sel & ~c.valid).any()
+                rnull = has if rnull is None else (rnull | has)
+        mvalid = None  # keys can't be NULL: the mark is 2-valued
+        if lvalid is not None or rnull is not None:
+            ok = torch.ones_like(found) if lvalid is None else lvalid
+            if rnull is not None:
+                ok = ok & ~rnull
+            # an empty subquery makes the mark FALSE whatever the probe
+            # key; a build of only NULL keys is not empty (right.sel, not
+            # the key-filtered build selection)
+            mvalid = found | ok | ~right.sel.any()
+        merged[node.mark] = Column(found, mvalid, T.BOOLEAN, None)
+        return Batch(merged, left.sel)
+
+    def _expanding_join(self, left: Batch, right: Batch, node: P.Join,
+                        order, lb, counts) -> Batch:
+        """One-to-many join: probe row i expands into counts[i] output
+        rows (one for an unmatched LEFT row)."""
+        jt = node.join_type
+        counts = torch.where(left.sel, counts, 0)
+        eff_counts = counts
+        if jt == "LEFT":
+            eff_counts = torch.where(left.sel & (counts == 0), 1, counts)
+        total = int(eff_counts.sum())
+        if total == 0:
+            merged = dict(left.columns)
+            merged.update(right.columns)
+            empty = {n: Column(c.data[:0], None if c.valid is None
+                               else c.valid[:0], c.type, c.dictionary)
+                     for n, c in merged.items()}
+            return Batch(empty, torch.zeros((0,), dtype=torch.bool,
+                                            device=self.device))
+        offsets = torch.cumsum(eff_counts, 0) - eff_counts
+        lidx = torch.repeat_interleave(
+            torch.arange(left.capacity, device=self.device), eff_counts,
+            output_size=total)
+        k = torch.arange(total, device=self.device) - offsets[lidx]
+        has_match = counts[lidx] > 0
+        rpos = (lb[lidx] + k).clamp(0, max(order.shape[0] - 1, 0))
+        rbatch = K.gather_batch(right, order[rpos], idx_valid=has_match)
+        # lidx is repeat(arange): nondecreasing by construction
+        lbatch = K.gather_batch(left, lidx, presorted=True)
+        merged = dict(lbatch.columns)
+        merged.update(rbatch.columns)
+        sel = lbatch.sel
+        out = Batch(merged, sel)
+        match_ok = has_match
+        if node.filter is not None:
+            match_ok = match_ok & eval_predicate(node.filter, out, self.ctx)
+        if jt == "INNER":
+            return out.with_sel(sel & match_ok)
+        if jt in ("SEMI", "ANTI"):
+            hit = K.segment_any(sel & match_ok, lidx, left.capacity)
+            return left.with_sel(left.sel & (hit if jt == "SEMI" else ~hit))
+        if jt == "LEFT":
+            if node.filter is None:
+                return out
+            # a row whose every match fails the filter still appears
+            # once, with its right side NULL
+            any_ok = K.segment_any(sel & match_ok, lidx, left.capacity)
+            keep = torch.where(any_ok[lidx], match_ok, k == 0)
+            for name in rbatch.columns:
+                c = merged[name]
+                v = match_ok if c.valid is None else (c.valid & match_ok)
+                merged[name] = Column(c.data, v, c.type, c.dictionary)
+            return Batch(merged, sel & keep)
+        raise ExecutionError(f"join type {jt} not implemented")
 
     def _exec_output(self, node: P.Output) -> Batch:
         return self.exec_node(node.source).select(list(node.symbols))
@@ -400,6 +665,26 @@ def scan_batch(table, node: P.TableScan, device: torch.device) -> Batch:
         cols[sym] = Column(c.data, c.valid, node.types[sym], c.dictionary)
         n = c.data.shape[0]
     return Batch(cols, torch.ones((n,), dtype=torch.bool, device=device))
+
+
+def _unify_key_dictionaries(lkeys: List[Column], rkeys: List[Column]):
+    """Join keys that are string columns with different dictionaries are
+    re-encoded into a merged dictionary, so code equality is string
+    equality."""
+    lout, rout = [], []
+    for lc, rc in zip(lkeys, rkeys):
+        if not lc.type.is_string or lc.dictionary is rc.dictionary:
+            lout.append(lc)
+            rout.append(rc)
+            continue
+        merged = Dictionary(np.unique(np.concatenate(
+            [lc.dictionary.values, rc.dictionary.values])))
+        for c, out in ((lc, lout), (rc, rout)):
+            lut = torch.from_numpy(translate_codes(c.dictionary, merged)) \
+                .to(c.data.device)
+            codes = c.data.clamp(0, len(c.dictionary) - 1).long()
+            out.append(Column(lut[codes], c.valid, c.type, merged))
+    return lout, rout
 
 
 def _single_value(b: Batch):

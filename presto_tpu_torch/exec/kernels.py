@@ -1,9 +1,10 @@
 """Relational kernels over columnar torch tensors.
 
-Reference: presto_tpu/exec/kernels.py.  The slice of TPC-H Q1/Q6 needs
-key packing, sort-based grouping, segmented reductions, the ORDER BY
-permutation, row gathers and the fused multi-aggregate reduction
-`fused_group_sums`, whose CUDA kernel lives in
+Reference: presto_tpu/exec/kernels.py.  The slice of TPC-H Q1/Q3/Q6/Q18
+needs key packing, sort-based grouping, segmented reductions, the ORDER
+BY permutation, the join probe, packed row gathers (whose large staged
+gathers run the block_gather CUDA kernel, exec/gather.py) and the fused
+multi-aggregate reduction `fused_group_sums`, whose CUDA kernel lives in
 presto_tpu_torch/csrc/fused_group_sums.cu.
 
 Two differences from the reference's JAX code are deliberate:
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Column
+from presto_tpu_torch.exec import gather as G
 
 I64_MIN = np.iinfo(np.int64).min
 I64_MAX = np.iinfo(np.int64).max
@@ -352,27 +354,200 @@ def segment_max(x, gid, n_groups):
     return _segment_extreme(x, gid, n_groups, False)
 
 
+def segment_any(mask: torch.Tensor, gid: torch.Tensor, n: int) -> torch.Tensor:
+    """True where ANY row of the segment has `mask` set; gid is a
+    probe-row index, always in [0, n)."""
+    out = torch.zeros((n,), dtype=torch.int32, device=mask.device)
+    out.scatter_reduce_(0, gid.long(), mask.to(torch.int32), "amax")
+    return out > 0
+
+
 # ---------------------------------------------------------------------------
-# gathers (the flat route; the reference's staged block-gather is the
-# next slice's kernel)
+# join probe
 # ---------------------------------------------------------------------------
+
+
+def pack_with_layout(cols: List[Column], sel, layout) -> torch.Tensor:
+    """Pack another column set with a layout from pack_keys (the join's
+    probe side shares the build side's strides)."""
+    if layout is None:
+        return _hash_keys(cols, sel)
+    key = _apply_layout(cols, layout)
+    return torch.where(sel, key, key_sentinel(key))
+
+
+def build_probe(build_key: torch.Tensor, probe_key: torch.Tensor):
+    """Sort the build side; position every probe key among the build
+    keys.  Returns (order, lb, ub): build_key[order] is sorted and the
+    matches of probe row i are order[lb[i]:ub[i]].
+
+    The reference sorts (key, side flag) together.  Build rows precede
+    probe rows in the concatenation, so one stable sort on the key alone
+    puts builds before probes within a run of equal keys: the same
+    order."""
+    nb = build_key.shape[0]
+    order = sort_pair(build_key)[1]
+    allk = torch.cat([build_key, probe_key])
+    n = allk.shape[0]
+    sk, sidx = sort_pair(allk)
+    is_build = (sidx < nb).to(torch.int32)
+    before = torch.cumsum(is_build, 0, dtype=torch.int32) - is_build
+    # first position of each equal-key run via a running maximum
+    pos = torch.arange(n, dtype=torch.int32, device=allk.device)
+    newrun = torch.ones((n,), dtype=torch.bool, device=allk.device)
+    if n > 1:
+        newrun[1:] = sk[1:] != sk[:-1]
+    run_start = torch.cummax(torch.where(newrun, pos, -1), 0).values
+    # builds sort before probes within a run, so at a probe's position:
+    #   lb = builds before its run (key <  probe key)
+    #   ub = builds before itself  (key <= probe key)
+    lb_at = before[run_start.clamp(0, max(n - 1, 0)).long()]
+    lb_all, ub_all = unpermute(sidx, lb_at, before)
+    lb, ub = lb_all[nb:], ub_all[nb:]
+    # sentinel keys (masked build rows) must not match masked probe rows
+    live = probe_key != key_sentinel(probe_key)
+    return order, torch.where(live, lb, 0), torch.where(live, ub, 0)
+
+
+# ---------------------------------------------------------------------------
+# gathers: columns packed into one word matrix, routed flat or staged
+# (exec/gather.py)
+# ---------------------------------------------------------------------------
+
+_PACKED_MIN_INDICES = 65536  # below this, one gather per word
+
+
+def take_rows(arrays: List[torch.Tensor], idx: torch.Tensor,
+              presorted: bool = False) -> List[torch.Tensor]:
+    """Gather idx rows from every array, packing columns into one int32
+    word matrix so ONE gather moves them all: 4-byte types as bit views,
+    bools and narrower ints widened, 8-byte integers as two words (low,
+    high), f64 and matrix-shaped arrays gathered directly.  The reference
+    packs into u32 words; these are the same bits as int32.
+
+    Large gathers route through exec/gather.py: staged gathers sort the
+    indices, gather in ascending order through the block_gather kernel
+    and carry the rows home in one scatter.  `presorted=True` asserts
+    idx is nondecreasing: staging then skips the sort and the way home."""
+    if arrays and arrays[0].shape[0] == 0 and idx.shape[0] > 0:
+        # gathering from an EMPTY source: every index is dead and the
+        # caller masks the result
+        return [torch.zeros((idx.shape[0],) + tuple(a.shape[1:]),
+                            dtype=a.dtype, device=a.device) for a in arrays]
+    words: List[torch.Tensor] = []
+    spec: List = [None] * len(arrays)  # how to rebuild each output
+    for i, a in enumerate(arrays):
+        dt = a.dtype
+        if a.ndim > 1 or dt == torch.float64:
+            spec[i] = ("direct", None)
+        elif dt == torch.bool:
+            spec[i] = ("bool", len(words))
+            words.append(a.to(torch.int32))
+        elif dt.itemsize == 8:
+            spec[i] = ("i64", len(words))
+            pair = a.contiguous().view(torch.int32).view(-1, 2)
+            words.extend([pair[:, 0], pair[:, 1]])  # little-endian: lo, hi
+        elif dt.itemsize == 4:
+            spec[i] = ("cast", len(words))
+            words.append(a.view(torch.int32))
+        else:
+            spec[i] = ("widen", len(words))
+            words.append(a.to(torch.int32))
+    n_src = arrays[0].shape[0] if arrays else 0
+    device = arrays[0].device if arrays else idx.device
+    route = G.gather_route(n_src, idx.shape[0], len(words), presorted,
+                           device)
+    if route == "staged":
+        return _take_rows_staged(arrays, idx, words, spec, presorted)
+    i = idx.long()
+    if len(words) >= 2 and idx.shape[0] >= _PACKED_MIN_INDICES:
+        packed = torch.stack(words, 1).index_select(0, i)
+        col = lambda k: packed[:, k]  # noqa: E731
+    else:
+        taken = [w[i] for w in words]
+        col = lambda k: taken[k]  # noqa: E731
+    directs = {j: arrays[j][i] for j, s in enumerate(spec)
+               if s[0] == "direct"}
+    return _rebuild_taken(arrays, spec, col, directs)
+
+
+def _take_rows_staged(arrays, idx, words, spec, presorted):
+    """Ascending gather through block_gather, then (for request-order
+    callers) ONE scatter keyed on the saved positions carries the word
+    matrix and the direct columns home together."""
+    ii = idx.to(torch.int32)
+    if presorted:
+        sidx, spos = ii.contiguous(), None
+    else:
+        sidx, spos = sort_pair(ii)
+    mat = torch.stack(words, 1)
+    rows = G.block_gather(mat, sidx)
+    s = sidx.long()
+    directs = {j: arrays[j][s] for j, sp in enumerate(spec)
+               if sp[0] == "direct"}
+    if spos is not None:
+        home = unpermute(spos, rows, *directs.values())
+        if directs:
+            rows = home[0]
+            directs = dict(zip(directs, home[1:]))
+        else:
+            rows = home
+    return _rebuild_taken(arrays, spec, lambda k: rows[:, k], directs)
+
+
+def _rebuild_taken(arrays, spec, col, directs) -> List[torch.Tensor]:
+    out = []
+    for i, a in enumerate(arrays):
+        kind, k = spec[i]
+        if kind == "direct":
+            out.append(directs[i])
+        elif kind == "bool":
+            out.append(col(k) != 0)
+        elif kind == "i64":
+            pair = torch.stack([col(k), col(k + 1)], 1)
+            out.append(pair.view(a.dtype).view(-1))
+        elif kind == "cast":
+            out.append(col(k).contiguous().view(a.dtype))
+        else:  # widen
+            out.append(col(k).to(a.dtype))
+    return out
 
 
 def take_columns(columns: Dict[str, Column], idx: torch.Tensor,
-                 extra: Optional[List[torch.Tensor]] = None):
-    """Gather idx rows of (data, valid) for every column.  Returns
-    ({name: (data, valid)}, [extra results])."""
-    i = idx.long()
-    out = {name: (c.data[i], None if c.valid is None else c.valid[i])
-           for name, c in columns.items()}
-    return out, [a[i] for a in (extra or [])]
+                 extra: Optional[List[torch.Tensor]] = None,
+                 presorted: bool = False):
+    """Gather idx rows of (data, valid) for every column in one packed
+    take_rows pass.  Returns ({name: (data, valid)}, [extra results]);
+    `extra` arrays ride the same pack."""
+    arrays = list(extra or [])
+    n_extra = len(arrays)
+    for c in columns.values():
+        arrays.append(c.data)
+        if c.valid is not None:
+            arrays.append(c.valid)
+    taken = take_rows(arrays, idx, presorted=presorted)
+    out = {}
+    i = n_extra
+    for name, c in columns.items():
+        data = taken[i]
+        i += 1
+        valid = None
+        if c.valid is not None:
+            valid = taken[i]
+            i += 1
+        out[name] = (data, valid)
+    return out, taken[:n_extra]
 
 
-def gather_batch(batch: Batch, idx: torch.Tensor, idx_valid=None) -> Batch:
-    """Gather rows of all columns at idx (clipped); optionally mask."""
+def gather_batch(batch: Batch, idx: torch.Tensor, idx_valid=None,
+                 presorted: bool = False) -> Batch:
+    """Gather rows of all columns at idx (clipped); optionally mask.
+    presorted=True asserts idx is nondecreasing; idx_valid, if given, is
+    in the same order as idx."""
     n = batch.capacity
     safe = idx.clamp(0, max(n - 1, 0))
-    raw, (sel,) = take_columns(batch.columns, safe, extra=[batch.sel])
+    raw, (sel,) = take_columns(batch.columns, safe, extra=[batch.sel],
+                               presorted=presorted)
     cols = {}
     for name, (data, valid) in raw.items():
         c = batch.columns[name]

@@ -1,6 +1,6 @@
-"""The TPC-H query texts that presto_tpu_torch's slice runs (Q1 and Q6),
-copied from the reference's corpus so that nothing outside the package
-is needed to drive it."""
+"""The TPC-H query texts that presto_tpu_torch's slice runs (Q1, Q3, Q6
+and Q18), copied from the reference's corpus so that nothing outside the
+package is needed to drive it."""
 
 QUERIES = {
 1: """
@@ -18,6 +18,18 @@ WHERE l_shipdate <= DATE '1998-12-01' - INTERVAL '90' DAY
 GROUP BY l_returnflag, l_linestatus
 ORDER BY l_returnflag, l_linestatus
 """,
+3: """
+SELECT l_orderkey,
+       sum(l_extendedprice * (1 - l_discount)) AS revenue,
+       o_orderdate, o_shippriority
+FROM customer, orders, lineitem
+WHERE c_mktsegment = 'BUILDING'
+  AND c_custkey = o_custkey AND l_orderkey = o_orderkey
+  AND o_orderdate < DATE '1995-03-15' AND l_shipdate > DATE '1995-03-15'
+GROUP BY l_orderkey, o_orderdate, o_shippriority
+ORDER BY revenue DESC, o_orderdate
+LIMIT 10
+""",
 6: """
 SELECT sum(l_extendedprice * l_discount) AS revenue
 FROM lineitem
@@ -25,5 +37,17 @@ WHERE l_shipdate >= DATE '1994-01-01'
   AND l_shipdate < DATE '1994-01-01' + INTERVAL '1' YEAR
   AND l_discount BETWEEN 0.05 AND 0.07
   AND l_quantity < 24
+""",
+18: """
+SELECT c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice, sum(l_quantity)
+FROM customer, orders, lineitem
+WHERE o_orderkey IN (
+      SELECT l_orderkey FROM lineitem
+      GROUP BY l_orderkey
+      HAVING sum(l_quantity) > 300)
+  AND c_custkey = o_custkey AND o_orderkey = l_orderkey
+GROUP BY c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+ORDER BY o_totalprice DESC, o_orderdate
+LIMIT 100
 """,
 }

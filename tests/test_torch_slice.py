@@ -68,7 +68,7 @@ def fused_calls(monkeypatch):
 
 
 def test_query_texts_are_the_reference_corpus():
-    assert QUERIES == {q: REF_QUERIES[q] for q in (1, 6)}
+    assert QUERIES == {q: REF_QUERIES[q] for q in (1, 3, 6, 18)}
 
 
 @pytest.mark.parametrize("qid", [1, 6])
@@ -132,8 +132,10 @@ def test_unported_modes_raise(prop, port_catalog):
 
 
 @pytest.mark.parametrize("sql,name", [
-    ("SELECT count(*) FROM lineitem a, lineitem b "
-     "WHERE a.l_orderkey = b.l_orderkey", "Join"),
+    ("SELECT l_orderkey, row_number() OVER (PARTITION BY l_orderkey "
+     "ORDER BY l_linenumber) FROM lineitem", "Window"),
+    ("SELECT count(*) FROM lineitem a FULL JOIN lineitem b "
+     "ON a.l_orderkey = b.l_orderkey", "FULL"),
     ("SELECT upper(l_comment) FROM lineitem", "upper"),
 ])
 def test_unported_nodes_and_functions_raise_with_their_name(sql, name,
