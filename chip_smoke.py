@@ -8,13 +8,19 @@ It builds the kernels from presto_tpu_torch/csrc into build/ (one nvcc
 per source, started together), checks each kernel at the shapes the
 main path gives it (and at edge shapes), times it beside its plain
 version, its byte/operation bound and the one PyTorch call that computes
-the same function, then runs TPC-H Q1, Q6, Q3 and Q18 at SF1 through
-`presto_tpu_torch.connect(...).sql(...)` and checks the rows against a
-numpy computation from the generated columns and against the same
-queries on the CPU (Q1/Q6 at SF1, Q3/Q18 at SF0.1).  Every phase prints
-one JSON line; the last line is {"ok": true, "device": {...}}.  Any
-failure raises and exits non-zero; without a CUDA device it exits 2
-before printing a result.
+the same function, and launches fused_group_sums ten times a shape to
+see whether its result is bit-identical.  fused_group_sums and its
+plain version are also each held against the correctly rounded sums
+(math.fsum on the host), so that the kernel's check does not rest on
+the plain version alone.  Then it runs TPC-H Q1, Q6, Q3
+and Q18 at SF1 through `presto_tpu_torch.connect(...).sql(...)`, checks
+the rows against a numpy computation from the generated columns and
+against the same queries on the CPU (Q1/Q6 at SF1, Q3/Q18 at SF0.1),
+and holds fused_group_sums against its plain version on the very input
+one Q1 run gives it (and against the correctly rounded sums there
+too).  Every phase prints one JSON line; the last line
+is {"ok": true, "device": {...}}.  Any failure raises and exits
+non-zero; without a CUDA device it exits 2 before printing a result.
 """
 
 import json
@@ -31,12 +37,20 @@ HBM_BYTES_PER_S = 3.35e12
 F64_FLOPS = 34e12
 SF = 1
 KERNEL_RTOL = 1e-12  # kernel vs plain version, f64: summation order only
+# fused_group_sums' kernel and plain version each vs the correctly
+# rounded sums: a two-level f64 sum of positive values is off by about
+# 1e-14 (one chain of 2.9M adds, as one index_add_ does, by 2.8e-12)
+EXACT_RTOL = 1e-13
 QUERY_RTOL = 1e-9    # sums/averages across packages, devices, orders
-# fused_group_sums shapes: Q1 at SF1 (k=15 rows of sums, 4 groups), a
-# group count that forces the shared-memory tiling, a single group, and
-# an empty input
-FGS_SHAPES = [(15, 6_000_601, 4), (8, 1_000_003, 4096), (2, 8_191, 1),
-              (3, 0, 4)]
+# fused_group_sums shapes (k, n, G, first element's offset into its
+# buffer): Q1 at SF1 (k=15 rows of sums, 4 groups), the executor gate's
+# largest group count, the largest and the smallest G of each path at an
+# even n, rows that start 8 bytes off a 16-byte boundary, a single group,
+# and an empty input
+FGS_SHAPES = [(15, 6_000_601, 4, 0), (8, 1_000_003, 4096, 0),
+              (4, 1_000_000, 16, 0), (4, 1_000_000, 17, 0),
+              (5, 1_000_000, 3, 1), (2, 8_191, 1, 0), (3, 0, 4, 0)]
+FGS_REPEATS = 10  # launches a shape whose outputs must be bit-identical
 # block_gather shapes (source rows n, words w, indices m, how the sorted
 # indices are drawn): the main path's four gathers at SF1 (Q3's orders
 # at lineitem first), then edge shapes
@@ -94,21 +108,79 @@ def phase_build():
     names = ["fused_group_sums", "block_gather"]
     t0 = time.perf_counter()
     cuda_build.build_all(names)
-    row = {"phase": "build", "seconds": time.perf_counter() - t0}
+    row = {"phase": "build", "seconds": time.perf_counter() - t0,
+           "fgs_template_bounds": check_fgs_bounds()}
     for name in names:
         info = cuda_build.build_info.get(name, {})
         row[name] = {"nvcc_seconds": info.get("seconds"), "ptxas": [
             ln.strip() for ln in info.get("log", "").splitlines()
-            if "registers" in ln or "Compiling entry" in ln]}
+            if "registers" in ln or "Compiling entry" in ln
+            or "spill" in ln],
+            "sass_atomics": sass_atomics(cuda_build.library_path(name))}
     emit(row)
 
 
-def fgs_inputs(k, n, G, seed):
+def check_fgs_bounds():
+    """The launch plan's limits against the compile-time bounds of
+    csrc/fused_group_sums.cu (threads a block, register-path rows a
+    slice at each group-slot count): they must agree, or a plan would
+    not fit its template.  Returns {group slots: rows a slice}."""
+    import ctypes
+
+    from presto_tpu_torch.exec import cuda_build
+    from presto_tpu_torch.exec import kernels as K
+
+    lib = cuda_build.load("fused_group_sums")
+    out = {}
+    slots = 1
+    while slots <= K._FGS_REGISTER_GROUPS:
+        threads, rows = ctypes.c_int(), ctypes.c_int()
+        lib.fused_group_sums_bounds(slots, ctypes.byref(threads),
+                                    ctypes.byref(rows))
+        if (threads.value, rows.value) != (
+                K._FGS_THREADS, K.fgs_register_slice_rows(slots)):
+            raise AssertionError(
+                f"fused_group_sums at {slots} group slots: the source's "
+                f"bounds (threads {threads.value}, rows {rows.value}) differ "
+                f"from the launch plan's (threads {K._FGS_THREADS}, rows "
+                f"{K.fgs_register_slice_rows(slots)})")
+        out[slots] = rows.value
+        slots *= 2
+    return out
+
+
+def sass_atomics(lib):
+    """{kernel: sorted atomic opcodes} in the library's SASS, from
+    cuobjdump: shows whether an f64 atomicAdd on shared memory is one
+    instruction or a compare-and-swap loop."""
+    from presto_tpu_torch.exec import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return "not measured: no cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    out, kernel = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            kernel = ln.split("Function :")[1].strip()
+            out[kernel] = set()
+        elif kernel is not None:
+            for word in ln.replace(";", " ").split():
+                if word.startswith(("ATOM", "RED")):
+                    out[kernel].add(word)
+    return {kern: sorted(ops) for kern, ops in out.items()}
+
+
+def fgs_inputs(k, n, G, offset, seed):
+    """vals [k, n] whose first element sits `offset` doubles into its
+    buffer (a contiguous view), and gid [n], from a seeded generator."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    vals = torch.rand((k, n), dtype=torch.float64, device="cuda",
-                      generator=g) * 1e4
+    buf = torch.rand((k * n + offset,), dtype=torch.float64, device="cuda",
+                     generator=g) * 1e4
+    vals = buf[offset:].view(k, n)
     gid = torch.randint(0, G, (n,), dtype=torch.int32, device="cuda",
                         generator=g)
     return vals, gid
@@ -124,47 +196,93 @@ def fgs_bound(k, n, G):
         "operations"
 
 
-def phase_kernel():
+def rel_err(x, ref, rtol):
+    """(max abs error, max relative error, every error within rtol of
+    |ref|) of x against ref."""
+    import torch
+
+    err = (x - ref).abs()
+    if not err.numel():
+        return 0.0, 0.0, True
+    return (float(err.max()),
+            float((err / ref.abs().clamp_min(1e-300)).max()),
+            bool(torch.all(err <= rtol * ref.abs())))
+
+
+def fgs_check(vals, gid, G, sm, shown=None):
+    """fused_group_sums on one input: its launch plan, its error against
+    the plain version, the kernel's and the plain version's errors
+    against the correctly rounded sums (and those of the `shown` {name:
+    [k, G] sums}, reported only), whether FGS_REPEATS launches agree bit
+    for bit, and (n > 0) its time beside the plain version, index_add_
+    and the bound."""
     import torch
 
     from presto_tpu_torch.exec import kernels as K
 
+    k, n = vals.shape
+    plan = K.fused_group_sums_launch_shape(n, k, G, sm)
+    out = K.fused_group_sums(vals, gid, G)
+    plain = K.fused_group_sums_plain(vals, gid, G)
+    same = all(torch.equal(out, K.fused_group_sums(vals, gid, G))
+               for _ in range(FGS_REPEATS - 1))
+    torch.cuda.synchronize()
+    max_abs, max_rel, ok = rel_err(out, plain, KERNEL_RTOL)
+    exact = torch.from_numpy(exact_group_sums(vals, gid, G)).cuda()
+    vs_exact = {name: rel_err(x, exact, EXACT_RTOL)
+                for name, x in (("kernel", out), ("plain", plain),
+                                *(shown or {}).items())}
+    row = {"k": k, "n": n, "groups": G, "path": plan.path,
+           "plan": plan._asdict(), "max_abs_err": max_abs,
+           "max_rel_err": max_rel, "ok": ok,
+           "max_rel_err_vs_exact": {name: e[1]
+                                    for name, e in vs_exact.items()},
+           f"bit_identical_in_{FGS_REPEATS}": same,
+           # the register path has no atomics; the shared-table path adds
+           # with shared-memory atomics, whose order the card chooses
+           "deterministic": plan.path == "registers"}
+    if n:
+        iters = 20 if n > 100_000 else 200
+
+        def library():
+            return torch.zeros((k, G), dtype=torch.float64,
+                               device="cuda").index_add_(1, gid, vals)
+
+        row["ms"] = cuda_ms(lambda: K.fused_group_sums(vals, gid, G), iters)
+        row["plain_ms"] = cuda_ms(
+            lambda: K.fused_group_sums_plain(vals, gid, G), iters)
+        row["library_ms"] = cuda_ms(library, iters)
+        row["bound_ms"], row["bound_by"] = fgs_bound(k, n, G)
+        row["roofline_share"] = row["bound_ms"] / row["ms"]
+    if not ok:
+        raise AssertionError(
+            f"fused_group_sums disagrees with its plain version at "
+            f"k={k} n={n} G={G}: max rel err {max_rel}")
+    for name in ("kernel", "plain"):
+        _, rel, within = vs_exact[name]
+        if not within:
+            raise AssertionError(
+                f"fused_group_sums' {name} version is {rel} off the "
+                f"correctly rounded sums at k={k} n={n} G={G}, beyond "
+                f"{EXACT_RTOL}")
+    if row["deterministic"] and not same:
+        raise AssertionError(
+            f"fused_group_sums' register path gave different bits in "
+            f"{FGS_REPEATS} launches at k={k} n={n} G={G}")
+    return row
+
+
+def phase_kernel():
+    import torch
+
     rows = []
     sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for i, (k, n, G) in enumerate(FGS_SHAPES):
-        vals, gid = fgs_inputs(k, n, G, seed=i)
-        out = K.fused_group_sums(vals, gid, G)
-        plain = K.fused_group_sums_plain(vals, gid, G)
-        torch.cuda.synchronize()
-        err = (out - plain).abs()
-        max_abs = float(err.max()) if err.numel() else 0.0
-        max_rel = float((err / plain.abs().clamp_min(1e-300)).max()) \
-            if err.numel() else 0.0
-        ok = bool(torch.all(err <= KERNEL_RTOL * plain.abs()))
-        blocks, gtile = K.fused_group_sums_launch_shape(n, k, G, sm)
-        row = {"k": k, "n": n, "groups": G, "max_abs_err": max_abs,
-               "max_rel_err": max_rel, "ok": ok, "row_blocks": blocks,
-               "group_tiles": -(-G // gtile), "smem_bytes": 8 * k * gtile}
-        if n:
-            iters = 20 if n > 100_000 else 200
-
-            def library():
-                return torch.zeros((k, G), dtype=torch.float64,
-                                   device="cuda").index_add_(1, gid, vals)
-
-            row["ms"] = cuda_ms(lambda: K.fused_group_sums(vals, gid, G),
-                                iters)
-            row["plain_ms"] = cuda_ms(
-                lambda: K.fused_group_sums_plain(vals, gid, G), iters)
-            row["library_ms"] = cuda_ms(library, iters)
-            row["bound_ms"], row["bound_by"] = fgs_bound(k, n, G)
-            row["roofline_share"] = row["bound_ms"] / row["ms"]
+    for i, (k, n, G, offset) in enumerate(FGS_SHAPES):
+        vals, gid = fgs_inputs(k, n, G, offset, seed=i)
+        row = fgs_check(vals, gid, G, sm)
+        row["offset"] = offset
         emit({"phase": "kernel", "name": "fused_group_sums", **row})
         rows.append(row)
-        if not ok:
-            raise AssertionError(
-                f"fused_group_sums disagrees with its plain version at "
-                f"k={k} n={n} G={G}: max rel err {max_rel}")
         del vals, gid
     return rows
 
@@ -490,9 +608,49 @@ def phase_slice():
           "peak_device_bytes": max(peaks.values())})
     for qid in (3, 18):
         phase_launch_log(gpu, qid, QUERIES[qid])
+    q1_row = phase_q1_input(gpu, QUERIES[1])
     for qid in SLICE_QUERIES:
         phase_profile(gpu, qid, QUERIES[qid])
-    return launches
+    return launches, q1_row
+
+
+def phase_q1_input(session, sql):
+    """One more Q1 run with its fused_group_sums input captured, then the
+    kernel held against its plain version and the correctly rounded sums
+    on that input (the main path's real gid: skewed groups, masked rows
+    in the last group)."""
+    import torch
+
+    from presto_tpu_torch.exec import kernels as K
+
+    calls = []
+    real = K.fused_group_sums
+
+    def captured(vals, gid, n_groups):
+        calls.append((vals.clone(), gid.clone(), n_groups))
+        return real(vals, gid, n_groups)
+
+    K.fused_group_sums = captured
+    try:
+        session.sql(sql)
+    finally:
+        K.fused_group_sums = real
+    if len(calls) != 1:
+        raise AssertionError(f"Q1 called fused_group_sums {len(calls)} "
+                             "times, expected once")
+    vals, gid, G = calls[0]
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    # shown beside them: one index_add_ over all rows, which adds each
+    # group's rows in one chain and drifts by 1e-12 on this input
+    one_chain = torch.zeros((vals.shape[0], G), dtype=torch.float64,
+                            device="cuda").index_add_(1, gid, vals)
+    row = fgs_check(vals, gid, G, sm, shown={"one_index_add_": one_chain})
+    row["group_rows"] = torch.bincount(gid, minlength=G).tolist()
+    emit({"phase": "kernel_q1_input", "name": "fused_group_sums", **row})
+    if not row[f"bit_identical_in_{FGS_REPEATS}"]:
+        raise AssertionError("fused_group_sums gave different bits in "
+                             f"{FGS_REPEATS} launches on Q1's input")
+    return row
 
 
 def phase_launch_log(session, qid, sql):
@@ -533,6 +691,22 @@ def phase_launch_log(session, qid, sql):
           "block_gather_calls": log})
 
 
+def exact_group_sums(vals, gid, G):
+    """[k, G] f64 numpy: each group's sum of each value row, correctly
+    rounded (math.fsum on the host)."""
+    import numpy as np
+
+    v, g = vals.cpu().numpy(), gid.cpu().numpy()
+    order = np.argsort(g, kind="stable")
+    bounds = np.searchsorted(g[order], np.arange(G + 1))
+    out = np.zeros((v.shape[0], G))
+    for j in range(v.shape[0]):
+        vj = v[j][order]
+        for c in range(G):
+            out[j, c] = math.fsum(vj[bounds[c]:bounds[c + 1]])
+    return out
+
+
 def phase_profile(session, qid, sql, top=8):
     """Where a warm query's time goes: wall time, summed device kernel
     time (so the device's busy and idle shares of the wall) and the
@@ -552,6 +726,8 @@ def phase_profile(session, qid, sql, top=8):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     row = {"phase": "profile", "query": f"Q{qid}", "wall_ms": wall_ms}
     if busy_ms > 0:
+        row["fgs_kernels_ms"] = sum(e.self_device_time_total for e in kernels
+                                    if "fgs_" in e.key) / 1e3
         kernels.sort(key=lambda e: -e.self_device_time_total)
         row.update({
             "device_busy_ms": busy_ms, "device_idle_share":
@@ -580,15 +756,15 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     phase_build()
-    fgs_rows = phase_kernel()
+    phase_kernel()
     bg_rows = phase_block_gather()
-    launches = phase_slice()
+    launches, q1_row = phase_slice()
     kernels = []
-    # each kernel at its main path's shape: Q1's for fused_group_sums,
-    # Q3's orders-at-lineitem gather for block_gather
+    # each kernel at its main path's shape: the input one Q1 run gives
+    # fused_group_sums, Q3's orders-at-lineitem gather for block_gather
     for name, src, replaces, row in (
             ("fused_group_sums", "fused_group_sums.cu",
-             "presto_tpu/exec/kernels.py:1484", fgs_rows[0]),
+             "presto_tpu/exec/kernels.py:1484", q1_row),
             ("block_gather", "block_gather.cu",
              "presto_tpu/exec/gather.py:160", bg_rows[0])):
         kernels.append({

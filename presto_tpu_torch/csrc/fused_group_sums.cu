@@ -13,100 +13,308 @@
 //
 // What bounds it: HBM bytes.  The function must read vals and gid once
 // (k*n*8 + n*4 bytes; 744.1 MB for TPC-H Q1 at SF1, k=15, n=6,000,601)
-// and does one add per value, far below the card's f64 rate.  The design
-// answers that with one pass and on-chip accumulators:
-//   - blocks grid-stride over the rows; neighbouring threads read
-//     neighbouring rows, so every load of a vals row is coalesced;
-//   - each block keeps a k x gtile f64 table in shared memory and adds
-//     into it with shared-memory atomics, so the sums never touch device
-//     memory until the block is done;
-//   - each block writes its table to partials[block, k, G]; a second
-//     launch sums the partials over blocks in block order.
-//   - when k*G*8 bytes exceed the shared-memory budget, blockIdx.y tiles
-//     the groups: each y-slice keeps only the groups [g0, g0 + gtile),
-//     reads gid in full and vals only for its own rows.
+// and does one add per value, far below the card's f64 rate.  Two paths,
+// chosen on the host from the shape alone
+// (exec/kernels.py::fused_group_sums_launch_shape):
 //
-// Known hazards, left for a later change:
-//   - at Q1's G = 4 every thread adds into the same 60 shared addresses,
-//     so the shared atomics serialize; warp-private sub-tables would be
-//     the first refinement;
-//   - the shared atomics commit in hardware order, so a block's partial
-//     sum (and with it the last bits of the result) is not fixed from run
-//     to run; only the merge over blocks is;
-//   - no vectorised 16-byte loads and no TMA ring yet.
+//   registers (G <= 16; TPC-H Q1 has G = 4): no atomics.
+//     - each thread keeps acc[kc][GM] in registers (GM = G rounded up to
+//       a power of two, kc <= 8, kc * GM <= 32) and adds each value into
+//       the slot of its gid with predicated adds; it reads a row's gid
+//       once for all kc values;
+//     - blockIdx.y cuts the k rows into slices of kc rows, so a slice
+//       reads gid (4 B a row) and only its own rows of vals; Q1's 15 rows
+//       take two slices (8 and 7 rows), which read gid twice: 24 MB more
+//       than the 744.1 MB bound, for half the registers of one slice;
+//     - a thread issues all kc loads of a step before it adds, so each
+//       step waits for memory once;
+//     - vals rows are read as 16-byte pairs.  With n odd every other row
+//       starts 8 bytes off a 16-byte boundary, so each row's pairs start
+//       at element h (0 or 1, from the row's address): a thread loads
+//       gid[i..i+2] and pairs (i+h, i+h+1) of every row.  The one or two
+//       elements no pair covers (element 0 of a shifted row, the tail)
+//       are added by thread 0 of the slice's block 0;
+//     - the sum has one fixed order: each thread's rows in grid-stride
+//       order, a warp-shuffle tree, the warps of a block in index order,
+//       then fgs_merge over blocks in index order.  The launch plan
+//       depends on the shape and the SM count only, and each row's pair
+//       offset on its address, so the result is bit-identical from run to
+//       run, on any gid distribution, for the same card and the same
+//       16-byte alignment of the vals buffer (a view that starts 8 bytes
+//       further sums the same values in another order).
+//   shared_table (16 < G): one f64 table a block, in shared memory.
+//     - blockIdx.y cuts the k rows into slices whose kc x G table fits
+//       64 KB, so a slice reads gid and only its own rows of vals: there
+//       is no tiling over groups that re-reads the input;
+//     - the grid fills every SM (blocks per SM from the shared memory a
+//       block takes); the [blocks, k, G] partials are summed by fgs_merge.
+//
+// The launch plan (threads a block aside) is the host's: kc, the slices,
+// the blocks and the shared-memory bytes come from it.  This file holds
+// only the compile-time bounds a plan must fit (kThreads, and the most
+// rows a register slice can hold at each group count), and
+// fused_group_sums_bounds reports them so that a caller can check.
+//
+// Hazards that remain:
+//   - the shared_table path adds with shared-memory atomics, which commit
+//     in hardware order: the last bits of its sums may vary from run to
+//     run (the merge over blocks is ordered);
+//   - a table row is 8 * G bytes: G above 29,056 does not fit one block's
+//     shared memory, and the wrapper refuses it (the executor's gate stops
+//     at G = 4,096);
+//   - the launch plan assumes an H100's 228 KB of shared memory per SM.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
-__global__ void fgs_block_partials(const double* __restrict__ vals,
-                                   const int* __restrict__ gid,
-                                   long long n, int k, int G, int gtile,
-                                   double* __restrict__ partials) {
-  extern __shared__ double table[];  // [k, gw]
-  const int g0 = blockIdx.y * gtile;
-  const int gw = min(gtile, G - g0);
-  for (int c = threadIdx.x; c < k * gw; c += blockDim.x) table[c] = 0.0;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int g = gid[i] - g0;
-    if ((unsigned)g < (unsigned)gw) {
-      for (int j = 0; j < k; ++j) {
-        atomicAdd(&table[j * gw + g], vals[(long long)j * n + i]);
-      }
-    }
-  }
-  __syncthreads();
-  double* out = partials + (long long)blockIdx.x * k * G;
-  for (int c = threadIdx.x; c < k * gw; c += blockDim.x) {
-    const int j = c / gw;
-    const int g = c - j * gw;
-    out[(long long)j * G + g0 + g] = table[c];
+template <int GM>
+__device__ __forceinline__ void add_to_group(double (&acc)[GM], int g,
+                                             double v) {
+#pragma unroll
+  for (int c = 0; c < GM; ++c) {
+    if (g == c) acc[c] += v;
   }
 }
 
-// out[c] = sum over b of partials[b, c], in block order
+// the element offset (0 or 1) at which row r's 16-byte pairs start
+__device__ __forceinline__ int pair_start(const double* r) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(r) >> 3) & 1);
+}
+
+template <int GM, int KC>
+__global__ void __launch_bounds__(kThreads)
+    fgs_register_partials(const double* __restrict__ vals,
+                          const int* __restrict__ gid, long long n, int k,
+                          int G, int kc, double* __restrict__ partials) {
+  const int j0 = blockIdx.y * kc;
+  const int kw = min(kc, k - j0);
+  double acc[KC][GM];
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+#pragma unroll
+    for (int c = 0; c < GM; ++c) acc[j][c] = 0.0;
+  }
+  // every row has `pairs` aligned pairs: row j covers [h_j, 2*pairs + h_j)
+  const long long pairs = (n - 1) / 2;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+#pragma unroll 1
+  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       p < pairs; p += stride) {
+    const long long i = 2 * p;
+    const int g0 = __ldg(gid + i);
+    const int g1 = __ldg(gid + i + 1);
+    const int g2 = __ldg(gid + i + 2);
+    // all loads first, then the adds: a load and its adds in one guarded
+    // block would wait for memory once per row
+    double2 v[KC];
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      if (j < kw) {
+        const double* r = vals + (long long)(j0 + j) * n;
+        r += i + pair_start(r);
+        v[j] = __ldcs(reinterpret_cast<const double2*>(r));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      if (j < kw) {
+        const int h = pair_start(vals + (long long)(j0 + j) * n);
+        add_to_group<GM>(acc[j], h ? g1 : g0, v[j].x);
+        add_to_group<GM>(acc[j], h ? g2 : g1, v[j].y);
+      }
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    // the elements no pair covers: 0 of a shifted row, and the tail
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      if (j < kw) {
+        const double* r = vals + (long long)(j0 + j) * n;
+        const int h = pair_start(r);
+        if (h) add_to_group<GM>(acc[j], gid[0], r[0]);
+        for (long long i = 2 * pairs + h; i < n; ++i) {
+          add_to_group<GM>(acc[j], gid[i], r[i]);
+        }
+      }
+    }
+  }
+  __shared__ double warp_sums[kWarps][KC * GM];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+#pragma unroll
+    for (int c = 0; c < GM; ++c) {
+      double s = acc[j][c];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        s += __shfl_down_sync(0xffffffffu, s, off);
+      }
+      if (lane == 0) warp_sums[warp][j * GM + c] = s;
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < kw * G; t += blockDim.x) {
+    const int j = t / G;
+    const int g = t - j * G;
+    double s = 0.0;
+    for (int w = 0; w < kWarps; ++w) s += warp_sums[w][j * GM + g];
+    partials[((long long)blockIdx.x * k + j0 + j) * G + g] = s;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fgs_table_partials(const double* __restrict__ vals,
+                       const int* __restrict__ gid, long long n, int k,
+                       int G, int kc, double* __restrict__ partials) {
+  extern __shared__ double table[];  // [kw, G]
+  const int j0 = blockIdx.y * kc;
+  const int kw = min(kc, k - j0);
+  const int span = kw * G;
+  for (int c = threadIdx.x; c < span; c += blockDim.x) table[c] = 0.0;
+  __syncthreads();
+  const double* rows = vals + (long long)j0 * n;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const int g = __ldg(gid + i);
+    const bool live = (unsigned)g < (unsigned)G;
+#pragma unroll 4
+    for (int j = 0; j < kw; ++j) {
+      // loaded whatever gid says, so the loads need not wait for it
+      const double v = __ldcs(rows + (long long)j * n + i);
+      if (live) atomicAdd(&table[j * G + g], v);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < span; c += blockDim.x) {
+    const int j = c / G;
+    const int g = c - j * G;
+    partials[((long long)blockIdx.x * k + j0 + j) * G + g] = table[c];
+  }
+}
+
+// out[c] = sum over b of partials[b, c], one thread an output, adding
+// b = 0, 1, 2, ... in order
 __global__ void fgs_merge(const double* __restrict__ partials, int blocks,
                           int kG, double* __restrict__ out) {
-  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < kG;
-       c += gridDim.x * blockDim.x) {
-    double s = 0.0;
-    for (int b = 0; b < blocks; ++b) s += partials[(long long)b * kG + c];
-    out[c] = s;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= kG) return;
+  double s = 0.0;
+#pragma unroll 8
+  for (int b = 0; b < blocks; ++b) s += partials[(long long)b * kG + c];
+  out[c] = s;
+}
+
+// KC: the most value rows a slice holds, the template bound of acc[KC][GM]
+template <int GM, int KC>
+cudaError_t launch_registers(const double* vals, const int* gid, long long n,
+                             int k, int G, int kc, int slices, int blocks,
+                             double* partials, cudaStream_t s) {
+  if (G > GM || kc < 1 || kc > KC || (long long)kc * slices < k) {
+    return cudaErrorInvalidValue;
+  }
+  dim3 grid(blocks, slices);
+  fgs_register_partials<GM, KC>
+      <<<grid, kThreads, 0, s>>>(vals, gid, n, k, G, kc, partials);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_table(const double* vals, const int* gid, long long n,
+                         int k, int G, int kc, int slices, int blocks,
+                         int smem_bytes, double* partials, cudaStream_t s) {
+  if (kc < 1 || (long long)kc * slices < k ||
+      (long long)smem_bytes < (long long)sizeof(double) * kc * G) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      fgs_table_partials, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(blocks, slices);
+  fgs_table_partials<<<grid, kThreads, smem_bytes, s>>>(vals, gid, n, k, G,
+                                                        kc, partials);
+  return cudaGetLastError();
+}
+
+// the register path's template bounds: {group slots, most rows a slice}
+constexpr int kRegisterBounds[][2] = {{1, 8}, {2, 8}, {4, 8}, {8, 4},
+                                      {16, 2}};
+
+cudaError_t launch_registers_at(int group_slots, const double* vals,
+                                const int* gid, long long n, int k, int G,
+                                int kc, int slices, int blocks,
+                                double* partials, cudaStream_t s) {
+  switch (group_slots) {
+    case 1:
+      return launch_registers<1, kRegisterBounds[0][1]>(
+          vals, gid, n, k, G, kc, slices, blocks, partials, s);
+    case 2:
+      return launch_registers<2, kRegisterBounds[1][1]>(
+          vals, gid, n, k, G, kc, slices, blocks, partials, s);
+    case 4:
+      return launch_registers<4, kRegisterBounds[2][1]>(
+          vals, gid, n, k, G, kc, slices, blocks, partials, s);
+    case 8:
+      return launch_registers<8, kRegisterBounds[3][1]>(
+          vals, gid, n, k, G, kc, slices, blocks, partials, s);
+    case 16:
+      return launch_registers<16, kRegisterBounds[4][1]>(
+          vals, gid, n, k, G, kc, slices, blocks, partials, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Launches both kernels on `stream`; returns the CUDA error code (0 on
-// success).  partials holds blocks * k * G doubles, allocated by the
-// caller.  n == 0 launches only the merge, which writes zeros.
+// The compile-time bounds a launch plan must fit: threads a block, and
+// the most value rows a register-path slice holds at group_slots
+// accumulators a row (0 where no kernel has that many slots).
+extern "C" void fused_group_sums_bounds(int group_slots, int* threads,
+                                        int* max_slice_rows) {
+  *threads = kThreads;
+  *max_slice_rows = 0;
+  for (const auto& b : kRegisterBounds) {
+    if (b[0] == group_slots) *max_slice_rows = b[1];
+  }
+}
+
+// Launches the partials kernel of `path` (0: registers, with group_slots
+// accumulators a row; 1: shared_table, with smem_bytes of shared memory a
+// block) on a (blocks, slices) grid of kc value rows a slice, then the
+// merge, on `stream`; returns the CUDA error code (0 on success).
+// partials holds blocks * k * G doubles, allocated by the caller.
+// blocks == 0 (n == 0) launches only the merge, which writes zeros.
 extern "C" int fused_group_sums_f64(const double* vals, const int* gid,
-                                    long long n, int k, int G, int blocks,
-                                    int gtile, double* partials, double* out,
+                                    long long n, int k, int G, int path,
+                                    int group_slots, int kc, int slices,
+                                    int blocks, int smem_bytes,
+                                    double* partials, double* out,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0 && blocks > 0) {
-    const size_t smem = sizeof(double) * (size_t)k * (size_t)gtile;
-    cudaError_t err = cudaFuncSetAttribute(
-        fgs_block_partials, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(blocks, (G + gtile - 1) / gtile);
-    fgs_block_partials<<<grid, kThreads, smem, s>>>(vals, gid, n, k, G,
-                                                    gtile, partials);
-    err = cudaGetLastError();
+    cudaError_t err = cudaErrorInvalidValue;
+    if (path == 0) {
+      err = launch_registers_at(group_slots, vals, gid, n, k, G, kc, slices,
+                                blocks, partials, s);
+    } else if (path == 1) {
+      err = launch_table(vals, gid, n, k, G, kc, slices, blocks, smem_bytes,
+                         partials, s);
+    }
     if (err != cudaSuccess) return (int)err;
   } else {
     blocks = 0;
   }
   const int kG = k * G;
-  const int merge_blocks = (kG + kThreads - 1) / kThreads;
-  fgs_merge<<<merge_blocks, kThreads, 0, s>>>(partials, blocks, kG, out);
+  fgs_merge<<<(kG + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      partials, blocks, kG, out);
   return (int)cudaGetLastError();
 }
 

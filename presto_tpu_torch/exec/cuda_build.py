@@ -29,8 +29,10 @@ SIGNATURES = {
     "fused_group_sums": {
         "fused_group_sums_f64": (
             ctypes.c_int,
-            [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, _P, _P, _P]),
+            [_P, _P, ctypes.c_longlong, *[ctypes.c_int] * 8, _P, _P, _P]),
+        "fused_group_sums_bounds": (
+            None, [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]),
         "presto_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "block_gather": {

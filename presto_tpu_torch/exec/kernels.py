@@ -17,7 +17,7 @@ Two differences from the reference's JAX code are deliberate:
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -619,29 +619,102 @@ def fused_group_sums_plain(vals: torch.Tensor, gid: torch.Tensor,
                            n_groups: int) -> torch.Tensor:
     """The plain version: out[j, g] = sum of vals[j, i] over gid[i] == g,
     accumulated in f64.  vals [k, n] float (dead rows already zeroed),
-    gid [n] int32 in [0, n_groups); returns [k, n_groups] f64."""
-    k = vals.shape[0]
-    out = torch.zeros((k, n_groups), dtype=torch.float64, device=vals.device)
-    return out.index_add_(1, gid.long(), vals.to(torch.float64))
+    gid [n] int32 in [0, n_groups); returns [k, n_groups] f64.
+
+    It sums in two levels, as the reference's interpreter path does:
+    each block of _FGS_PLAIN_BLOCK rows into its own table, then the
+    tables.  One index_add_ over all n rows adds each group's rows in
+    one chain: on an H100, on TPC-H Q1's input at SF1 (up to 2.9M rows a
+    group), that was 2.8e-12 off the correctly rounded sums, and two
+    levels 7e-15 (chip_smoke.py checks both versions against them)."""
+    k, n = vals.shape
+    block = torch.arange(n, device=vals.device) // _FGS_PLAIN_BLOCK
+    slot = gid.long() + block * n_groups
+    blocks = -(-n // _FGS_PLAIN_BLOCK)
+    tables = torch.zeros((k, blocks * n_groups), dtype=torch.float64,
+                         device=vals.device)
+    tables.index_add_(1, slot, vals.to(torch.float64))
+    return tables.view(k, blocks, n_groups).sum(1)
+
+
+_FGS_PLAIN_BLOCK = 8192  # the reference kernel's BLOCK
 
 
 _FGS_THREADS = 256
-_FGS_SMEM_BUDGET = 96 * 1024   # bytes of f64 table per block
-_FGS_SCRATCH_BUDGET = 32 << 20  # bytes of per-block partial tables
-_FGS_BLOCKS_PER_SM = 4
+_FGS_REGISTER_GROUPS = 16   # G up to this takes the register path
+_FGS_ACC_DOUBLES = 32       # register accumulators per thread (kc * slots)
+_FGS_SLICE_ROWS = 8         # most value rows of one register-path slice
+_FGS_REGISTER_BLOCKS_PER_SM = 2
+_FGS_TABLE_BYTES = 64 * 1024       # shared-table path: table per block
+_FGS_SMEM_PER_SM = 228 * 1024      # H100
+_FGS_SMEM_PER_BLOCK = 227 * 1024   # H100, dynamic shared memory
+_FGS_SMEM_RESERVED = 1024          # the runtime's share of each block
+_FGS_BLOCKS_PER_SM = 2048 // _FGS_THREADS
+
+
+class FgsPlan(NamedTuple):
+    """One launch of csrc/fused_group_sums.cu.  path "registers": each
+    thread sums into `group_slots` register accumulators per value row;
+    "shared_table": one table of `smem_bytes` in each block's shared
+    memory.  blockIdx.y takes `slices` slices of `rows_per_slice` value
+    rows (each slice reads gid once); blockIdx.x `blocks` row blocks per
+    slice; the merge sums the [blocks, k, G] partials in block order."""
+    path: str
+    group_slots: int
+    rows_per_slice: int
+    slices: int
+    blocks: int
+    smem_bytes: int
+
+
+_FGS_PATHS = {"registers": 0, "shared_table": 1}  # the C code's path ids
+
+
+def fgs_register_slice_rows(group_slots: int) -> int:
+    """The most value rows a register-path slice takes at group_slots
+    accumulators a row.  The C source's template bounds must hold them
+    (its fused_group_sums_bounds reports them)."""
+    return min(_FGS_SLICE_ROWS, _FGS_ACC_DOUBLES // group_slots)
+
+
+def _slices(k: int, most: int) -> Tuple[int, int]:
+    """(rows per slice, slices): at most `most` rows a slice, balanced."""
+    slices = -(-k // most)
+    return -(-k // slices), slices
 
 
 def fused_group_sums_launch_shape(n: int, k: int, n_groups: int,
-                                  sm_count: int) -> Tuple[int, int]:
-    """(row blocks, groups per shared-memory tile) for one launch: enough
-    row blocks to fill the card, no more than the rows need or than the
-    per-block partial tables' scratch budget allows, and group tiles
-    small enough for the shared-memory budget."""
-    gtile = max(1, min(n_groups, _FGS_SMEM_BUDGET // (8 * max(k, 1))))
-    blocks = min(sm_count * _FGS_BLOCKS_PER_SM,
-                 -(-n // _FGS_THREADS),
-                 max(1, _FGS_SCRATCH_BUDGET // (8 * max(k * n_groups, 1))))
-    return max(blocks, 0), gtile
+                                  sm_count: int) -> FgsPlan:
+    """The launch plan for vals [k, n] and n_groups groups on a card of
+    sm_count SMs.  It follows the shape alone: up to
+    _FGS_REGISTER_GROUPS groups the atomic-free register path (bit
+    identical from run to run on one card, for one 16-byte alignment of
+    vals), above it the shared-table path; either
+    way each slice of value rows reads gid once and only its own rows.
+    Raises ValueError when one row of the table would not fit a block's
+    shared memory."""
+    if n_groups <= _FGS_REGISTER_GROUPS:
+        slots = 1 << (n_groups - 1).bit_length()
+        kc, slices = _slices(k, fgs_register_slice_rows(slots))
+        pairs = max(n - 1, 0) // 2
+        blocks = min(-(-sm_count * _FGS_REGISTER_BLOCKS_PER_SM // slices),
+                     -(-pairs // _FGS_THREADS))
+        return FgsPlan("registers", slots, kc, slices,
+                       max(blocks, 1) if n else 0, 0)
+    row_bytes = 8 * n_groups
+    if row_bytes > _FGS_SMEM_PER_BLOCK:
+        raise ValueError(f"fused_group_sums: {n_groups} groups need "
+                         f"{row_bytes} bytes of shared memory a value row, "
+                         f"more than a block has ({_FGS_SMEM_PER_BLOCK})")
+    kc, slices = _slices(k, max(1, _FGS_TABLE_BYTES // row_bytes))
+    smem = kc * row_bytes
+    per_sm = max(1, min(_FGS_BLOCKS_PER_SM,
+                        _FGS_SMEM_PER_SM // (smem + _FGS_SMEM_RESERVED)))
+    # no more blocks than keep each block's rows above its table's size
+    blocks = min(-(-sm_count * per_sm // slices),
+                 -(-n // max(_FGS_THREADS, n_groups)))
+    return FgsPlan("shared_table", 0, kc, slices,
+                   max(blocks, 1) if n else 0, smem)
 
 
 def fused_group_sums(vals: torch.Tensor, gid: torch.Tensor,
@@ -679,17 +752,19 @@ def fused_group_sums_cuda(vals: torch.Tensor, gid: torch.Tensor,
         raise ValueError(f"fused_group_sums: k={k}, n_groups={n_groups}")
     from presto_tpu_torch.exec import cuda_build
 
-    lib = cuda_build.load("fused_group_sums")
     sm = torch.cuda.get_device_properties(vals.device).multi_processor_count
-    blocks, gtile = fused_group_sums_launch_shape(n, k, n_groups, sm)
-    partials = torch.empty((blocks, k, n_groups), dtype=torch.float64,
+    plan = fused_group_sums_launch_shape(n, k, n_groups, sm)
+    lib = cuda_build.load("fused_group_sums")
+    partials = torch.empty((plan.blocks, k, n_groups), dtype=torch.float64,
                            device=vals.device)
     out = torch.empty((k, n_groups), dtype=torch.float64, device=vals.device)
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     with torch.cuda.device(vals.device):  # the runtime launches on it
         rc = lib.fused_group_sums_f64(
-            vals.data_ptr(), gid.data_ptr(), n, k, n_groups, blocks, gtile,
-            partials.data_ptr(), out.data_ptr(), stream)
+            vals.data_ptr(), gid.data_ptr(), n, k, n_groups,
+            _FGS_PATHS[plan.path], plan.group_slots, plan.rows_per_slice,
+            plan.slices, plan.blocks, plan.smem_bytes, partials.data_ptr(),
+            out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("fused_group_sums kernel failed: "
                            + cuda_build.error_string(lib, rc))

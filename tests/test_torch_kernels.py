@@ -86,6 +86,13 @@ FGS_CASES = {
     "n_not_multiple_of_8192": (3, 8192 * 3 + 77, 5, np.float64, 1e-9),
     "one_group": (4, 50_001, 1, np.float64, 1e-9),
     "g4096": (2, 9_000, 4096, np.float64, 1e-9),
+    # Q1's k and G at an odd n, and G either side of 16, where the CUDA
+    # kernel's launch plan changes path.  On the CPU these run the plain
+    # version: the CUDA paths themselves (and their 16-byte pair loads)
+    # are held only by chip_smoke.py on the card.
+    "k15_n40001_g4": (15, 40_001, 4, np.float64, 1e-9),
+    "k5_n40000_g16": (5, 40_000, 16, np.float64, 1e-9),
+    "k5_n40000_g17": (5, 40_000, 17, np.float64, 1e-9),
 }
 
 
@@ -108,14 +115,78 @@ def test_fused_group_sums_empty_input():
     assert tuple(out.shape) == (3, 4) and not out.any()
 
 
-def test_fused_group_sums_launch_shape():
-    # Q1 at SF1: one group tile, the card filled with row blocks
-    assert K.fused_group_sums_launch_shape(6_000_601, 15, 4, 132) == (528, 4)
-    # k*G*8 = 256 KB exceeds the shared-memory budget: groups tile
-    blocks, gtile = K.fused_group_sums_launch_shape(1_000_003, 8, 4096, 132)
-    assert gtile == 1536 and blocks * 8 * 4096 * 8 <= 32 << 20
-    assert K.fused_group_sums_launch_shape(0, 2, 1, 132) == (0, 1)
-    assert K.fused_group_sums_launch_shape(8_191, 2, 1, 132) == (32, 1)
+@pytest.mark.parametrize("skewed", [False, True])
+def test_fused_group_sums_plain_near_correctly_rounded(skewed):
+    # the plain version sums each 8,192-row block, then the blocks: its
+    # sums stay within 1e-13 of the correctly rounded ones (math.fsum),
+    # also with 90% of a million rows in one group
+    import math
+
+    rng = np.random.default_rng(41)
+    k, n, G = 2, 1_000_003, 4
+    vals = rng.random((k, n)) * 1e4
+    gid = rng.integers(0, G, n).astype(np.int32)
+    if skewed:
+        gid[rng.random(n) < 0.9] = 0
+    out = K.fused_group_sums_plain(_t(vals), _t(gid), G).numpy()
+    exact = np.array([[math.fsum(vals[j][gid == g].tolist())
+                       for g in range(G)] for j in range(k)])
+    np.testing.assert_allclose(out, exact, rtol=1e-13, atol=0)
+
+
+FGS_PLANS = {
+    # name: ((n, k, G, SMs), expected plan fields)
+    # Q1 at SF1: registers, 15 rows in two slices, two blocks a SM
+    "q1_sf1": ((6_000_601, 15, 4, 132),
+               dict(path="registers", group_slots=4, rows_per_slice=8,
+                    slices=2, blocks=132)),
+    # the executor gate's top: 64 KB tables of 2 rows, four slices, no
+    # group tiles; three blocks of 64 KB a SM fill all 132 SMs
+    "g4096": ((1_000_003, 8, 4096, 132),
+              dict(path="shared_table", rows_per_slice=2, slices=4,
+                   blocks=99, smem_bytes=65_536)),
+    "g16_registers": ((1_000_000, 4, 16, 132),
+                      dict(path="registers", group_slots=16,
+                           rows_per_slice=2, slices=2)),
+    "g17_shared_table": ((1_000_000, 4, 17, 132),
+                         dict(path="shared_table", rows_per_slice=4,
+                              slices=1, blocks=1056, smem_bytes=544)),
+    "n0": ((0, 2, 1, 132), dict(path="registers", blocks=0)),
+    # 4,095 pairs of rows: 16 blocks of 256 threads
+    "n8191_g1": ((8_191, 2, 1, 132),
+                 dict(path="registers", group_slots=1, rows_per_slice=2,
+                      slices=1, blocks=16)),
+    "g1": ((50_001, 20, 1, 132),
+           dict(path="registers", group_slots=1, rows_per_slice=7,
+                slices=3)),
+    "n1": ((1, 3, 5, 132), dict(path="registers", group_slots=8, blocks=1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FGS_PLANS))
+def test_fused_group_sums_launch_shape(case):
+    (n, k, G, sm), want = FGS_PLANS[case]
+    plan = K.fused_group_sums_launch_shape(n, k, G, sm)
+    assert {f: getattr(plan, f) for f in want} == want
+    # every value row in exactly one slice, which reads gid once
+    assert plan.rows_per_slice * plan.slices >= k
+    assert plan.rows_per_slice * (plan.slices - 1) < k
+    if plan.path == "registers":
+        assert G <= plan.group_slots <= 16
+        assert plan.group_slots * plan.rows_per_slice <= 32
+        assert plan.rows_per_slice <= \
+            K.fgs_register_slice_rows(plan.group_slots)
+    else:
+        # each block holds whole table rows: every group, no group tiles
+        assert plan.smem_bytes == 8 * G * plan.rows_per_slice
+        assert plan.smem_bytes <= 227 * 1024
+    if n >= 1_000_000:  # the grid reaches every SM
+        assert plan.blocks * plan.slices >= sm
+
+
+def test_fused_group_sums_launch_shape_refuses_oversized_tables():
+    with pytest.raises(ValueError, match="shared memory"):
+        K.fused_group_sums_launch_shape(100_000, 2, 40_000, 132)
 
 
 # ---- key packing and orderable floats ---------------------------------------
