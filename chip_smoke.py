@@ -5,22 +5,41 @@ kernel of that path against its plain PyTorch version.
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 It builds the kernels from presto_tpu_torch/csrc into build/ (one nvcc
-per source, started together), checks each kernel at the shapes the
-main path gives it (and at edge shapes), times it beside its plain
-version, its byte/operation bound and the one PyTorch call that computes
-the same function, and launches fused_group_sums ten times a shape to
-see whether its result is bit-identical.  fused_group_sums and its
-plain version are also each held against the correctly rounded sums
-(math.fsum on the host), so that the kernel's check does not rest on
-the plain version alone.  Then it runs TPC-H Q1, Q6, Q3
-and Q18 at SF1 through `presto_tpu_torch.connect(...).sql(...)`, checks
-the rows against a numpy computation from the generated columns and
-against the same queries on the CPU (Q1/Q6 at SF1, Q3/Q18 at SF0.1),
-and holds fused_group_sums against its plain version on the very input
-one Q1 run gives it (and against the correctly rounded sums there
-too).  Every phase prints one JSON line; the last line
-is {"ok": true, "device": {...}}.  Any failure raises and exits
-non-zero; without a CUDA device it exits 2 before printing a result.
+per source, started together), checks each kernel at synthetic shapes
+(the main path's and edge shapes), times it beside its plain version,
+its byte/operation bound and the one PyTorch call that computes the same
+function, and launches fused_group_sums ten times a shape to see whether
+its result is bit-identical.  fused_group_sums and its plain version are
+also each held against the correctly rounded sums (math.fsum on the
+host), so that the kernel's check does not rest on the plain version
+alone.
+
+Then it runs all 22 TPC-H queries at SF1 through
+`presto_tpu_torch.connect(...).sql(...)`, four times each with the
+kernels' launch counts set to 0 just before and read just after, and
+once more with both kernels' inputs captured: at every (kernel, shape)
+no earlier query reached, the kernel is held against its plain version
+on that very input and timed.  Each query's rows must be identical in
+the four runs wherever its f64 sums add in a fixed order (every sum but
+fused_group_sums' shared-table path), and must agree with the port's own
+CPU run (at SF1, or at SF0.1 where the CPU would take long; the card
+then runs the query at SF0.1 too) under a tie-aware comparison: rows
+whose ORDER BY keys agree within QUERY_RTOL compare as a multiset, and
+at a LIMIT the rows tied with the last kept row may differ.  Q1, Q3, Q6
+and Q18 are also held against numpy computations from the generated
+columns.  segment_sum is held to bit identity in ten calls and to the
+correctly rounded sums on the inputs of Q15 and Q3; the integer
+division fault C1, a SELECT without FROM and a DISTINCT aggregate run on
+the card against the CPU; a profile of each query gives its device busy
+and idle shares.  No check reads a time.
+
+Every phase prints one JSON line.  A phase that fails prints one JSON
+line with its name, its query, the exception and its traceback's tail
+(to stdout and stderr); the other phases still run, and the script then
+ends with {"ok": false, "failed": [...]} and exit code 1.  Otherwise its
+last lines are its own wall time, the kernels' summary, the card's name
+and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
+device it exits 2 before printing a result.
 """
 
 import json
@@ -29,6 +48,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 # H100 SXM data sheet (at its 700 W limit): HBM3 bandwidth and the FP64
 # rate outside the tensor cores (the kernels here add in f64 on the CUDA
@@ -70,8 +90,37 @@ BG_SHAPES = [
 # block_gather's shared-memory budget per thread block (KB), timed at the
 # main path's four shapes; the port launches with G._SMEM_MAX_BYTES
 SMEM_SWEEP_KB = (12, 24, 48, 96, 192)
-SLICE_QUERIES = (1, 6, 3, 18)
-CPU_CHECK_SF = {1: SF, 6: SF, 3: 0.1, 18: 0.1}
+SLICE_QUERIES = tuple(range(1, 23))
+# the port's CPU run each card run is held against: SF1 where the CPU
+# takes a few seconds, SF0.1 elsewhere
+CPU_CHECK_SF = {q: SF if q in (1, 2, 6, 11, 16, 22) else 0.1
+                for q in SLICE_QUERIES}
+# each query's ORDER BY as (output column, 1 ascending or -1
+# descending), and its LIMIT (tests/tpch_queries.py)
+ORDER_KEYS = {
+    1: ((0, 1), (1, 1)), 2: ((0, -1), (2, 1), (1, 1), (3, 1)),
+    3: ((1, -1), (2, 1)), 4: ((0, 1),), 5: ((1, -1),),
+    7: ((0, 1), (1, 1), (2, 1)), 8: ((0, 1),), 9: ((0, 1), (1, -1)),
+    10: ((2, -1),), 11: ((1, -1),), 12: ((0, 1),), 13: ((1, -1), (0, -1)),
+    15: ((0, 1),), 16: ((3, -1), (0, 1), (1, 1), (2, 1)),
+    18: ((4, -1), (3, 1)), 20: ((0, 1),), 21: ((1, -1), (0, 1)),
+    22: ((0, 1),)}
+LIMITS = {2: 100, 3: 10, 10: 20, 18: 100, 21: 100}
+# queries whose float segment_sum input is held to bit identity and to
+# the correctly rounded sums
+SEGMENT_SUM_QUERIES = (15, 3)
+SEGMENT_SUM_REPEATS = 10
+# the rest of the SQL surface this slice adds, run on the card against
+# the CPU: fault C1 (integer division and modulo by zero), Values and a
+# DISTINCT aggregate
+SURFACE = {
+    "c1": ("SELECT o_custkey, o_custkey / 0, o_custkey % 0, "
+           "-o_custkey / 0, o_shippriority / 0 FROM orders "
+           "ORDER BY o_orderkey LIMIT 3"),
+    "values": "SELECT 1, 'a'",
+    "count_distinct": ("SELECT o_orderpriority, count(DISTINCT o_custkey), "
+                       "count(*) FROM orders GROUP BY 1 ORDER BY 1"),
+}
 
 
 def emit(obj) -> None:
@@ -209,29 +258,27 @@ def rel_err(x, ref, rtol):
             bool(torch.all(err <= rtol * ref.abs())))
 
 
-def fgs_check(vals, gid, G, sm, shown=None):
+def fgs_check(vals, gid, G, sm):
     """fused_group_sums on one input: its launch plan, its error against
     the plain version, the kernel's and the plain version's errors
-    against the correctly rounded sums (and those of the `shown` {name:
-    [k, G] sums}, reported only), whether FGS_REPEATS launches agree bit
-    for bit, and (n > 0) its time beside the plain version, index_add_
-    and the bound."""
+    against the correctly rounded sums, whether FGS_REPEATS launches
+    agree bit for bit, and (n > 0) its time beside the plain version,
+    index_add_ and the bound."""
     import torch
 
     from presto_tpu_torch.exec import kernels as K
 
     k, n = vals.shape
     plan = K.fused_group_sums_launch_shape(n, k, G, sm)
-    out = K.fused_group_sums(vals, gid, G)
+    out = K.fused_group_sums_cuda(vals, gid, G)
     plain = K.fused_group_sums_plain(vals, gid, G)
-    same = all(torch.equal(out, K.fused_group_sums(vals, gid, G))
+    same = all(torch.equal(out, K.fused_group_sums_cuda(vals, gid, G))
                for _ in range(FGS_REPEATS - 1))
     torch.cuda.synchronize()
     max_abs, max_rel, ok = rel_err(out, plain, KERNEL_RTOL)
     exact = torch.from_numpy(exact_group_sums(vals, gid, G)).cuda()
     vs_exact = {name: rel_err(x, exact, EXACT_RTOL)
-                for name, x in (("kernel", out), ("plain", plain),
-                                *(shown or {}).items())}
+                for name, x in (("kernel", out), ("plain", plain))}
     row = {"k": k, "n": n, "groups": G, "path": plan.path,
            "plan": plan._asdict(), "max_abs_err": max_abs,
            "max_rel_err": max_rel, "ok": ok,
@@ -248,7 +295,7 @@ def fgs_check(vals, gid, G, sm, shown=None):
             return torch.zeros((k, G), dtype=torch.float64,
                                device="cuda").index_add_(1, gid, vals)
 
-        row["ms"] = cuda_ms(lambda: K.fused_group_sums(vals, gid, G), iters)
+        row["ms"] = cuda_ms(lambda: K.fused_group_sums_cuda(vals, gid, G), iters)
         row["plain_ms"] = cuda_ms(
             lambda: K.fused_group_sums_plain(vals, gid, G), iters)
         row["library_ms"] = cuda_ms(library, iters)
@@ -313,45 +360,69 @@ def bg_bound(n, w, m, distinct):
     return byte_s * 1e3, "bytes"
 
 
-def phase_block_gather():
+def bg_check(src, sidx):
+    """block_gather on one input: byte-identical to its plain version,
+    the share of its thread blocks that staged rows in shared memory
+    (and that the reference's window check would have let through),
+    and (m > 0) its time beside the plain version, index_select and the
+    bound.  Raises when it differs."""
     import torch
 
     from presto_tpu_torch.exec import gather as G
 
+    (n, w), m = src.shape, sidx.shape[0]
+    staged = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = G.block_gather_cuda(src, sidx, staged_blocks=staged)
+    plain = G.block_gather_plain(src, sidx)
+    torch.cuda.synchronize()
+    ok = out.shape == plain.shape and torch.equal(out, plain)
+    ib = G._IB
+    blocks = -(-m // ib)
+    # the share of blocks whose indices the reference's aligned window
+    # (presto_tpu/exec/gather.py:218-220) would have covered; the
+    # reference runs its kernel only when all are
+    W = G.window_rows(n, m)
+    covered = None
+    if W is not None and m >= ib:
+        padded = torch.cat([sidx, sidx[-1:].expand((-m) % ib)])
+        first, last = padded[::ib] // W, padded[ib - 1::ib]
+        covered = float((last < (first + 1) * W).float().mean())
+    row = {"n": n, "w": w, "m": m, "byte_identical": ok,
+           "max_abs_err": 0.0 if ok else float("nan"),
+           "smem_rows": G.smem_rows(w), "blocks": blocks,
+           "staged_block_share": int(staged) / blocks if blocks else None,
+           "reference_window_rows": W,
+           "reference_covered_block_share": covered}
+    if m:
+        distinct = int(torch.unique_consecutive(sidx).numel())
+        iters = 20 if m > 100_000 else 200
+        row["ms"] = cuda_ms(lambda: G.block_gather_cuda(src, sidx), iters)
+        row["plain_ms"] = cuda_ms(
+            lambda: G.block_gather_plain(src, sidx), iters)
+        # the one PyTorch call for this function is index_select,
+        # which is also the plain version's call
+        row["library_call"] = "torch.index_select (= the plain version)"
+        row["library_ms"] = cuda_ms(
+            lambda: torch.index_select(src, 0, sidx.long()), iters)
+        row["bound_ms"], row["bound_by"] = bg_bound(n, w, m, distinct)
+        row["roofline_share"] = row["bound_ms"] / row["ms"]
+    if not ok:
+        raise AssertionError(f"block_gather differs from its plain version "
+                             f"at n={n} w={w} m={m}")
+    return row
+
+
+def phase_block_gather():
     rows = []
     for i, (name, n, w, m, how) in enumerate(BG_SHAPES):
         src, sidx = bg_inputs(n, w, m, how, seed=100 + i)
-        staged = torch.zeros(1, dtype=torch.int32, device="cuda")
-        out = G.block_gather_cuda(src, sidx, staged_blocks=staged)
-        plain = G.block_gather_plain(src, sidx)
-        torch.cuda.synchronize()
-        ok = out.shape == plain.shape and torch.equal(out, plain)
-        blocks = -(-m // G._IB)
-        row = {"shape": name, "n": n, "w": w, "m": m, "byte_identical": ok,
-               "max_abs_err": 0.0 if ok else float("nan"),
-               "smem_rows": G.smem_rows(w), "blocks": blocks,
-               "staged_block_share": int(staged) / blocks if blocks else None}
-        if m:
-            distinct = int(torch.unique_consecutive(sidx).numel())
-            iters = 20 if m > 100_000 else 200
-            row["ms"] = cuda_ms(lambda: G.block_gather_cuda(src, sidx), iters)
-            row["plain_ms"] = cuda_ms(
-                lambda: G.block_gather_plain(src, sidx), iters)
-            # the one PyTorch call for this function is index_select,
-            # which is also the plain version's call
-            row["library_call"] = "torch.index_select (= the plain version)"
-            row["library_ms"] = cuda_ms(
-                lambda: torch.index_select(src, 0, sidx.long()), iters)
-            row["bound_ms"], row["bound_by"] = bg_bound(n, w, m, distinct)
-            row["roofline_share"] = row["bound_ms"] / row["ms"]
+        row = {"shape": name, **bg_check(src, sidx)}
         if i < 4:  # the main path's shapes
-            row["by_smem_budget_kb"] = sweep_smem_budget(src, sidx, iters)
+            row["by_smem_budget_kb"] = sweep_smem_budget(
+                src, sidx, 20 if m > 100_000 else 200)
         emit({"phase": "kernel", "name": "block_gather", **row})
         rows.append(row)
-        if not ok:
-            raise AssertionError(f"block_gather differs from its plain "
-                                 f"version at {name} (n={n} w={w} m={m})")
-        del src, sidx, out, plain
+        del src, sidx
     phase_take_rows_routes()
     return rows
 
@@ -513,23 +584,275 @@ def numpy_q18(c, o, li):
     return _top(out, 100, lambda t: (-t[4], t[3]))
 
 
-def assert_rows_match(what, actual, expected):
+def values_agree(a, b) -> bool:
+    """Floats within QUERY_RTOL, everything else equal."""
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or math.isclose(a, b, rel_tol=QUERY_RTOL, abs_tol=0)
+    return a == b
+
+
+def rows_agree(ra, rb) -> bool:
+    return len(ra) == len(rb) and all(values_agree(a, b)
+                                      for a, b in zip(ra, rb))
+
+
+def unmatched(actual, expected):
+    """The expected rows that no distinct actual row agrees with."""
+    left = list(actual)
+    missing = []
+    for r in expected:
+        i = next((i for i, a in enumerate(left) if rows_agree(a, r)), None)
+        if i is None:
+            missing.append(r)
+        else:
+            del left[i]
+    return missing
+
+
+def in_order(ka, kb, dirs) -> bool:
+    """Sort key ka comes before kb (or ties with it) under dirs."""
+    for a, b, d in zip(ka, kb, dirs):
+        if values_agree(a, b):
+            continue
+        return (a < b) if d > 0 else (a > b)
+    return True
+
+
+def assert_query_rows(what, qid, actual, expected):
+    """Rows of one query against expected rows, tie-aware: consecutive
+    expected rows whose ORDER BY keys agree within QUERY_RTOL form one
+    group, which the actual rows at the same places must match as a
+    multiset with the same key; at a LIMIT, the rows that tie with the
+    last kept row may differ (only their key is held).  A query without
+    ORDER BY is one multiset."""
     if len(actual) != len(expected):
         raise AssertionError(f"{what}: {len(actual)} rows, expected "
                              f"{len(expected)}")
-    for ra, re_ in zip(actual, expected):
-        for va, ve in zip(ra, re_):
-            if isinstance(va, float) or isinstance(ve, float):
-                ok = math.isclose(va, ve, rel_tol=QUERY_RTOL, abs_tol=0)
-            else:
-                ok = va == ve
-            if not ok:
-                raise AssertionError(f"{what}: {ra} != {re_}")
+    spec = ORDER_KEYS.get(qid)
+    if spec is None:
+        missing = unmatched(actual, expected)
+        if missing:
+            raise AssertionError(f"{what}: no row agrees with {missing[:3]}")
+        return
+    cols, dirs = [c for c, _ in spec], [d for _, d in spec]
+
+    def key(r):
+        return [r[c] for c in cols]
+
+    groups, lo = [], 0
+    for i in range(1, len(expected) + 1):
+        if i == len(expected) or not rows_agree(key(expected[i]),
+                                                key(expected[lo])):
+            groups.append((lo, i))
+            lo = i
+    cut = LIMITS.get(qid) == len(expected)
+    for gi, (lo, hi) in enumerate(groups):
+        head = key(expected[lo])
+        if gi and not in_order(key(expected[lo - 1]), head, dirs):
+            raise AssertionError(f"{what}: expected rows {lo - 1} and {lo} "
+                                 f"are not in ORDER BY order {spec}")
+        for r in actual[lo:hi]:
+            if not rows_agree(key(r), head):
+                raise AssertionError(f"{what}: row {r} at {lo}..{hi - 1} "
+                                     f"has not the sort key {head}")
+        if cut and gi == len(groups) - 1:
+            continue  # ties with the last kept row may be other rows
+        missing = unmatched(actual[lo:hi], expected[lo:hi])
+        if missing:
+            raise AssertionError(f"{what}: rows {lo}..{hi - 1}: no row "
+                                 f"agrees with {missing[:3]}")
 
 
-def phase_slice():
+FAILED = []
+
+
+def fail(phase, query, error, tb=()):
+    """Report a failed phase: one JSON line naming the phase, the query,
+    the error and its traceback's tail, to stdout and stderr."""
+    line = json.dumps({"phase": phase, "query": query, "ok": False,
+                       "error": error[:2000], "traceback": list(tb)[-14:]})
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
+    FAILED.append(phase if query is None else f"{phase} {query}")
+
+
+def guarded(phase, query, fn, *args):
+    """Run one phase; if it raises, report it (fail) and return None, so
+    that the phases after it still run."""
+    try:
+        return fn(*args)
+    except Exception as e:  # noqa: BLE001 -- every failure is reported
+        fail(phase, query, f"{type(e).__name__}: {e}",
+             "".join(traceback.format_exception(e)).splitlines())
+        return None
+
+
+class Capture:
+    """Wraps the executor's calls of both kernels and of segment_sum for
+    one extra run of a query.  At each (kernel, shape) not seen before it
+    holds the kernel against its plain version on that very input and
+    times it (fgs_check, bg_check); it notes the fused_group_sums paths
+    the query takes, and keeps the largest float segment_sum input."""
+
+    def __init__(self, sm):
+        self.sm = sm
+        self.fgs_rows = {}  # (k, n, G) -> (query, fgs_check row)
+        self.bg_rows = {}  # (n, w, m) -> (query, bg_check row)
+
+    def run(self, session, qid, sql):
+        import torch
+
+        from presto_tpu_torch.exec import gather as G
+        from presto_tpu_torch.exec import kernels as K
+
+        real = (K.fused_group_sums, G.block_gather, K.segment_sum)
+        self.paths, self.seg = set(), None
+        query = f"Q{qid}"
+
+        def fgs(vals, gid, n_groups):
+            out = real[0](vals, gid, n_groups)
+            key = tuple(vals.shape) + (n_groups,)
+            self.paths.add(K.fused_group_sums_launch_shape(
+                key[1], key[0], n_groups, self.sm).path)
+            if key not in self.fgs_rows:
+                row = fgs_check(vals, gid, n_groups, self.sm)
+                self.fgs_rows[key] = (query, row)
+                emit({"phase": "kernel_at_query_shape", "query": query,
+                      "name": "fused_group_sums", **row})
+            return out
+
+        def bg(src, sidx):
+            out = real[1](src, sidx)
+            key = tuple(src.shape) + (sidx.shape[0],)
+            if key not in self.bg_rows:
+                row = bg_check(src, sidx)
+                self.bg_rows[key] = (query, row)
+                emit({"phase": "kernel_at_query_shape", "query": query,
+                      "name": "block_gather", **row})
+            return out
+
+        def seg(x, gid, n_groups, order=None):
+            if x.is_floating_point() and (
+                    self.seg is None or x.shape[0] > self.seg[0].shape[0]):
+                self.seg = (x.clone(), gid.clone(), n_groups)
+            return real[2](x, gid, n_groups, order)
+
+        K.fused_group_sums, G.block_gather, K.segment_sum = fgs, bg, seg
+        try:
+            session.sql(sql)
+            torch.cuda.synchronize()
+        finally:
+            K.fused_group_sums, G.block_gather, K.segment_sum = real
+
+
+def phase_query(qid, sql, sessions, capture, counters, out):
+    """One query of the main path: four runs on the card with every
+    kernel's launch count set to 0 just before and read just after, one
+    captured run (each kernel at each new shape, see Capture), then its
+    rows: identical in the four runs where the query's f64 sums are
+    deterministic by design, and agreeing with the port's CPU run (and,
+    for Q1, Q3, Q6 and Q18, with numpy) under the tie-aware comparison."""
     import torch
 
+    gpu = sessions["cuda", SF]
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, times = [], []
+    for _ in range(4):
+        t = time.perf_counter()
+        runs.append(gpu.sql(sql).rows)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    out["launches"] = launches
+    capture.run(gpu, qid, sql)
+    out["fgs_paths"] = sorted(capture.paths)
+    if capture.seg is not None:
+        out["segment_sum_input"] = capture.seg
+    rows = runs[0]
+    identical = all(r == rows for r in runs[1:])
+    # the register path of fused_group_sums and segment_sum add in a
+    # fixed order; the shared-table path adds with atomics
+    by_design = "shared_table" not in capture.paths
+    row = {"phase": "query", "query": f"Q{qid}", "sf": SF, "rows": len(rows),
+           "cold_ms": times[0], "warm_ms": times[1:],
+           "launches_in_4_runs": launches, "fgs_paths": out["fgs_paths"],
+           "peak_device_bytes": peak, "runs_identical_of_4": identical,
+           "identical_by_design": by_design}
+    if by_design and not identical:
+        raise AssertionError(f"Q{qid}: the card's rows differ between runs")
+    sf = CPU_CHECK_SF[qid]
+    t = time.perf_counter()
+    on_cpu = sessions["cpu", sf].sql(sql).rows
+    row["cpu_check_seconds"] = time.perf_counter() - t
+    on_gpu = rows if sf == SF else sessions["cuda", sf].sql(sql).rows
+    assert_query_rows(f"Q{qid} cuda vs cpu at SF{sf}", qid, on_gpu, on_cpu)
+    row["matches_cpu_at_sf"] = sf
+    if qid in out["numpy"]:
+        assert_query_rows(f"Q{qid} cuda vs numpy", qid, rows,
+                          out["numpy"][qid])
+    row["matches_numpy"] = qid in out["numpy"] or "not checked"
+    emit(row)
+
+
+def phase_segment_sum(qid, x, gid, G):
+    """segment_sum on the float input one run of a query gives it:
+    SEGMENT_SUM_REPEATS calls bit-identical, within EXACT_RTOL of the
+    correctly rounded sums, timed beside one index_add_ (the atomic
+    version it replaced)."""
+    import torch
+
+    from presto_tpu_torch.exec import kernels as K
+
+    out = K.segment_sum(x, gid, G)
+    same = all(torch.equal(out, K.segment_sum(x, gid, G))
+               for _ in range(SEGMENT_SUM_REPEATS - 1))
+    live = gid < G
+    exact = torch.from_numpy(exact_group_sums(
+        x[live][None], gid[live].to(torch.int32), G)[0]).cuda()
+    _, rel, within = rel_err(out, exact, EXACT_RTOL)
+
+    def one_index_add():
+        acc = torch.zeros((G + 1,), dtype=x.dtype, device=x.device)
+        return acc.index_add_(0, gid.long(), x)[:G]
+
+    row = {"phase": "segment_sum", "query": f"Q{qid}", "n": x.shape[0],
+           "live_rows": int(live.sum()), "groups": G, "dtype": str(x.dtype),
+           f"bit_identical_in_{SEGMENT_SUM_REPEATS}": same,
+           "max_rel_err_vs_exact": rel,
+           "ms": cuda_ms(lambda: K.segment_sum(x, gid, G), 10),
+           "index_add_ms": cuda_ms(one_index_add, 10)}
+    emit(row)
+    if not same:
+        raise AssertionError(f"segment_sum gave different bits in "
+                             f"{SEGMENT_SUM_REPEATS} calls at Q{qid}'s input")
+    if not within:
+        raise AssertionError(f"segment_sum is {rel} off the correctly "
+                             f"rounded sums at Q{qid}'s input")
+
+
+def phase_surface(sessions):
+    """The fault C1 query, a SELECT without FROM and a DISTINCT aggregate
+    on the card, against the port's CPU run at SF1."""
+    rows = {}
+    for name, sql in SURFACE.items():
+        on_gpu = sessions["cuda", SF].sql(sql).rows
+        on_cpu = sessions["cpu", SF].sql(sql).rows
+        if on_gpu != on_cpu:
+            raise AssertionError(f"{name}: cuda {on_gpu[:3]} != cpu "
+                                 f"{on_cpu[:3]}")
+        rows[name] = on_gpu[:3]
+    if any(r[1:] != (-2, None, 2, -1) for r in rows["c1"]):
+        raise AssertionError(f"c1: {rows['c1']} are not the reference's "
+                             "(x, -2, None, 2, -1)")
+    emit({"phase": "surface", "rows": rows, "matches_cpu": True})
+
+
+def phase_slice(capture):
+    """All 22 TPC-H queries at SF1 through connect().sql() on the card."""
     import presto_tpu_torch
     from presto_tpu_torch.catalog import tpch_catalog
     from presto_tpu_torch.exec import gather as G
@@ -538,7 +861,10 @@ def phase_slice():
 
     root = os.path.dirname(os.path.abspath(__file__))
     cache = os.path.join(root, "build", "tpch_cache")
-    cat = tpch_catalog(SF, cache)
+    cats = {sf: tpch_catalog(sf, cache) for sf in sorted(
+        set(CPU_CHECK_SF.values()) | {SF})}
+    sessions = {(dev, sf): presto_tpu_torch.connect(cat, device=dev)
+                for sf, cat in cats.items() for dev in ("cuda", "cpu")}
     need = {"lineitem": ["l_quantity", "l_extendedprice", "l_discount",
                          "l_tax", "l_returnflag", "l_linestatus",
                          "l_shipdate", "l_orderkey"],
@@ -548,147 +874,48 @@ def phase_slice():
     cols = {}
     for table, names in need.items():
         t0 = time.perf_counter()
-        cols[table] = cat.get(table).read(names)
+        cols[table] = cats[SF].get(table).read(names)
         emit({"phase": "generate", "sf": SF, "table": table,
               "rows": len(cols[table][names[0]]),
               "seconds": time.perf_counter() - t0})
     li, o, c = cols["lineitem"], cols["orders"], cols["customer"]
     expected = {1: numpy_q1(li), 6: numpy_q6(li), 3: numpy_q3(c, o, li),
                 18: numpy_q18(c, o, li)}
+    del cols, li, o, c
 
     counters = {"fused_group_sums": K.fused_group_sums_cuda,
                 "block_gather": G.block_gather_cuda}
-    gpu = presto_tpu_torch.connect(cat, device="cuda")
-    walls = {}
-    rows = {}
     launches = {name: 0 for name in counters}
-    per_query = {}
-    peaks = {}
+    by_query = {}
+    segment_inputs = {}
     for qid in SLICE_QUERIES:
-        # each query of the main path: counts from 0 just before, read
-        # just after
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(4):
-            t = time.perf_counter()
-            r = gpu.sql(QUERIES[qid])
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-            rows[qid] = r.rows
-        walls[qid] = {"cold_ms": times[0], "warm_ms": times[1:]}
-        per_query[qid] = {name: fn.launches for name, fn in counters.items()}
-        peaks[qid] = torch.cuda.max_memory_allocated()
-        for name in counters:
-            launches[name] += per_query[qid][name]
-
-    cpu_cats = {SF: cat, 0.1: tpch_catalog(0.1, cache)}
-    for qid in SLICE_QUERIES:
-        assert_rows_match(f"Q{qid} cuda vs numpy", rows[qid], expected[qid])
-        sf = CPU_CHECK_SF[qid]
-        on_cpu = presto_tpu_torch.connect(cpu_cats[sf], device="cpu") \
-            .sql(QUERIES[qid]).rows
-        on_gpu = rows[qid] if sf == SF else presto_tpu_torch.connect(
-            cpu_cats[sf], device="cuda").sql(QUERIES[qid]).rows
-        assert_rows_match(f"Q{qid} cuda vs cpu at SF{sf}", on_gpu, on_cpu)
-        emit({"phase": "slice", "query": f"Q{qid}", "sf": SF,
-              "rows": len(rows[qid]), **walls[qid],
-              "launches_in_4_runs": per_query[qid],
-              "peak_device_bytes": peaks[qid],
-              "matches_numpy": True, "matches_cpu_at_sf": sf})
-    if not per_query[1]["fused_group_sums"]:
-        raise AssertionError("Q1 on cuda never launched fused_group_sums")
-    for qid in (3, 18):
-        if not per_query[qid]["block_gather"]:
-            raise AssertionError(f"Q{qid} on cuda never launched "
-                                 "block_gather")
+        out = {"numpy": expected}
+        guarded("query", f"Q{qid}", phase_query, qid, QUERIES[qid],
+                sessions, capture, counters, out)
+        if "launches" in out:
+            by_query[f"Q{qid}"] = out["launches"]
+            for name in counters:
+                launches[name] += out["launches"][name]
+        if qid in SEGMENT_SUM_QUERIES and "segment_sum_input" in out:
+            segment_inputs[qid] = out["segment_sum_input"]
     emit({"phase": "slice", "launches": launches,
-          "peak_device_bytes": max(peaks.values())})
-    for qid in (3, 18):
-        phase_launch_log(gpu, qid, QUERIES[qid])
-    q1_row = phase_q1_input(gpu, QUERIES[1])
+          "launches_by_query": by_query})
+    for qid in SEGMENT_SUM_QUERIES:
+        if qid not in segment_inputs:
+            fail("segment_sum", f"Q{qid}",
+                 f"Q{qid} gave segment_sum no float input")
+            continue
+        guarded("segment_sum", f"Q{qid}", phase_segment_sum, qid,
+                *segment_inputs.pop(qid))
+    guarded("surface", None, phase_surface, sessions)
     for qid in SLICE_QUERIES:
-        phase_profile(gpu, qid, QUERIES[qid])
-    return launches, q1_row
-
-
-def phase_q1_input(session, sql):
-    """One more Q1 run with its fused_group_sums input captured, then the
-    kernel held against its plain version and the correctly rounded sums
-    on that input (the main path's real gid: skewed groups, masked rows
-    in the last group)."""
-    import torch
-
-    from presto_tpu_torch.exec import kernels as K
-
-    calls = []
-    real = K.fused_group_sums
-
-    def captured(vals, gid, n_groups):
-        calls.append((vals.clone(), gid.clone(), n_groups))
-        return real(vals, gid, n_groups)
-
-    K.fused_group_sums = captured
-    try:
-        session.sql(sql)
-    finally:
-        K.fused_group_sums = real
-    if len(calls) != 1:
-        raise AssertionError(f"Q1 called fused_group_sums {len(calls)} "
-                             "times, expected once")
-    vals, gid, G = calls[0]
-    sm = torch.cuda.get_device_properties(0).multi_processor_count
-    # shown beside them: one index_add_ over all rows, which adds each
-    # group's rows in one chain and drifts by 1e-12 on this input
-    one_chain = torch.zeros((vals.shape[0], G), dtype=torch.float64,
-                            device="cuda").index_add_(1, gid, vals)
-    row = fgs_check(vals, gid, G, sm, shown={"one_index_add_": one_chain})
-    row["group_rows"] = torch.bincount(gid, minlength=G).tolist()
-    emit({"phase": "kernel_q1_input", "name": "fused_group_sums", **row})
-    if not row[f"bit_identical_in_{FGS_REPEATS}"]:
-        raise AssertionError("fused_group_sums gave different bits in "
-                             f"{FGS_REPEATS} launches on Q1's input")
-    return row
-
-
-def phase_launch_log(session, qid, sql):
-    """One more run of a query with every block_gather call logged: its
-    shape, the share of thread blocks that staged their rows in shared
-    memory, and the share of blocks whose indices the reference's
-    aligned window (presto_tpu/exec/gather.py:218-220) would have
-    covered; the reference runs its kernel only when all are."""
-    import torch
-
-    from presto_tpu_torch.exec import gather as G
-
-    log = []
-    real = G.block_gather
-
-    def logged(src, sidx):
-        staged = torch.zeros(1, dtype=torch.int32, device=src.device)
-        out = G.block_gather_cuda(src, sidx, staged_blocks=staged)
-        (n, w), m, ib = src.shape, sidx.shape[0], G._IB
-        W = G.window_rows(n, m)
-        covered = None
-        if W is not None and m >= ib:
-            padded = torch.cat([sidx, sidx[-1:].expand((-m) % ib)])
-            first, last = padded[::ib] // W, padded[ib - 1::ib]
-            covered = float((last < (first + 1) * W).float().mean())
-        log.append({"n": n, "w": w, "m": m,
-                    "staged_block_share": int(staged) / -(-m // ib),
-                    "reference_window_rows": W,
-                    "reference_covered_block_share": covered})
-        return out
-
-    G.block_gather = logged
-    try:
-        session.sql(sql)
-    finally:
-        G.block_gather = real
-    emit({"phase": "launch_log", "query": f"Q{qid}",
-          "block_gather_calls": log})
+        guarded("profile", f"Q{qid}", phase_profile, sessions["cuda", SF],
+                qid, QUERIES[qid])
+    for name, fn in (("fused_group_sums", K.fused_group_sums_cuda),
+                     ("block_gather", G.block_gather_cuda)):
+        if not launches[name]:
+            fail("slice", None, f"no query on cuda launched {name}")
+    return launches
 
 
 def exact_group_sums(vals, gid, G):
@@ -744,6 +971,7 @@ def phase_profile(session, qid, sql, top=8):
 def main() -> int:
     import torch
 
+    t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -755,16 +983,23 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
-    phase_build()
-    phase_kernel()
-    bg_rows = phase_block_gather()
-    launches, q1_row = phase_slice()
+    guarded("build", None, phase_build)
+    if FAILED:  # nothing below runs without the kernels
+        return finish(1, t0)
+    guarded("kernel", None, phase_kernel)
+    bg_rows = guarded("kernel", None, phase_block_gather)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    capture = Capture(sm)
+    launches = guarded("slice", None, phase_slice, capture)
+    q1_rows = [row for q, row in capture.fgs_rows.values() if q == "Q1"]
+    if FAILED or not (bg_rows and q1_rows and launches):
+        return finish(1, t0)
     kernels = []
     # each kernel at its main path's shape: the input one Q1 run gives
     # fused_group_sums, Q3's orders-at-lineitem gather for block_gather
     for name, src, replaces, row in (
             ("fused_group_sums", "fused_group_sums.cu",
-             "presto_tpu/exec/kernels.py:1484", q1_row),
+             "presto_tpu/exec/kernels.py:1484", q1_rows[0]),
             ("block_gather", "block_gather.cu",
              "presto_tpu/exec/gather.py:160", bg_rows[0])):
         kernels.append({
@@ -774,8 +1009,24 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
-    emit({"kernels": kernels})
+    return finish(0, t0, kernels)
+
+
+def finish(rc: int, t0: float, kernels=None) -> int:
+    """The last lines: the script's wall time since t0, the kernels'
+    summary (when every phase passed), the card, then the contract line,
+    or the list of the phases that failed (never the contract line
+    after a failure)."""
+    import torch
+
+    emit({"phase": "total", "seconds": time.perf_counter() - t0,
+          "failed": len(FAILED)})
+    if kernels is not None:
+        emit({"kernels": kernels})
     print(card_line(), flush=True)
+    if rc or FAILED:
+        emit({"ok": False, "failed": FAILED})
+        return 1
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

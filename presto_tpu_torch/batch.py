@@ -31,15 +31,26 @@ _dict_ids = itertools.count()
 
 
 class Dictionary:
-    """Host-side string dictionary, identity-hashed."""
+    """Host-side string dictionary, identity-hashed and never changed
+    after it is built, so what is computed from its values can be kept
+    beside it (`derived`)."""
 
-    __slots__ = ("values", "_id")
+    __slots__ = ("values", "_id", "_derived")
 
     def __init__(self, values: np.ndarray):
         # values: 1-D object/str array; code i means values[i]; null is
         # carried by the validity mask
         self.values = np.asarray(values)
         self._id = next(_dict_ids)
+        self._derived = {}
+
+    def derived(self, key, compute):
+        """compute() on first use for `key`, then the kept result: a
+        host transform over every entry runs once per dictionary."""
+        hit = self._derived.get(key)
+        if hit is None:
+            hit = self._derived[key] = compute()
+        return hit
 
     def __len__(self) -> int:
         return len(self.values)

@@ -1,12 +1,12 @@
 """Local query executor: logical plan -> torch kernels -> host result.
 
 Reference: presto_tpu/exec/executor.py.  This slice ports the dynamic
-executor for scan -> filter -> project -> join -> aggregate ->
-sort/topn/limit -> output, the path of TPC-H Q1, Q3, Q6 and Q18.  Each
-node materializes a whole-column Batch on the session's device; filters
-AND into `sel`.  Joins run INNER, LEFT, RIGHT (the mirrored LEFT), SEMI,
-ANTI and MARK, as index joins or sort joins (`kernels.build_probe`),
-always resident.
+executor for values/scan -> filter -> project -> join -> aggregate
+(DISTINCT aggregates included) -> sort/topn/limit -> output, the path of
+all 22 TPC-H queries.  Each node materializes a whole-column Batch on
+the session's device; filters AND into `sel`.  Joins run INNER, LEFT,
+RIGHT (the mirrored LEFT), SEMI, ANTI and MARK, as index joins or sort
+joins (`kernels.build_probe`), always resident.
 
 Not ported yet, and raising NotImplementedError when reached: compiled
 and chunked execution, distributed execution, float32_compute, every
@@ -28,7 +28,8 @@ import torch
 from presto_tpu_torch import session_ctx
 from presto_tpu_torch import types as T
 from presto_tpu_torch.batch import (Batch, Column, Dictionary,
-                                    column_from_numpy, to_numpy)
+                                    batch_from_numpy, column_from_numpy,
+                                    to_numpy)
 from presto_tpu_torch.exec import kernels as K
 from presto_tpu_torch.exec.colval import translate_codes
 from presto_tpu_torch.exec.compiler import (EvalContext, eval_expr,
@@ -176,6 +177,30 @@ class Executor:
         return scan_batch(self.session.catalog.get(node.table), node,
                           self.device)
 
+    def _exec_values(self, node: P.Values) -> Batch:
+        """Literal rows (a SELECT without FROM, VALUES lists) as a batch
+        on the session's device (reference: _exec_values)."""
+        arrays, valids, types = {}, {}, {}
+        for j, (sym, t) in enumerate(zip(node.symbols, node.types_)):
+            if t.name in ("ARRAY", "MAP", "ROW"):
+                raise NotImplementedError(
+                    f"{t.name} values are not ported to presto_tpu_torch")
+            vals = [r[j] for r in node.rows]
+            mask = np.asarray([v is not None for v in vals], dtype=bool)
+            if t.is_string:
+                arr = np.asarray([v if v is not None else "" for v in vals],
+                                 dtype=object)
+            else:
+                arr = np.asarray([v if v is not None else 0 for v in vals],
+                                 dtype=t.numpy_dtype())
+            arrays[sym], types[sym] = arr, t
+            if not mask.all():
+                valids[sym] = mask
+        if not arrays:
+            return Batch({}, torch.ones((len(node.rows),), dtype=torch.bool,
+                                        device=self.device))
+        return batch_from_numpy(arrays, types, self.device, valids)
+
     # ---- row-wise ----------------------------------------------------
     def _exec_filter(self, node: P.Filter) -> Batch:
         b = self.exec_node(node.source)
@@ -192,8 +217,63 @@ class Executor:
     def _exec_aggregate(self, node: P.Aggregate) -> Batch:
         b = self.exec_node(node.source)
         if any(a.distinct for a in node.aggs.values()):
-            raise NotImplementedError("DISTINCT aggregates are not ported")
+            return self._aggregate_with_distinct(node, b)
         return self._aggregate(b, node.group_keys, node.aggs, node)
+
+    def _aggregate_with_distinct(self, node: P.Aggregate, b: Batch) -> Batch:
+        """DISTINCT aggregates: pre-group by the keys plus the distinct
+        argument, then run the plain aggregate over the deduplicated
+        groups; the non-distinct aggregates run in a pass of their own
+        (reference: presto_tpu/exec/executor.py
+        _exec_aggregate_with_distinct).  Every pass numbers the same
+        final groups in the same ascending key order, so their outputs
+        line up column by column without a join."""
+        distinct_aggs = {s: a for s, a in node.aggs.items() if a.distinct}
+        plain_aggs = {s: a for s, a in node.aggs.items() if not a.distinct}
+        if plain_aggs:
+            pb = self._aggregate(b, node.group_keys, plain_aggs)
+            db = self._aggregate_with_distinct(
+                P.Aggregate(node.source, node.group_keys, distinct_aggs,
+                            node.step), b)
+            if pb.capacity != db.capacity:
+                raise ExecutionError("distinct/plain group alignment failed")
+            cols = {k: c for k, c in db.columns.items() if k not in node.aggs}
+            for s in node.aggs:
+                cols[s] = (db if s in distinct_aggs else pb).columns[s]
+            return Batch(cols, db.sel)
+        for a in distinct_aggs.values():
+            if a.filter is not None:
+                # the filter must apply before deduplication, and the
+                # pre-group no longer carries its columns
+                raise ExecutionError(
+                    "DISTINCT aggregates with FILTER are not supported yet")
+        by_col: Dict[str, Dict[str, ir.AggCall]] = {}
+        for s, a in distinct_aggs.items():
+            by_col.setdefault(a.args[0].name, {})[s] = a
+        result = None
+        for darg in sorted(by_col):
+            pre = self._aggregate(b, node.group_keys + [darg], {})
+            aggs2 = {}
+            for s, a in by_col[darg].items():
+                if a.fn in ("count", "sum", "avg", "min", "max"):
+                    # over the deduplicated pre-group these equal their
+                    # DISTINCT forms
+                    aggs2[s] = ir.AggCall(a.fn, a.args, a.type, False,
+                                          a.filter)
+                else:
+                    raise NotImplementedError(
+                        f"DISTINCT {a.fn} is not ported to presto_tpu_torch")
+            db = self._aggregate(pre, node.group_keys, aggs2)
+            if result is None:
+                result = db
+                continue
+            if result.capacity != db.capacity:
+                raise ExecutionError("distinct group alignment failed")
+            cols = dict(result.columns)
+            for s in aggs2:
+                cols[s] = db.columns[s]
+            result = Batch(cols, result.sel)
+        return result
 
     @staticmethod
     def _agg_pack_order(node, group_keys):
@@ -239,9 +319,9 @@ class Executor:
             c = b.columns[k]
             out_cols[k] = Column(data, valid, c.type, c.dictionary)
         fused = self._fused_sum_aggs(b, aggs, gid, n_groups)
+        order = K.GroupOrder(gid, n_groups)  # shared by the sums below
         for sym, a in aggs.items():
-            out_cols[sym] = fused.get(sym) or self._agg_column(b, a, gid,
-                                                               n_groups)
+            out_cols[sym] = fused.get(sym) or self._agg_column(b, a, order)
         sel = torch.ones((max(n_groups, 0),), dtype=torch.bool,
                          device=self.device)
         return Batch(out_cols, sel)
@@ -327,12 +407,14 @@ class Executor:
                 out[sym] = Column(s, nonempty, out_t)
         return out
 
-    def _agg_column(self, b: Batch, a: ir.AggCall, gid, n_groups) -> Column:
+    def _agg_column(self, b: Batch, a: ir.AggCall,
+                    order: K.GroupOrder) -> Column:
+        gid, n_groups = order.gid, order.n_groups
         mask = b.sel
         if a.filter is not None:
             mask = mask & eval_predicate(a.filter, b, self.ctx)
         if a.fn == "count" and not a.args:
-            cnt = K.segment_sum(mask.to(torch.int32), gid, n_groups)
+            cnt = K.segment_sum(mask.to(torch.int32), gid, n_groups, order)
             return Column(cnt.to(torch.int64), None, T.BIGINT)
         if a.fn == "count_if":
             v = to_column(eval_expr(a.args[0], b, self.ctx), b.capacity,
@@ -340,8 +422,8 @@ class Executor:
             m = mask & v.data
             if v.valid is not None:
                 m = m & v.valid
-            return Column(K.segment_sum(m.to(torch.int32), gid,
-                                        n_groups).to(torch.int64),
+            return Column(K.segment_sum(m.to(torch.int32), gid, n_groups,
+                                        order).to(torch.int64),
                           None, T.BIGINT)
         if a.fn not in ("count", "sum", "avg", "min", "max"):
             raise NotImplementedError(
@@ -351,14 +433,14 @@ class Executor:
         if col.type.is_decimal:
             raise NotImplementedError("DECIMAL aggregates are not ported")
         valid = mask if col.valid is None else (mask & col.valid)
-        cnt = K.segment_sum(valid.to(torch.int32), gid,
-                            n_groups).to(torch.int64)
+        cnt = K.segment_sum(valid.to(torch.int32), gid, n_groups,
+                            order).to(torch.int64)
         nonempty = cnt > 0
         if a.fn == "count":
             return Column(cnt, None, T.BIGINT)
         if a.fn == "sum":
             x = torch.where(valid, col.data, torch.zeros_like(col.data))
-            s = K.segment_sum(x, gid, n_groups)
+            s = K.segment_sum(x, gid, n_groups, order)
             if a.type.is_integer:
                 s = s.to(torch.int64)
             return Column(s.to(torch_dtype(a.type)), nonempty, a.type)
@@ -366,7 +448,7 @@ class Executor:
             if a.type.name.startswith("INTERVAL"):
                 raise NotImplementedError("avg over intervals is not ported")
             x = torch.where(valid, col.data.to(torch.float64), 0.0)
-            s = K.segment_sum(x, gid, n_groups)
+            s = K.segment_sum(x, gid, n_groups, order)
             return Column(s / cnt.clamp_min(1), nonempty, T.DOUBLE)
         ext = K._reduce_identity(col.data.dtype, a.fn == "min")
         x = torch.where(valid, col.data,
@@ -379,7 +461,8 @@ class Executor:
                           aggs: Dict[str, ir.AggCall]) -> Batch:
         gid = torch.zeros((b.capacity,), dtype=torch.int64,
                           device=self.device)
-        out_cols = {sym: self._agg_column(b, a, gid, 1)
+        order = K.GroupOrder(gid, 1)
+        out_cols = {sym: self._agg_column(b, a, order)
                     for sym, a in aggs.items()}
         return Batch(out_cols, torch.ones((1,), dtype=torch.bool,
                                           device=self.device))

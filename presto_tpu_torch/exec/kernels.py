@@ -305,17 +305,81 @@ def group_ids(key: torch.Tensor, sel,
     return gid, rep_rows, n_groups
 
 
-def segment_sum(x: torch.Tensor, gid: torch.Tensor,
-                n_groups: int) -> torch.Tensor:
+class GroupOrder:
+    """The fixed order in which segment_sum adds each group's rows: the
+    live rows (gid < n_groups; masked rows carry gid == n_groups and
+    are left out) sorted stably by group, cut into chunks of at most
+    _SEGMENT_CHUNK consecutive rows of one group.  Float sums add each
+    chunk, then each group's chunk sums, in this order, so their bits
+    depend on the input alone, on every device (no atomic adds, whose
+    order the card chooses).  Built once per grouping and shared by its
+    aggregates; it syncs with the host not at all."""
+
+    def __init__(self, gid: torch.Tensor, n_groups: int):
+        self.gid = gid
+        self.n_groups = n_groups
+        self._plan = None
+
+    def plan(self):
+        """(order, each group's first and one-past-last sorted row,
+        level-1 offsets, level-2 offsets)."""
+        if self._plan is None:
+            g = self.gid  # int32 from group_ids: a 4-pass radix sort
+            G, dev = self.n_groups, g.device
+            order = torch.argsort(g, stable=True)  # masked rows last
+            # group bounds by binary search in the sorted ids: a
+            # bincount would add every masked row into one counter
+            ids = torch.arange(G, dtype=g.dtype, device=dev)
+            gs = g[order]
+            starts = torch.searchsorted(gs, ids)
+            ends = torch.searchsorted(gs, ids, right=True)
+            cnt = ends - starts
+            nchunks = (cnt + _SEGMENT_CHUNK - 1) // _SEGMENT_CHUNK
+            cends = torch.cumsum(nchunks, 0)
+            # at most this many chunks, whatever the data: the ones past
+            # the real count are empty and sum to 0
+            most = g.shape[0] // _SEGMENT_CHUNK + G + 1
+            k = torch.arange(most, device=dev)
+            gk = torch.searchsorted(cends, k, right=True).clamp(max=G - 1)
+            j = k - (cends[gk] - nchunks[gk])
+            start = torch.where(k < cends[-1],
+                                starts[gk] + j * _SEGMENT_CHUNK, ends[-1])
+            self._plan = (order, starts, ends,
+                          torch.cat([start, ends[-1:]]),
+                          torch.cat([torch.zeros(1, dtype=cends.dtype,
+                                                 device=dev), cends]))
+        return self._plan
+
+
+_SEGMENT_CHUNK = 8192  # rows a first-level sum adds, as fused_group_sums
+
+
+def segment_sum(x: torch.Tensor, gid: torch.Tensor, n_groups: int,
+                order: Optional[GroupOrder] = None) -> torch.Tensor:
     """Per-group sums; rows with gid == n_groups (masked) are dropped.
     Integer inputs accumulate exactly in int64 (two's-complement
     wraparound, the reference's three-limb contract); the result keeps
-    the input dtype (bool -> int64)."""
+    the input dtype (bool -> int64).  Float sums add in GroupOrder's
+    fixed order, so they are bit-identical from run to run on the card
+    as on the CPU; pass `order` to share one grouping's sort between
+    several sums."""
     if n_groups == 1:
         return x.sum(dtype=_acc_dtype(x))[None].to(_out_dtype(x))
-    acc = torch.zeros((n_groups + 1,), dtype=_acc_dtype(x), device=x.device)
-    acc.index_add_(0, gid.long(), x.to(acc.dtype))
-    return acc[:n_groups].to(_out_dtype(x))
+    if n_groups == 0:
+        return torch.zeros((0,), dtype=_out_dtype(x), device=x.device)
+    perm, starts, ends, level1, level2 = (
+        order or GroupOrder(gid, n_groups)).plan()
+    xs = x[perm].to(_acc_dtype(x))
+    if not x.is_floating_point():
+        # integer sums are exact in any order: differences of one
+        # running sum (wrapping like the sums themselves)
+        run = torch.cat([torch.zeros(1, dtype=xs.dtype, device=x.device),
+                         torch.cumsum(xs, 0)])
+        return (run[ends] - run[starts]).to(_out_dtype(x))
+    chunks = torch.segment_reduce(xs, "sum", offsets=level1, unsafe=True,
+                                  initial=0.0)
+    return torch.segment_reduce(chunks, "sum", offsets=level2, unsafe=True,
+                                initial=0.0).to(_out_dtype(x))
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:

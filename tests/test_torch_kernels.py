@@ -7,6 +7,8 @@ CUDA kernel itself is held against its plain version on the card by
 chip_smoke.py.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -332,6 +334,35 @@ def test_segment_sum_matches_reference(case):
         np.testing.assert_allclose(out, ref, rtol=1e-9)
     else:
         np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("shared_order", [False, True])
+def test_segment_sum_fixed_order_is_near_exact(shared_order):
+    """Float segment_sum adds in GroupOrder's fixed order (chunks of
+    _SEGMENT_CHUNK rows, then each group's chunk sums): the same bits on
+    every call, and within 1e-13 relative of the correctly rounded sums
+    (math.fsum), on a skewed input with masked rows: one group of ~180K
+    rows (many chunks), thousands of groups of a few rows, and groups
+    with no rows at all."""
+    rng = np.random.default_rng(23)
+    n, G = 300_000, 6_000
+    gid = np.where(rng.random(n) < 0.6, 0, rng.integers(1, G // 2, n))
+    gid[rng.random(n) < 0.1] = G  # masked: the dead slot
+    x = rng.random(n) * 1e4
+    tg, tx = _t(gid), _t(x)
+    order = K.GroupOrder(tg, G) if shared_order else None
+    out = K.segment_sum(tx, tg, G, order)
+    assert torch.equal(out, K.segment_sum(tx, tg, G, order))
+    srt = np.argsort(gid, kind="stable")
+    xs = x[srt]
+    bounds = np.searchsorted(gid[srt], np.arange(G + 1))
+    exact = np.array([math.fsum(xs[bounds[g]:bounds[g + 1]])
+                      for g in range(G)])
+    assert (exact[G // 2:] == 0).all()
+    assert out.dtype == torch.float64
+    np.testing.assert_array_equal(out.numpy()[G // 2:], 0.0)
+    err = np.abs(out.numpy() - exact)
+    assert (err <= 1e-13 * np.abs(exact)).all(), err.max()
 
 
 @pytest.mark.parametrize("fn", ["segment_min", "segment_max"])
