@@ -1,29 +1,43 @@
 """Drive presto_tpu_torch's main path on one CUDA card and hold every
 kernel of that path against its plain PyTorch version.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # everything below
+    python3 chip_smoke.py --kernels    # the kernel phases alone, no result
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 It builds the kernels from presto_tpu_torch/csrc into build/ (one nvcc
-per source, started together), checks each kernel at synthetic shapes
-(the main path's and edge shapes), times it beside its plain version,
-its byte/operation bound and the one PyTorch call that computes the same
-function, and launches fused_group_sums ten times a shape to see whether
+per source, started together), checks each kernel's compile-time bounds
+against its launch plan, checks each kernel at synthetic shapes (the
+main path's and edge shapes), times it (CUDA events around back-to-back
+calls) beside its plain version, its byte/operation bound and the one
+PyTorch call that computes the same function, and launches
+fused_group_sums ten times a shape to see whether
 its result is bit-identical.  fused_group_sums and its plain version are
 also each held against the correctly rounded sums (math.fsum on the
 host), so that the kernel's check does not rest on the plain version
-alone.
+alone.  block_gather is timed in turns with index_select, once so and
+once on the card alone (the card sleeps while the host queues the
+calls, so a call whose host side outlasts its kernel does not idle the
+card), against the bound at 32-byte sector granularity too, and on the
+card alone at each stage size of a sweep beside its plan's (each launch
+checked byte for byte, its count of tiles through the ring held
+against the plan's arithmetic); it must refuse a source off a 16-byte
+boundary.  The staged and the flat take_rows are timed at Q3's shape,
+and one copy_ of Q3's gather output gives the rate the card moves in
+practice.
 
 Then it runs all 22 TPC-H queries at SF1 through
 `presto_tpu_torch.connect(...).sql(...)`, four times each with the
 kernels' launch counts set to 0 just before and read just after, and
 once more with both kernels' inputs captured: at every (kernel, shape)
 no earlier query reached, the kernel is held against its plain version
-on that very input and timed.  Each query's rows must be identical in
-the four runs wherever its f64 sums add in a fixed order (every sum but
-fused_group_sums' shared-table path), and must agree with the port's own
-CPU run (at SF1, or at SF0.1 where the CPU would take long; the card
-then runs the query at SF0.1 too) under a tie-aware comparison: rows
+on that very input and timed (block_gather's shapes are then summed
+into its time-weighted share of the bound).  Each query's rows must be
+identical in the four runs wherever its f64 sums add in a fixed order
+(every sum but fused_group_sums' shared-table path), and must agree
+with the port's own CPU run (at SF1, or at SF0.1 where the CPU would
+take long; the card then runs the query at SF0.1 too) under a
+tie-aware comparison: rows
 whose ORDER BY keys agree within QUERY_RTOL compare as a multiset, and
 at a LIMIT the rows tied with the last kept row may differ.  Q1, Q3, Q6
 and Q18 are also held against numpy computations from the generated
@@ -79,17 +93,29 @@ BG_SHAPES = [
     ("q18_orders_at_lineitem", 1_500_000, 11, 6_000_601, "uniform"),
     ("customer_at_orders", 150_000, 4, 1_500_000, "uniform"),
     ("q18_group_keys", 6_000_601, 2, 1_500_000, "uniform"),
-    # half the indices dense over the first eighth of the rows (blocks
-    # fit shared memory), half sparse over the rest (they do not)
+    # half the indices dense over the first eighth of the rows (their
+    # tiles fit a stage), half sparse over the rest (they do not)
     ("skewed", 8_000_000, 4, 2_000_000, "skewed"),
     ("span_beyond_budget", 16_000_000, 2, 4_096, "uniform"),
     ("m_not_multiple_of_ib", 100_000, 3, 1_000_003, "uniform"),
     ("one_source_row", 1, 5, 5_000, "uniform"),
     ("no_indices", 1_000, 4, 0, "uniform"),
+    ("one_index", 1_000, 7, 1, "uniform"),
 ]
-# block_gather's shared-memory budget per thread block (KB), timed at the
-# main path's four shapes; the port launches with G._SMEM_MAX_BYTES
-SMEM_SWEEP_KB = (12, 24, 48, 96, 192)
+# block_gather's stage bytes, timed at every shape beside the plan's
+# own: no stage (every tile reads its rows directly), 8 KB, and the
+# largest stage at 4, 2 and 1 blocks an SM (G.bg_stage_cap)
+STAGE_SWEEP_FIXED = (0, 8192)
+STAGE_SWEEP_RESIDENCIES = (4, 2, 1)
+# kernel and index_select timed in turns, this many times each in each
+# timing (back-to-back, card alone); the median of each is reported
+BG_TURNS = 3
+# the card's sleep per queued call when card_ms runs ahead of the host
+# (about 100 us at the H100's 1.98 GHz boost clock)
+SLEEP_CYCLES_PER_CALL = 200_000
+# the captured shapes whose time is compared with index_select's in the
+# summary: those whose bound is at least this (ms)
+BG_MIN_COMPARED_MS = 0.02
 SLICE_QUERIES = tuple(range(1, 23))
 # the port's CPU run each card run is held against: SF1 where the CPU
 # takes a few seconds, SF0.1 elsewhere
@@ -135,20 +161,32 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of fn() over `iters` calls, by CUDA events."""
+def cuda_ms(fn, iters: int, warmup: int = 3, ahead: bool = False) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls, by CUDA
+    events: where a call's host side outlasts its kernels, the host's
+    share is in it.  `ahead`: see card_ms."""
     import torch
 
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def card_ms(fn, iters: int) -> float:
+    """Mean time of fn() over `iters` calls on the card alone: the card
+    first sleeps while the host queues the calls, so the events time its
+    work without the host's gaps."""
+    return cuda_ms(fn, iters, ahead=True)
 
 
 def phase_build():
@@ -158,7 +196,8 @@ def phase_build():
     t0 = time.perf_counter()
     cuda_build.build_all(names)
     row = {"phase": "build", "seconds": time.perf_counter() - t0,
-           "fgs_template_bounds": check_fgs_bounds()}
+           "fgs_template_bounds": check_fgs_bounds(),
+           "bg_bounds": check_bg_bounds()}
     for name in names:
         info = cuda_build.build_info.get(name, {})
         row[name] = {"nvcc_seconds": info.get("seconds"), "ptxas": [
@@ -196,6 +235,31 @@ def check_fgs_bounds():
         out[slots] = rows.value
         slots *= 2
     return out
+
+
+def check_bg_bounds():
+    """The launch plan's constants against the compile-time bounds of
+    csrc/block_gather.cu (threads a block, indices a tile, ring stages,
+    the residency its register bound allows, a block's most shared
+    memory): they must agree, or the kernel would refuse every plan."""
+    import ctypes
+
+    from presto_tpu_torch.exec import cuda_build
+    from presto_tpu_torch.exec import gather as G
+
+    lib = cuda_build.load("block_gather")
+    vals = [ctypes.c_int() for _ in range(5)]
+    lib.block_gather_bounds(*[ctypes.byref(v) for v in vals])
+    source = dict(zip(("threads", "tile", "stages", "blocks_per_sm",
+                       "max_smem"), (v.value for v in vals)))
+    plan = {"threads": G._BG_THREADS, "tile": G._BG_TILE,
+            "stages": G._BG_STAGES,
+            "blocks_per_sm": G._BG_MAX_BLOCKS_PER_SM,
+            "max_smem": G._BG_SMEM_PER_BLOCK}
+    if source != plan:
+        raise AssertionError(f"block_gather: the source's bounds {source} "
+                             f"differ from the launch plan's {plan}")
+    return source
 
 
 def sass_atomics(lib):
@@ -360,24 +424,71 @@ def bg_bound(n, w, m, distinct):
     return byte_s * 1e3, "bytes"
 
 
+def source_sectors(sidx, w):
+    """The 32-byte sectors of a (n, w) word matrix that the sorted rows
+    sidx touch: the least the card can read of the source, since device
+    memory moves whole sectors."""
+    import torch
+
+    first = sidx.long() * (4 * w) // 32
+    last = ((sidx.long() + 1) * (4 * w) - 1) // 32
+    prev = torch.cat([last.new_full((1,), -1), last[:-1]])
+    return int((last - torch.maximum(first, prev + 1) + 1).clamp_min(0)
+               .sum())
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def expected_staged_tiles(sidx, n, w, stage_bytes):
+    """The tiles of sorted indices that go through the ring at this
+    stage size by the plan's own window arithmetic (G.copy_window,
+    G.tile_staged), which the kernel's staged_blocks count must equal."""
+    from presto_tpu_torch.exec import gather as G
+
+    m = sidx.shape[0]
+    if not m:
+        return 0
+    lo = sidx[::G._BG_TILE].tolist()
+    hi = sidx[G._BG_TILE - 1::G._BG_TILE].tolist()
+    if len(hi) < len(lo):
+        hi.append(int(sidx[-1]))
+    return sum(G.tile_staged(G.copy_window(a, b, w, n), stage_bytes)
+               for a, b in zip(lo, hi))
+
+
+def check_staged_count(what, staged, expected):
+    if staged != expected:
+        raise AssertionError(f"block_gather {what}: {staged} tiles went "
+                             f"through the ring, the plan's window "
+                             f"arithmetic says {expected}")
+
+
 def bg_check(src, sidx):
     """block_gather on one input: byte-identical to its plain version,
-    the share of its thread blocks that staged rows in shared memory
-    (and that the reference's window check would have let through),
-    and (m > 0) its time beside the plain version, index_select and the
-    bound.  Raises when it differs."""
+    its launch plan and the share of its tiles that went through the
+    TMA ring (and that the reference's window check would have let
+    through), and (m > 0) its time beside the plain version and
+    index_select (kernel and index_select in turns, the median of
+    BG_TURNS each, back-to-back and on the card alone), the byte bound,
+    the bound at sector granularity and the time at each stage size
+    (sweep_stage_bytes).  Raises when it differs, or when its count of
+    tiles through the ring differs from the plan's arithmetic."""
     import torch
 
     from presto_tpu_torch.exec import gather as G
 
     (n, w), m = src.shape, sidx.shape[0]
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
     staged = torch.zeros(1, dtype=torch.int32, device="cuda")
     out = G.block_gather_cuda(src, sidx, staged_blocks=staged)
     plain = G.block_gather_plain(src, sidx)
     torch.cuda.synchronize()
     ok = out.shape == plain.shape and torch.equal(out, plain)
+    tiles = -(-m // G._BG_TILE)
     ib = G._IB
-    blocks = -(-m // ib)
     # the share of blocks whose indices the reference's aligned window
     # (presto_tpu/exec/gather.py:218-220) would have covered; the
     # reference runs its kernel only when all are
@@ -387,25 +498,48 @@ def bg_check(src, sidx):
         padded = torch.cat([sidx, sidx[-1:].expand((-m) % ib)])
         first, last = padded[::ib] // W, padded[ib - 1::ib]
         covered = float((last < (first + 1) * W).float().mean())
+    plan = G.block_gather_launch_shape(n, w, m, sm)
+    check_staged_count(f"at n={n} w={w} m={m}", int(staged),
+                       expected_staged_tiles(sidx, n, w, plan.stage_bytes))
     row = {"n": n, "w": w, "m": m, "byte_identical": ok,
            "max_abs_err": 0.0 if ok else float("nan"),
-           "smem_rows": G.smem_rows(w), "blocks": blocks,
-           "staged_block_share": int(staged) / blocks if blocks else None,
+           "plan": plan._asdict(), "tiles": tiles,
+           "staged_tile_share": int(staged) / tiles if tiles else None,
            "reference_window_rows": W,
            "reference_covered_block_share": covered}
     if m:
         distinct = int(torch.unique_consecutive(sidx).numel())
         iters = 20 if m > 100_000 else 200
-        row["ms"] = cuda_ms(lambda: G.block_gather_cuda(src, sidx), iters)
+        turns = {"ms": [], "library_ms": [], "card_ms": [],
+                 "library_card_ms": []}
+        for _ in range(BG_TURNS):
+            for key, timing, fn in (
+                    ("ms", cuda_ms, lambda: G.block_gather_cuda(src, sidx)),
+                    ("library_ms", cuda_ms,
+                     lambda: torch.index_select(src, 0, sidx.long())),
+                    ("card_ms", card_ms,
+                     lambda: G.block_gather_cuda(src, sidx)),
+                    ("library_card_ms", card_ms,
+                     lambda: torch.index_select(src, 0, sidx.long()))):
+                turns[key].append(timing(fn, iters))
+        for key, times in turns.items():
+            row[key] = median(times)
+            row[key + "_turns"] = times
         row["plain_ms"] = cuda_ms(
             lambda: G.block_gather_plain(src, sidx), iters)
         # the one PyTorch call for this function is index_select,
         # which is also the plain version's call
         row["library_call"] = "torch.index_select (= the plain version)"
-        row["library_ms"] = cuda_ms(
-            lambda: torch.index_select(src, 0, sidx.long()), iters)
         row["bound_ms"], row["bound_by"] = bg_bound(n, w, m, distinct)
         row["roofline_share"] = row["bound_ms"] / row["ms"]
+        row["card_share"] = row["bound_ms"] / row["card_ms"]
+        sectors = source_sectors(sidx, w)
+        row["source_sectors"] = sectors
+        row["sector_bound_ms"] = (m * 4 + m * w * 4 + sectors * 32) \
+            / HBM_BYTES_PER_S * 1e3
+        row["sector_share"] = row["sector_bound_ms"] / row["ms"]
+        row["card_sector_share"] = row["sector_bound_ms"] / row["card_ms"]
+        row["by_stage_bytes"] = sweep_stage_bytes(src, sidx, iters)
     if not ok:
         raise AssertionError(f"block_gather differs from its plain version "
                              f"at n={n} w={w} m={m}")
@@ -417,36 +551,89 @@ def phase_block_gather():
     for i, (name, n, w, m, how) in enumerate(BG_SHAPES):
         src, sidx = bg_inputs(n, w, m, how, seed=100 + i)
         row = {"shape": name, **bg_check(src, sidx)}
-        if i < 4:  # the main path's shapes
-            row["by_smem_budget_kb"] = sweep_smem_budget(
-                src, sidx, 20 if m > 100_000 else 200)
         emit({"phase": "kernel", "name": "block_gather", **row})
         rows.append(row)
         del src, sidx
+    phase_unaligned_source()
     phase_take_rows_routes()
+    phase_copy_rate()
     return rows
 
 
-def sweep_smem_budget(src, sidx, iters):
-    """block_gather's ms and staged-block share at each budget of
-    SMEM_SWEEP_KB, on one input."""
+def phase_unaligned_source():
+    """The kernel's TMA copies need a source on a 16-byte boundary: the
+    wrapper must refuse one 4 bytes past it, and launch nothing."""
     import torch
 
     from presto_tpu_torch.exec import gather as G
 
-    blocks = -(-sidx.shape[0] // G._IB)
-    saved = G._SMEM_MAX_BYTES
-    out = {}
+    buf = torch.zeros((4 * 1000 + 1,), dtype=torch.int32, device="cuda")
+    src = buf[1:].view(1000, 4)
+    sidx = torch.arange(1000, dtype=torch.int32, device="cuda")
+    before = G.block_gather_cuda.launches
     try:
-        for kb in SMEM_SWEEP_KB:
-            G._SMEM_MAX_BYTES = kb * 1024
-            staged = torch.zeros(1, dtype=torch.int32, device="cuda")
-            G.block_gather_cuda(src, sidx, staged_blocks=staged)
-            out[kb] = {"ms": cuda_ms(lambda: G.block_gather_cuda(src, sidx),
-                                     iters),
-                       "staged_block_share": int(staged) / blocks}
-    finally:
-        G._SMEM_MAX_BYTES = saved
+        G.block_gather_cuda(src, sidx)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        refused = None
+    emit({"phase": "unaligned_source", "address_mod_16":
+          src.data_ptr() % 16, "refused": refused})
+    if refused is None or G.block_gather_cuda.launches != before:
+        raise AssertionError("block_gather launched on a source off a "
+                             "16-byte boundary")
+
+
+def phase_copy_rate():
+    """What the card moves in practice: one device-to-device copy_ of
+    Q3's gather output (6,000,601 x 12 words, 288 MB) into another
+    buffer, against the same byte bound (read once, write once)."""
+    import torch
+
+    _, n, w, m, _ = BG_SHAPES[0]
+    a = torch.empty((m, w), dtype=torch.int32, device="cuda")
+    b = torch.empty_like(a)
+    ms = cuda_ms(lambda: b.copy_(a), 20)
+    bound = 2 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "copy_rate", "bytes": a.numel() * 4, "ms": ms,
+          "bound_ms": bound, "roofline_share": bound / ms})
+
+
+def sweep_stage_bytes(src, sidx, iters):
+    """block_gather's time on the card alone (card_ms), residency and
+    staged-tile share at the plan's stage size, at each of
+    STAGE_SWEEP_FIXED and at the largest stage of each residency in
+    STAGE_SWEEP_RESIDENCIES, on one input; each launch is checked byte
+    for byte against the plain version, and its count of tiles through
+    the ring against the plan's arithmetic."""
+    import torch
+
+    from presto_tpu_torch.exec import gather as G
+
+    (n, w), m = src.shape, sidx.shape[0]
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = G.block_gather_launch_shape(n, w, m, sm).stage_bytes
+    plain = G.block_gather_plain(src, sidx)
+    tiles = -(-m // G._BG_TILE)
+    out = {}
+    for stage in sorted({chosen, *STAGE_SWEEP_FIXED, *(
+            G.bg_stage_cap(r) for r in STAGE_SWEEP_RESIDENCIES)}):
+        plan = G.block_gather_plan_at(n, w, m, sm, stage)
+        staged = torch.zeros(1, dtype=torch.int32, device="cuda")
+        dst = torch.empty_like(plain)
+        G.launch_block_gather(src, sidx, plan, dst, staged)
+        if not torch.equal(dst, plain):
+            raise AssertionError(f"block_gather with {plan} differs from "
+                                 f"its plain version at n={n} w={w} m={m}")
+        check_staged_count(f"with {plan} at n={n} w={w} m={m}",
+                           int(staged),
+                           expected_staged_tiles(sidx, n, w, stage))
+        out[stage] = {
+            "card_ms": card_ms(lambda: G.launch_block_gather(
+                src, sidx, plan, dst), iters),
+            "blocks_per_sm": plan.blocks_per_sm,
+            "staged_tile_share": int(staged) / tiles,
+            "plan_choice": stage == chosen}
     return out
 
 
@@ -968,6 +1155,35 @@ def phase_profile(session, qid, sql, top=8):
     emit(row)
 
 
+def phase_bg_shapes(capture):
+    """block_gather over every shape the queries gave it (Capture), in
+    each timing (back-to-back `ms`, card alone `card_ms`): the summed
+    time against the summed bound (the time-weighted share), the shapes
+    below half their bound, and those slower than index_select where the
+    bound is at least BG_MIN_COMPARED_MS."""
+    rows = [(q, r) for q, r in capture.bg_rows.values() if r.get("ms")]
+    bound = sum(r["bound_ms"] for _, r in rows)
+
+    def tag(q, r):
+        return f"{q} ({r['n']}, {r['w']}, {r['m']})"
+
+    out = {"phase": "block_gather_shapes", "shapes": len(rows),
+           "sum_bound_ms": bound}
+    for prefix, lib in (("", "library_ms"), ("card_", "library_card_ms")):
+        key = prefix + "ms"
+        ms = sum(r[key] for _, r in rows)
+        out.update({
+            f"sum_{key}": ms,
+            f"{prefix}time_weighted_share": bound / ms if ms else None,
+            f"sum_{lib}": sum(r[lib] for _, r in rows),
+            f"{prefix}below_half_bound": [
+                tag(q, r) for q, r in rows if r["bound_ms"] < 0.5 * r[key]],
+            f"{prefix}slower_than_index_select": [
+                tag(q, r) for q, r in rows
+                if r["bound_ms"] >= BG_MIN_COMPARED_MS and r[key] > r[lib]]})
+    emit(out)
+
+
 def main() -> int:
     import torch
 
@@ -988,9 +1204,14 @@ def main() -> int:
         return finish(1, t0)
     guarded("kernel", None, phase_kernel)
     bg_rows = guarded("kernel", None, phase_block_gather)
+    if "--kernels" in sys.argv[1:]:  # the kernel phases alone, no result
+        emit({"phase": "total", "seconds": time.perf_counter() - t0,
+              "failed": FAILED})
+        return 1 if FAILED else 0
     sm = torch.cuda.get_device_properties(0).multi_processor_count
     capture = Capture(sm)
     launches = guarded("slice", None, phase_slice, capture)
+    guarded("block_gather_shapes", None, phase_bg_shapes, capture)
     q1_rows = [row for q, row in capture.fgs_rows.values() if q == "Q1"]
     if FAILED or not (bg_rows and q1_rows and launches):
         return finish(1, t0)

@@ -38,8 +38,10 @@ SIGNATURES = {
     "block_gather": {
         "block_gather_u32": (
             ctypes.c_int,
-            [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, _P, _P, _P]),
+            [_P, _P, ctypes.c_longlong, ctypes.c_longlong,
+             *[ctypes.c_int] * 7, _P, _P, ctypes.c_int, _P]),
+        "block_gather_bounds": (
+            None, [ctypes.POINTER(ctypes.c_int)] * 5),
         "presto_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }

@@ -15,9 +15,11 @@ the gather here:
 static size per grid step, so the reference guarded the whole launch
 with an all-or-nothing coverage check: one block of indices whose span
 straddled its window sent every block to the plain gather.  On the GPU
-each thread block decides for itself, on the device, whether its rows
-fit its shared memory (csrc/block_gather.cu), so there is no coverage
-check and no host sync.
+each tile of sorted indices decides for itself, on the device, whether
+its rows fit a stage of the kernel's shared-memory ring
+(csrc/block_gather.cu), so there is no coverage check and no host sync.
+The kernel's launch plan is the pure function
+`block_gather_launch_shape` of the shape and the card's SM count.
 
 Words are held as int32 bit patterns: torch's CPU kernels lack shifts
 on unsigned types, and the gather only moves bytes.
@@ -25,7 +27,8 @@ on unsigned types, and the gather only moves bytes.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +45,7 @@ _STAGED_MIN_INDICES = 1 << 20
 # two words (one i64 column) already clear the bar
 _STAGED_MIN_WORDS = 2
 
-# sorted indices per thread block (one output block)
+# the reference's sorted indices per output block (its window sizing)
 _IB = 1024
 
 # the reference's window sizing (the largest window, and headroom over
@@ -50,13 +53,6 @@ _IB = 1024
 # to compare with the reference's coverage check (`window_rows`)
 _MAX_WINDOW = 8192
 _WINDOW_SLACK = 2
-
-# shared memory one thread block of the kernel may stage rows in.  The
-# launch reserves it for every block, so it sets occupancy: at 24 KB
-# eight blocks of 256 threads fill an H100 SM (228 KB).  chip_smoke.py
-# times 12 to 192 KB at the main path's gathers; 24 KB was fastest in
-# sum on an H100 80GB HBM3 at 700 W.
-_SMEM_MAX_BYTES = 24 * 1024
 
 
 def _staging_enabled(device: torch.device) -> bool:
@@ -98,11 +94,128 @@ def window_rows(n: int, m: int) -> Optional[int]:
     return int(W)
 
 
-def smem_rows(w: int) -> int:
-    """Rows of a w-word matrix one thread block may stage in shared
-    memory.  A block whose sorted indices span more rows reads them
-    straight from device memory."""
-    return _SMEM_MAX_BYTES // (4 * max(w, 1))
+# ---------------------------------------------------------------------------
+# block_gather's launch plan
+# ---------------------------------------------------------------------------
+
+
+# The kernel's compile-time bounds (csrc/block_gather.cu reports them in
+# block_gather_bounds; chip_smoke.py checks that they agree):
+_BG_THREADS = 256
+_BG_TILE = 1024            # sorted indices a tile
+_BG_STAGES = 2             # the TMA ring
+_BG_IDX_BUFFERS = 3        # index buffers a block
+_BG_BARRIER_BYTES = 16     # one 8-byte mbarrier a stage
+_BG_MAX_BLOCKS_PER_SM = 4  # __launch_bounds__(256, 4): <= 64 registers
+_BG_SMEM_PER_BLOCK = 227 * 1024  # H100, dynamic shared memory
+_BG_SMEM_PER_SM = 228 * 1024     # H100
+_BG_SMEM_RESERVED = 1024         # the runtime's share of each block
+# stage rows over the expected span of a tile: the span of 1,024 sorted
+# uniform indices varies by about 3%, and a few rows more cover the
+# spans of tiles whose rows repeat (a tile over 2 rows may touch 3)
+_BG_SPAN_SLACK = 1.25
+_BG_SPAN_EXTRA_ROWS = 2
+_BG_SECTOR_BYTES = 32  # the unit device memory moves
+
+
+class BgPlan(NamedTuple):
+    """One launch of csrc/block_gather.cu.  `blocks` persistent blocks
+    of _BG_THREADS threads walk tiles of `tile` sorted indices; a tile
+    whose copy window (`copy_window`) fits `stage_bytes` goes through
+    the ring of `stages` stages, the others read their rows with
+    `vec_words`-word loads.  Each block takes `smem_bytes` of shared
+    memory, so `blocks_per_sm` blocks fit an SM."""
+    tile: int
+    stage_bytes: int
+    stages: int
+    vec_words: int
+    blocks: int
+    blocks_per_sm: int
+    smem_bytes: int
+
+
+def _bg_smem(stage_bytes: int) -> int:
+    return (_BG_STAGES * stage_bytes + _BG_IDX_BUFFERS * _BG_TILE * 4
+            + _BG_BARRIER_BYTES)
+
+
+def bg_stage_cap(blocks_per_sm: int) -> int:
+    """The largest stage (a multiple of 16 bytes) whose ring and index
+    buffers let blocks_per_sm blocks share an SM."""
+    per_block = min(_BG_SMEM_PER_BLOCK,
+                    _BG_SMEM_PER_SM // blocks_per_sm - _BG_SMEM_RESERVED)
+    room = per_block - _bg_smem(0)
+    return (room // _BG_STAGES) // 16 * 16
+
+
+def bg_vec_words(w: int) -> int:
+    """The widest load, in words, that starts every row of a w-word
+    matrix on its boundary (the source starts on a 16-byte one)."""
+    return 4 if w % 4 == 0 else 2 if w % 2 == 0 else 1
+
+
+def block_gather_plan_at(n: int, w: int, m: int, sm_count: int,
+                         stage_bytes: int) -> BgPlan:
+    """The plan at a given stage size: as many blocks as fit the card at
+    the residency that stage allows, no more than there are tiles."""
+    if stage_bytes < 0 or stage_bytes % 16:
+        raise ValueError(f"block_gather: stage of {stage_bytes} bytes is "
+                         "not a non-negative multiple of 16")
+    smem = _bg_smem(stage_bytes)
+    if smem > _BG_SMEM_PER_BLOCK:
+        raise ValueError(f"block_gather: a stage of {stage_bytes} bytes "
+                         f"needs {smem} bytes of shared memory a block, "
+                         f"more than a block has ({_BG_SMEM_PER_BLOCK})")
+    per_sm = min(_BG_MAX_BLOCKS_PER_SM,
+                 _BG_SMEM_PER_SM // (smem + _BG_SMEM_RESERVED))
+    tiles = -(-m // _BG_TILE)
+    return BgPlan(_BG_TILE, stage_bytes, _BG_STAGES, bg_vec_words(w),
+                  min(tiles, sm_count * per_sm), per_sm, smem)
+
+
+def bg_expected_stage_bytes(n: int, w: int, m: int) -> int:
+    """The bytes of a stage that holds the copy window of one tile at
+    the expected span of its sorted indices (_BG_TILE * n / m rows, with
+    slack), widened by 16 bytes at either end."""
+    span = _BG_TILE * n / max(m, 1)
+    rows = int(np.ceil(_BG_SPAN_SLACK * span)) + _BG_SPAN_EXTRA_ROWS
+    return -(-(min(rows, n) * w * 4 + 32) // 16) * 16
+
+
+@functools.lru_cache(maxsize=1024)
+def block_gather_launch_shape(n: int, w: int, m: int,
+                              sm_count: int) -> BgPlan:
+    """The launch plan for src [n, w] and m sorted indices on a card of
+    sm_count SMs, from the shape alone (no setting moves it).  A stage
+    holds the expected span of a tile (`bg_expected_stage_bytes`), and
+    the residency is what that ring leaves (at most 4 blocks an SM).
+    No ring (stage 0: every tile reads its rows directly) when the
+    indices fall a 32-byte sector or more apart on average, since a
+    span's copy would then move more bytes than the sectors its rows
+    touch, or when no stage holds the span.  Kept per shape: the
+    wrapper asks for it at every launch."""
+    need = bg_expected_stage_bytes(n, w, m)
+    sparse = n * w * 4 >= _BG_SECTOR_BYTES * m
+    stage = 0 if sparse or need > bg_stage_cap(1) else need
+    return block_gather_plan_at(n, w, m, sm_count, stage)
+
+
+def copy_window(lo: int, hi: int, w: int, n: int) -> Tuple[int, int, int]:
+    """A tile's TMA copy, as csrc/block_gather.cu computes it: (start
+    byte into src, bytes, byte offset of row lo's first word in the
+    stage).  The rows [lo, hi] are widened to 16-byte boundaries (the
+    source starts on one) and clamped at the last boundary inside src;
+    the words of a tail cut by the clamp are read with plain loads.
+    bytes 0: nothing to copy."""
+    fb = lo * w * 4
+    start = fb & ~15
+    end = min(((hi + 1) * w * 4 + 15) & ~15, (n * w * 4) & ~15)
+    return start, max(end - start, 0), fb - start
+
+
+def tile_staged(window: Tuple[int, int, int], stage_bytes: int) -> bool:
+    """Whether a tile with this copy window goes through the ring."""
+    return 0 < window[1] <= stage_bytes
 
 
 # ---------------------------------------------------------------------------
@@ -127,12 +240,14 @@ def block_gather(src: torch.Tensor, sidx: torch.Tensor) -> torch.Tensor:
 def block_gather_cuda(src: torch.Tensor, sidx: torch.Tensor,
                       staged_blocks: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """Launch csrc/block_gather.cu on the current stream: src (n, w)
-    int32 and sidx (m,) int32 ascending in [0, n), contiguous, on one
-    CUDA device.  Raises on anything else and when the launch fails;
-    counts each launch in `block_gather_cuda.launches`.  `staged_blocks`,
-    a one-element int32 tensor on the same device, gets the number of
-    thread blocks that took the shared-memory branch added to it."""
+    """Launch csrc/block_gather.cu on the current stream with the plan
+    of `block_gather_launch_shape`: src (n, w) int32 starting on a
+    16-byte boundary (as every fresh allocation does) and sidx (m,)
+    int32 ascending in [0, n), contiguous, on one CUDA device.  Raises
+    on anything else and when the launch fails; counts each launch in
+    `block_gather_cuda.launches`.  `staged_blocks`, a one-element int32
+    tensor on the same device, gets the number of tiles that went
+    through the TMA ring added to it."""
     if src.device.type != "cuda" or sidx.device != src.device:
         raise ValueError(f"block_gather: src on {src.device}, sidx on "
                          f"{sidx.device}; both must be on one CUDA device")
@@ -144,6 +259,9 @@ def block_gather_cuda(src: torch.Tensor, sidx: torch.Tensor,
                          f"{tuple(sidx.shape)} do not match (n, w) and (m,)")
     if not (src.is_contiguous() and sidx.is_contiguous()):
         raise ValueError("block_gather: inputs must be contiguous")
+    if src.data_ptr() % 16:
+        raise ValueError("block_gather: the source must start on a 16-byte "
+                         f"boundary (address {src.data_ptr():#x})")
     n, w = src.shape
     m = sidx.shape[0]
     out = torch.empty((m, w), dtype=torch.int32, device=src.device)
@@ -157,21 +275,46 @@ def block_gather_cuda(src: torch.Tensor, sidx: torch.Tensor,
             or staged_blocks.numel() != 1):
         raise ValueError("block_gather: staged_blocks must be one int32 "
                          "element on the source's device")
-    from presto_tpu_torch.exec import cuda_build
-
-    lib = cuda_build.load("block_gather")
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    with torch.cuda.device(src.device):  # the runtime launches on it
-        rc = lib.block_gather_u32(
-            src.data_ptr(), sidx.data_ptr(), m, w, _IB, smem_rows(w),
-            out.data_ptr(),
-            None if staged_blocks is None else staged_blocks.data_ptr(),
-            stream)
-    if rc != 0:
-        raise RuntimeError("block_gather kernel failed: "
-                           + cuda_build.error_string(lib, rc))
+    plan = block_gather_launch_shape(n, w, m, _sm_count(src.device.index))
+    launch_block_gather(src, sidx, plan, out, staged_blocks)
     block_gather_cuda.launches += 1
     return out
 
 
 block_gather_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_block_gather(src: torch.Tensor, sidx: torch.Tensor, plan: BgPlan,
+                        out: torch.Tensor,
+                        staged_blocks: Optional[torch.Tensor] = None) -> None:
+    """One launch of the kernel with an explicit plan into out (m, w),
+    inputs as block_gather_cuda checks them (m, w, n >= 1).  The main
+    path reaches it only through block_gather_cuda; chip_smoke.py calls
+    it with other stage sizes to show the plan's choice.  Raises when
+    the kernel refuses the plan or the launch fails."""
+    from presto_tpu_torch.exec import cuda_build
+
+    n, w = src.shape
+    lib = cuda_build.load("block_gather")
+    index = src.device.index
+    # the raw handle of the current stream: torch.cuda.current_stream
+    # builds a Stream object, a few microseconds a launch
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    rc = lib.block_gather_u32(
+        src.data_ptr(), sidx.data_ptr(), n, sidx.shape[0], w, plan.tile,
+        plan.stage_bytes, plan.stages, plan.vec_words, plan.blocks,
+        plan.smem_bytes, out.data_ptr(),
+        None if staged_blocks is None else staged_blocks.data_ptr(), index,
+        stream)
+    if rc == -1:
+        raise ValueError(f"block_gather: the kernel refuses {plan}: outside "
+                         "its compile-time bounds, or src or out not on a "
+                         "16-byte boundary")
+    if rc != 0:
+        raise RuntimeError("block_gather kernel failed: "
+                           + cuda_build.error_string(lib, rc))

@@ -113,7 +113,7 @@ def test_packed_flat_gather_matches_reference(monkeypatch):
 
 @pytest.mark.parametrize("presorted", [False, True])
 def test_staged_gather_skew(tiny_gather, presorted):
-    """Blocks whose span exceeds the shared-memory budget read from
+    """Tiles whose span exceeds a stage of the kernel's ring read from
     device memory and still return exact rows, through take_rows in
     request order and presorted."""
     rng = np.random.default_rng(9)
@@ -220,14 +220,6 @@ def test_window_rows_density():
     for n, m in ((1 << 23, 1 << 23), (1 << 23, 1 << 22), (1 << 23, 1 << 18),
                  (1_500_000, 6_000_601), (6_000_601, 1_500_000)):
         assert G.window_rows(n, m) == RG.window_rows(n, m)
-
-
-@pytest.mark.parametrize("w", [1, 2, 4, 11, 12, 64])
-def test_smem_rows_budget(w):
-    """A fixed shared-memory budget per thread block, whatever the
-    density of the indices."""
-    rows = G.smem_rows(w)
-    assert rows * 4 * w <= G._SMEM_MAX_BYTES < (rows + 1) * 4 * w
 
 
 # ---- the block_gather wrapper ----------------------------------------------
