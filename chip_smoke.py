@@ -117,10 +117,22 @@ SLEEP_CYCLES_PER_CALL = 200_000
 # summary: those whose bound is at least this (ms)
 BG_MIN_COMPARED_MS = 0.02
 SLICE_QUERIES = tuple(range(1, 23))
+DYNAMIC_RUNS = 3  # runs of each query in the dynamic executor
+COMPILED_REPLAYS = 3  # replays of each query's graph after its first run
 # the port's CPU run each card run is held against: SF1 where the CPU
 # takes a few seconds, SF0.1 elsewhere
 CPU_CHECK_SF = {q: SF if q in (1, 2, 6, 11, 16, 22) else 0.1
                 for q in SLICE_QUERIES}
+# presto_tpu's memo entry for each query run once at SF1 on the CPU
+# (`python -m tests.test_torch_compiled 1 Q`): three queries trip a
+# guard there; compiled mode on the card must leave the same entries
+REFERENCE_MEMO_SF1 = {q: "DYNAMIC" if q in (9, 13, 16) else "executable"
+                      for q in SLICE_QUERIES}
+# the memo phase: distinct TPC-H texts, as qgen's streams send them (Q1's
+# delta, Q6's year, discount and quantity), in one session whose memo
+# may hold MEMO_BOUND_BYTES; each is checked against the dynamic run
+MEMO_BOUND_BYTES = 2 << 30
+MEMO_TEXTS = 24
 # each query's ORDER BY as (output column, 1 ascending or -1
 # descending), and its LIMIT (tests/tpch_queries.py)
 ORDER_KEYS = {
@@ -876,78 +888,100 @@ def guarded(phase, query, fn, *args):
 
 class Capture:
     """Wraps the executor's calls of both kernels and of segment_sum for
-    one extra run of a query.  At each (kernel, shape) not seen before it
-    holds the kernel against its plain version on that very input and
-    times it (fgs_check, bg_check); it notes the fused_group_sums paths
-    the query takes, and keeps the largest float segment_sum input."""
+    one run of a query (run).  At each (kernel, shape) not seen before it
+    keeps a copy of the inputs (never while a CUDA graph is being
+    captured, whose tensors hold nothing yet); check then holds the
+    kernel against its plain version on that very input and times it
+    (fgs_check, bg_check).  It notes the fused_group_sums paths the run
+    takes, and in the dynamic executor keeps the largest float
+    segment_sum input."""
 
     def __init__(self, sm):
         self.sm = sm
-        self.fgs_rows = {}  # (k, n, G) -> (query, fgs_check row)
-        self.bg_rows = {}  # (n, w, m) -> (query, bg_check row)
+        self.fgs_rows = {}  # (k, n, G) -> (query, fgs_check row, mode)
+        self.bg_rows = {}  # (n, w, m) -> (query, bg_check row, mode)
 
-    def run(self, session, qid, sql):
+    def run(self, session, qid, sql, mode):
         import torch
 
         from presto_tpu_torch.exec import gather as G
         from presto_tpu_torch.exec import kernels as K
 
         real = (K.fused_group_sums, G.block_gather, K.segment_sum)
-        self.paths, self.seg = set(), None
-        query = f"Q{qid}"
+        self.paths, self.seg, self.shapes = set(), None, []
+        self.pending = pending = {}
+        self.query, self.mode = f"Q{qid}", mode
 
         def fgs(vals, gid, n_groups):
             out = real[0](vals, gid, n_groups)
             key = tuple(vals.shape) + (n_groups,)
             self.paths.add(K.fused_group_sums_launch_shape(
                 key[1], key[0], n_groups, self.sm).path)
-            if key not in self.fgs_rows:
-                row = fgs_check(vals, gid, n_groups, self.sm)
-                self.fgs_rows[key] = (query, row)
-                emit({"phase": "kernel_at_query_shape", "query": query,
-                      "name": "fused_group_sums", **row})
+            if torch.cuda.is_current_stream_capturing():
+                return out
+            self.shapes.append(("fused_group_sums", key))
+            if key not in self.fgs_rows and ("fgs", key) not in pending:
+                pending["fgs", key] = (vals.clone(), gid.clone(), n_groups)
             return out
 
         def bg(src, sidx):
             out = real[1](src, sidx)
             key = tuple(src.shape) + (sidx.shape[0],)
-            if key not in self.bg_rows:
-                row = bg_check(src, sidx)
-                self.bg_rows[key] = (query, row)
-                emit({"phase": "kernel_at_query_shape", "query": query,
-                      "name": "block_gather", **row})
+            if torch.cuda.is_current_stream_capturing():
+                return out
+            self.shapes.append(("block_gather", key))
+            if key not in self.bg_rows and ("bg", key) not in pending:
+                pending["bg", key] = (src.clone(), sidx.clone())
             return out
 
         def seg(x, gid, n_groups, order=None):
-            if x.is_floating_point() and (
+            if mode == "dynamic" and x.is_floating_point() and (
                     self.seg is None or x.shape[0] > self.seg[0].shape[0]):
                 self.seg = (x.clone(), gid.clone(), n_groups)
             return real[2](x, gid, n_groups, order)
 
         K.fused_group_sums, G.block_gather, K.segment_sum = fgs, bg, seg
         try:
-            session.sql(sql)
+            result = session.sql(sql)
             torch.cuda.synchronize()
         finally:
             K.fused_group_sums, G.block_gather, K.segment_sum = real
+        return result
+
+    def check(self):
+        """Each kernel against its plain version at the new shapes of the
+        last run (its launches here are no launches of the main path)."""
+        for (name, key), args in self.pending.items():
+            if name == "fgs":
+                row = fgs_check(*args, self.sm)
+                self.fgs_rows[key] = (self.query, row, self.mode)
+                name = "fused_group_sums"
+            else:
+                row = bg_check(*args)
+                self.bg_rows[key] = (self.query, row, self.mode)
+                name = "block_gather"
+            emit({"phase": "kernel_at_query_shape", "query": self.query,
+                  "mode": self.mode, "name": name, **row})
+        self.pending = {}
 
 
 def phase_query(qid, sql, sessions, capture, counters, out):
-    """One query of the main path: four runs on the card with every
-    kernel's launch count set to 0 just before and read just after, one
-    captured run (each kernel at each new shape, see Capture), then its
-    rows: identical in the four runs where the query's f64 sums are
-    deterministic by design, and agreeing with the port's CPU run (and,
-    for Q1, Q3, Q6 and Q18, with numpy) under the tie-aware comparison."""
+    """One query in the dynamic executor: DYNAMIC_RUNS runs on the card
+    with every kernel's launch count set to 0 just before and read just
+    after, one captured run (each kernel at each new shape, see
+    Capture), then its rows: identical in every run where the query's
+    f64 sums are deterministic by design, and agreeing with the port's
+    CPU run (and, for Q1, Q3, Q6 and Q18, with numpy) under the
+    tie-aware comparison."""
     import torch
 
-    gpu = sessions["cuda", SF]
+    gpu = sessions["dynamic", SF]
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     runs, times = [], []
-    for _ in range(4):
+    for _ in range(DYNAMIC_RUNS):
         t = time.perf_counter()
         runs.append(gpu.sql(sql).rows)
         torch.cuda.synchronize()
@@ -955,34 +989,153 @@ def phase_query(qid, sql, sessions, capture, counters, out):
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     out["launches"] = launches
-    capture.run(gpu, qid, sql)
+    capture.run(gpu, qid, sql, "dynamic")
+    capture.check()
     out["fgs_paths"] = sorted(capture.paths)
     if capture.seg is not None:
         out["segment_sum_input"] = capture.seg
     rows = runs[0]
+    out["rows"], out["warm_ms"] = rows, times[1:]
     identical = all(r == rows for r in runs[1:])
     # the register path of fused_group_sums and segment_sum add in a
     # fixed order; the shared-table path adds with atomics
     by_design = "shared_table" not in capture.paths
     row = {"phase": "query", "query": f"Q{qid}", "sf": SF, "rows": len(rows),
            "cold_ms": times[0], "warm_ms": times[1:],
-           "launches_in_4_runs": launches, "fgs_paths": out["fgs_paths"],
-           "peak_device_bytes": peak, "runs_identical_of_4": identical,
+           f"launches_in_{DYNAMIC_RUNS}_runs": launches,
+           "fgs_paths": out["fgs_paths"],
+           "peak_device_bytes": peak,
+           f"runs_identical_of_{DYNAMIC_RUNS}": identical,
            "identical_by_design": by_design}
     if by_design and not identical:
         raise AssertionError(f"Q{qid}: the card's rows differ between runs")
     sf = CPU_CHECK_SF[qid]
     t = time.perf_counter()
-    on_cpu = sessions["cpu", sf].sql(sql).rows
+    on_cpu = sessions["cpu", sf].sql(sql)
     row["cpu_check_seconds"] = time.perf_counter() - t
-    on_gpu = rows if sf == SF else sessions["cuda", sf].sql(sql).rows
-    assert_query_rows(f"Q{qid} cuda vs cpu at SF{sf}", qid, on_gpu, on_cpu)
+    out["cpu_mode"] = on_cpu.stats.execution_mode
+    out["cpu_memo"] = memo_entry(sessions["cpu", sf], sql)
+    on_gpu = rows if sf == SF else sessions["dynamic", sf].sql(sql).rows
+    assert_query_rows(f"Q{qid} cuda vs cpu at SF{sf}", qid, on_gpu,
+                      on_cpu.rows)
     row["matches_cpu_at_sf"] = sf
     if qid in out["numpy"]:
         assert_query_rows(f"Q{qid} cuda vs numpy", qid, rows,
                           out["numpy"][qid])
     row["matches_numpy"] = qid in out["numpy"] or "not checked"
     emit(row)
+
+
+def memo_entry(session, sql):
+    """The compiled-mode memo's entry for `sql`: "DYNAMIC", "executable"
+    or None."""
+    from presto_tpu_torch.exec.executor import query_cache_key
+
+    entry = getattr(session, "_compiled_cache", {}).get(
+        query_cache_key(session, sql))
+    if entry is None or entry == "DYNAMIC":
+        return entry
+    return "executable"
+
+
+def phase_compiled(qid, sql, sessions, capture, counters, out):
+    """One query in compiled mode (the default) on the card: the first
+    run builds it (compile_cache.build_graph: one eager static pass
+    under torch's sync debug mode "error", then the capture of one CUDA
+    graph, then a replay), with the kernels' launch counts set to 0 just
+    before and read just after, each kernel held against its plain
+    version at every shape not seen before (Capture, after the run);
+    then COMPILED_REPLAYS replays, bit-identical wherever no captured
+    launch took fused_group_sums' shared-table path, and equal to the
+    card's dynamic run under the tie-aware comparison; the execution
+    mode must be the port's CPU run's.  One more replay is profiled,
+    and timed alone by CUDA events.  A capture failure raises here: it
+    never falls back to the dynamic executor."""
+    import torch
+
+    from presto_tpu_torch.exec.executor import query_cache_key
+
+    gpu = sessions["compiled", SF]
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = capture.run(gpu, qid, sql, "compiled")
+    first_ms = (time.perf_counter() - t) * 1e3
+    entry = gpu._compiled_cache.get(query_cache_key(gpu, sql))
+    launches = out["compiled_launches"] = {
+        name: fn.launches for name, fn in counters.items()}
+    paths = sorted(capture.paths)
+    capture.check()
+    exe = entry[1] if isinstance(entry, tuple) else None
+    row = {"phase": "compiled", "query": f"Q{qid}", "sf": SF,
+           "execution_mode": first.stats.execution_mode,
+           "graph": exe is not None and exe.graph is not None,
+           "memo": memo_entry(gpu, sql),
+           "first_run_ms": first_ms, "fgs_paths": paths,
+           "launches_in_build": launches,
+           # every (kernel, shape) of the eager pass, which the graph
+           # repeats: (k, n, G) and (n, w, m)
+           "kernel_shapes": capture.shapes}
+    if exe is not None:
+        row.update({"eager_ms": exe.eager_ms, "capture_ms": exe.capture_ms,
+                    "pool_bytes": exe.pool_bytes})
+    if row["graph"]:
+        # the build ran the static executor twice, eagerly and under
+        # capture, and the replays launch what the capture recorded
+        if any(n % 2 for n in launches.values()):
+            raise AssertionError(f"Q{qid}: odd launch counts {launches} "
+                                 "in an eager pass and its capture")
+        row["launches_per_graph"] = {name: n // 2
+                                     for name, n in launches.items()}
+    runs, times = [first.rows], []
+    for _ in range(COMPILED_REPLAYS):
+        t = time.perf_counter()
+        runs.append(gpu.sql(sql).rows)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    row.update({"replay_ms": times, "replay_median_ms": median(times),
+                "dynamic_warm_ms": out.get("warm_ms"),
+                "replay_phase_ms": {k: v / 1e6 for k, v in
+                                    gpu.last_stats.phase_ns.items()}})
+    if exe is not None and exe.graph is not None:
+        row["replays"] = exe.replays
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        exe.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        row["graph_device_ms"] = start.elapsed_time(end)
+    row.update(profile_run(gpu, sql))
+    identical = all(r == runs[0] for r in runs[1:])
+    by_design = "shared_table" not in paths
+    row.update({f"replays_identical_of_{COMPILED_REPLAYS + 1}": identical,
+                "identical_by_design": by_design})
+    if by_design and not identical:
+        raise AssertionError(f"Q{qid}: compiled replays differ")
+    if "rows" in out:
+        assert_query_rows(f"Q{qid} compiled vs dynamic on cuda", qid,
+                          runs[0], out["rows"])
+        row["matches_dynamic"] = True
+    if "cpu_mode" in out:
+        row["cpu_execution_mode"] = out["cpu_mode"]
+        row["cpu_memo"] = out["cpu_memo"]
+        if out["cpu_mode"] != row["execution_mode"]:
+            raise AssertionError(
+                f"Q{qid}: execution mode {row['execution_mode']} on cuda, "
+                f"{out['cpu_mode']} on the CPU")
+        if CPU_CHECK_SF[qid] == SF and out["cpu_memo"] != row["memo"]:
+            raise AssertionError(
+                f"Q{qid}: memo {row['memo']} on cuda, {out['cpu_memo']} on "
+                "the CPU")
+    # a tripped guard reports "compiled" too: the memo tells them apart
+    row["reference_memo"] = REFERENCE_MEMO_SF1[qid]
+    if row["memo"] != REFERENCE_MEMO_SF1[qid]:
+        raise AssertionError(f"Q{qid}: memo {row['memo']} on cuda, "
+                             f"{REFERENCE_MEMO_SF1[qid]} in presto_tpu")
+    emit(row)
+    out["compiled_row"] = row
 
 
 def phase_segment_sum(qid, x, gid, G):
@@ -1023,25 +1176,118 @@ def phase_segment_sum(qid, x, gid, G):
 
 def phase_surface(sessions):
     """The fault C1 query, a SELECT without FROM and a DISTINCT aggregate
-    on the card, against the port's CPU run at SF1."""
+    on the card, in the dynamic executor and in compiled mode, each
+    against the port's CPU run at SF1."""
     rows = {}
-    for name, sql in SURFACE.items():
-        on_gpu = sessions["cuda", SF].sql(sql).rows
-        on_cpu = sessions["cpu", SF].sql(sql).rows
-        if on_gpu != on_cpu:
-            raise AssertionError(f"{name}: cuda {on_gpu[:3]} != cpu "
-                                 f"{on_cpu[:3]}")
-        rows[name] = on_gpu[:3]
-    if any(r[1:] != (-2, None, 2, -1) for r in rows["c1"]):
-        raise AssertionError(f"c1: {rows['c1']} are not the reference's "
-                             "(x, -2, None, 2, -1)")
-    emit({"phase": "surface", "rows": rows, "matches_cpu": True})
+    for mode in ("dynamic", "compiled"):
+        for name, sql in SURFACE.items():
+            r = sessions[mode, SF].sql(sql)
+            on_cpu = sessions["cpu", SF].sql(sql).rows
+            if r.rows != on_cpu:
+                raise AssertionError(f"{name} ({mode}): cuda {r.rows[:3]} "
+                                     f"!= cpu {on_cpu[:3]}")
+            if r.stats.execution_mode != mode:
+                raise AssertionError(f"{name}: ran {r.stats.execution_mode}"
+                                     f", not {mode}")
+            rows[mode, name] = r.rows[:3]
+        if any(r[1:] != (-2, None, 2, -1) for r in rows[mode, "c1"]):
+            raise AssertionError(f"c1 ({mode}): {rows[mode, 'c1']} are not "
+                                 "the reference's (x, -2, None, 2, -1)")
+    emit({"phase": "surface", "matches_cpu": True,
+          "rows": {f"{m}:{n}": r for (m, n), r in rows.items()}})
+
+
+def memo_texts():
+    """MEMO_TEXTS distinct TPC-H texts with qgen's parameters: Q6
+    (year, discount, quantity) and Q1 (delta days) in turns."""
+    from presto_tpu_torch.tpch_queries import QUERIES
+
+    q1, q6 = QUERIES[1], QUERIES[6]
+    assert "INTERVAL '90' DAY" in q1 and "'1994-01-01'" in q6
+    texts = []
+    for i in range(MEMO_TEXTS):
+        if i % 3 == 2:
+            texts.append((1, q1.replace("INTERVAL '90' DAY",
+                                        f"INTERVAL '{60 + i}' DAY")))
+            continue
+        year, disc, qty = 1993 + i % 5, 0.02 + (i % 8) / 100, 24 + i % 2
+        texts.append((6, q6.replace("'1994-01-01'", f"'{year}-01-01'")
+                      .replace("BETWEEN 0.05 AND 0.07",
+                               f"BETWEEN {disc - 0.01:.2f} AND "
+                               f"{disc + 0.01:.2f}")
+                      .replace("< 24", f"< {qty}")))
+    return texts
+
+
+def phase_memo_bound(sessions):
+    """Distinct texts in one compiled session whose memo may hold
+    MEMO_BOUND_BYTES: after each query the memo is within its bound, the
+    device memory it holds is what its entries weigh (evicted graphs'
+    pools went back to the device), and the rows equal the dynamic run's;
+    the first text, long evicted, builds again and agrees too."""
+    import torch
+
+    import presto_tpu_torch
+    from presto_tpu_torch.exec.executor import query_cache_key
+
+    dyn = sessions["dynamic", SF]
+    cat = dyn.catalog
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    session = presto_tpu_torch.connect(
+        cat, device="cuda", compiled_cache_max_bytes=MEMO_BOUND_BYTES)
+    texts = memo_texts()
+    built, pools, worst, t0 = 0, [], 0, time.perf_counter()
+    for qid, sql in texts + texts[:1]:
+        r = session.sql(sql)
+        torch.cuda.synchronize()
+        memo = session._compiled_cache
+        if r.stats.execution_mode != "compiled" \
+                or memo_entry(session, sql) != "executable":
+            raise AssertionError(f"a Q{qid} text ran "
+                                 f"{r.stats.execution_mode}, memo "
+                                 f"{memo_entry(session, sql)}")
+        built += r.stats.compiles
+        pools.append(memo.get(query_cache_key(session, sql))[1].pool_bytes)
+        if memo.nbytes > MEMO_BOUND_BYTES and len(memo) > 1:
+            raise AssertionError(f"the memo holds {memo.nbytes} bytes in "
+                                 f"{len(memo)} entries")
+        worst = max(worst, torch.cuda.memory_reserved() - base)
+        assert_query_rows(f"memo text of Q{qid}", qid, r.rows,
+                          dyn.sql(sql).rows)
+    seconds = time.perf_counter() - t0
+    memo = session._compiled_cache
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - base
+    row = {"phase": "memo_bound", "texts": len(texts), "runs": len(pools),
+           "bound_bytes": MEMO_BOUND_BYTES, "builds": built,
+           "evictions": memo.evictions, "entries_held": len(memo),
+           "memo_bytes": memo.nbytes, "reserved_held_bytes": held,
+           "reserved_peak_over_base_bytes": worst,
+           "pools_built_bytes": sum(pools), "seconds": seconds}
+    emit(row)
+    if built != len(texts) + 1 or not memo.evictions:
+        raise AssertionError(f"{built} builds and {memo.evictions} "
+                             f"evictions for {len(texts)} texts")
+    # the bytes left reserved are the held entries' (pool allocation
+    # rounds up to 2 MB blocks)
+    if held > memo.nbytes + (64 << 20):
+        raise AssertionError(f"{held} bytes stay reserved for a memo of "
+                             f"{memo.nbytes}")
+    del session, memo
+    torch.cuda.empty_cache()
 
 
 def phase_slice(capture):
-    """All 22 TPC-H queries at SF1 through connect().sql() on the card."""
+    """All 22 TPC-H queries at SF1 through connect().sql() on the card,
+    each in the dynamic executor (phase_query) and then in compiled mode
+    (phase_compiled), whose graphs all stay held to the end."""
+    import torch
+
     import presto_tpu_torch
     from presto_tpu_torch.catalog import tpch_catalog
+    from presto_tpu_torch.exec import compile_cache as CC
     from presto_tpu_torch.exec import gather as G
     from presto_tpu_torch.exec import kernels as K
     from presto_tpu_torch.tpch_queries import QUERIES
@@ -1050,8 +1296,14 @@ def phase_slice(capture):
     cache = os.path.join(root, "build", "tpch_cache")
     cats = {sf: tpch_catalog(sf, cache) for sf in sorted(
         set(CPU_CHECK_SF.values()) | {SF})}
-    sessions = {(dev, sf): presto_tpu_torch.connect(cat, device=dev)
-                for sf, cat in cats.items() for dev in ("cuda", "cpu")}
+    # the CPU sessions run as a user's would (auto: compiled mode)
+    sessions = {("cpu", sf): presto_tpu_torch.connect(cat, device="cpu")
+                for sf, cat in cats.items()}
+    sessions.update({("dynamic", sf): presto_tpu_torch.connect(
+        cat, device="cuda", execution_mode="dynamic")
+        for sf, cat in cats.items()})
+    sessions["compiled", SF] = presto_tpu_torch.connect(cats[SF],
+                                                        device="cuda")
     need = {"lineitem": ["l_quantity", "l_extendedprice", "l_discount",
                          "l_tax", "l_returnflag", "l_linestatus",
                          "l_shipdate", "l_orderkey"],
@@ -1072,21 +1324,43 @@ def phase_slice(capture):
 
     counters = {"fused_group_sums": K.fused_group_sums_cuda,
                 "block_gather": G.block_gather_cuda}
-    launches = {name: 0 for name in counters}
+    launches = {mode: {name: 0 for name in counters}
+                for mode in ("dynamic", "compiled")}
     by_query = {}
     segment_inputs = {}
+    compiled_rows = {}
     for qid in SLICE_QUERIES:
         out = {"numpy": expected}
         guarded("query", f"Q{qid}", phase_query, qid, QUERIES[qid],
                 sessions, capture, counters, out)
-        if "launches" in out:
-            by_query[f"Q{qid}"] = out["launches"]
-            for name in counters:
-                launches[name] += out["launches"][name]
+        guarded("compiled", f"Q{qid}", phase_compiled, qid, QUERIES[qid],
+                sessions, capture, counters, out)
+        for mode, got in (("dynamic", out.get("launches")),
+                          ("compiled", out.get("compiled_launches"))):
+            if got is not None:
+                by_query.setdefault(f"Q{qid}", {})[mode] = got
+                for name in counters:
+                    launches[mode][name] += got[name]
         if qid in SEGMENT_SUM_QUERIES and "segment_sum_input" in out:
             segment_inputs[qid] = out["segment_sum_input"]
+        if "compiled_row" in out:
+            compiled_rows[qid] = out["compiled_row"]
+    torch.cuda.synchronize()
     emit({"phase": "slice", "launches": launches,
           "launches_by_query": by_query})
+    emit({"phase": "compiled_summary",
+          "graphs": sum(r["graph"] for r in compiled_rows.values()),
+          "queries": len(compiled_rows),
+          "memory_reserved_with_all_graphs": torch.cuda.memory_reserved(),
+          "memo_bound_bytes": CC.memo_bound(sessions["compiled", SF]),
+          "memo_evictions": sessions["compiled", SF]._compiled_cache.evictions,
+          "sum_pool_bytes": sum(r.get("pool_bytes", 0)
+                                for r in compiled_rows.values()),
+          "shared_table_path": [f"Q{q}" for q, r in compiled_rows.items()
+                                if "shared_table" in r["fgs_paths"]],
+          "not_captured": {f"Q{q}": (r["execution_mode"], r["memo"])
+                           for q, r in compiled_rows.items()
+                           if not r["graph"]}})
     for qid in SEGMENT_SUM_QUERIES:
         if qid not in segment_inputs:
             fail("segment_sum", f"Q{qid}",
@@ -1095,14 +1369,16 @@ def phase_slice(capture):
         guarded("segment_sum", f"Q{qid}", phase_segment_sum, qid,
                 *segment_inputs.pop(qid))
     guarded("surface", None, phase_surface, sessions)
+    guarded("memo_bound", None, phase_memo_bound, sessions)
     for qid in SLICE_QUERIES:
-        guarded("profile", f"Q{qid}", phase_profile, sessions["cuda", SF],
-                qid, QUERIES[qid])
-    for name, fn in (("fused_group_sums", K.fused_group_sums_cuda),
-                     ("block_gather", G.block_gather_cuda)):
-        if not launches[name]:
-            fail("slice", None, f"no query on cuda launched {name}")
-    return launches
+        guarded("profile", f"Q{qid}", phase_profile,
+                sessions["dynamic", SF], qid, QUERIES[qid])
+    for name in counters:
+        for mode in launches:
+            if not launches[mode][name]:
+                fail("slice", None, f"no query launched {name} in "
+                     f"{mode} mode")
+    return launches["compiled"]
 
 
 def exact_group_sums(vals, gid, G):
@@ -1121,8 +1397,8 @@ def exact_group_sums(vals, gid, G):
     return out
 
 
-def phase_profile(session, qid, sql, top=8):
-    """Where a warm query's time goes: wall time, summed device kernel
+def profile_run(session, sql, top=8):
+    """Where one warm run's time goes: wall time, summed device kernel
     time (so the device's busy and idle shares of the wall) and the
     kernels that took most of it, from torch.profiler."""
     import torch
@@ -1138,7 +1414,7 @@ def phase_profile(session, qid, sql, top=8):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    row = {"phase": "profile", "query": f"Q{qid}", "wall_ms": wall_ms}
+    row = {"wall_ms": wall_ms}
     if busy_ms > 0:
         row["fgs_kernels_ms"] = sum(e.self_device_time_total for e in kernels
                                     if "fgs_" in e.key) / 1e3
@@ -1152,7 +1428,12 @@ def phase_profile(session, qid, sql, top=8):
                             for e in kernels[:top]]})
     else:
         row["device_busy_ms"] = "not measured"
-    emit(row)
+    return row
+
+
+def phase_profile(session, qid, sql):
+    """A profile of one warm run of a query in the dynamic executor."""
+    emit({"phase": "profile", "query": f"Q{qid}", **profile_run(session, sql)})
 
 
 def phase_bg_shapes(capture):
@@ -1161,7 +1442,7 @@ def phase_bg_shapes(capture):
     time against the summed bound (the time-weighted share), the shapes
     below half their bound, and those slower than index_select where the
     bound is at least BG_MIN_COMPARED_MS."""
-    rows = [(q, r) for q, r in capture.bg_rows.values() if r.get("ms")]
+    rows = [(q, r) for q, r, _ in capture.bg_rows.values() if r.get("ms")]
     bound = sum(r["bound_ms"] for _, r in rows)
 
     def tag(q, r):
@@ -1212,12 +1493,14 @@ def main() -> int:
     capture = Capture(sm)
     launches = guarded("slice", None, phase_slice, capture)
     guarded("block_gather_shapes", None, phase_bg_shapes, capture)
-    q1_rows = [row for q, row in capture.fgs_rows.values() if q == "Q1"]
+    q1_rows = [row for q, row, mode in capture.fgs_rows.values()
+               if q == "Q1" and mode == "compiled"]
     if FAILED or not (bg_rows and q1_rows and launches):
         return finish(1, t0)
     kernels = []
-    # each kernel at its main path's shape: the input one Q1 run gives
-    # fused_group_sums, Q3's orders-at-lineitem gather for block_gather
+    # each kernel at its main path's shape: the input Q1's compiled run
+    # gives fused_group_sums, Q3's orders-at-lineitem gather for
+    # block_gather; launches: the compiled runs of the 22 queries
     for name, src, replaces, row in (
             ("fused_group_sums", "fused_group_sums.cu",
              "presto_tpu/exec/kernels.py:1484", q1_rows[0]),

@@ -18,8 +18,11 @@ registration): PyTorch runs eagerly, so nothing traces through them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import itertools
+import threading
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -104,6 +107,53 @@ class Batch:
 # Host-side ingestion
 # ---------------------------------------------------------------------------
 
+_uploads = threading.local()
+
+
+def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host array as a tensor on `device`: a plain copy, except while
+    a compiled query is built for a CUDA device
+    (exec/compile_cache.build_graph).  Its eager pass copies from pinned
+    memory without a host sync and logs the tensor under the array's
+    content; its capture then takes the logged tensor, since a copy from
+    pageable host memory synchronizes, which capture forbids.  The
+    graph reads the logged tensors on every replay."""
+    arr = np.ascontiguousarray(host)
+    log = getattr(_uploads, "log", None)
+    if log is None or device.type != "cuda":
+        return torch.from_numpy(arr).to(device)
+    key = (arr.dtype.str, arr.shape,
+           hashlib.blake2b(arr.tobytes(), digest_size=16).digest())
+    hit = log.tensors.get(key)
+    if hit is None:
+        if log.capturing:
+            raise RuntimeError(
+                f"an upload of {arr.dtype}{list(arr.shape)} during capture "
+                "that the eager pass did not make")
+        hit = log.tensors[key] = torch.from_numpy(arr).pin_memory().to(
+            device, non_blocking=True)
+    return hit
+
+
+class UploadLog:
+    """The device tensors one compiled query uploaded, by content."""
+
+    def __init__(self):
+        self.tensors: Dict[tuple, torch.Tensor] = {}
+        self.capturing = False
+
+
+@contextlib.contextmanager
+def logged_uploads(log: UploadLog):
+    """Route this thread's `upload` calls through `log`."""
+    prev = getattr(_uploads, "log", None)
+    _uploads.log = log
+    try:
+        yield log
+    finally:
+        _uploads.log = prev
+
+
 
 def encode_strings(values: np.ndarray) -> tuple[np.ndarray, Dictionary]:
     """Dictionary-encode a host string column -> (int32 codes, Dictionary)
@@ -129,9 +179,9 @@ def column_from_numpy(data: np.ndarray, typ: Type, device: torch.device,
         raise NotImplementedError(
             "DECIMAL columns are not ported to presto_tpu_torch")
     data = np.ascontiguousarray(data, dtype=typ.numpy_dtype())
-    v = None if valid is None else torch.as_tensor(
-        np.asarray(valid, dtype=bool)).to(device)
-    return Column(torch.from_numpy(data).to(device), v, typ, dictionary)
+    v = None if valid is None else upload(np.asarray(valid, dtype=bool),
+                                          device)
+    return Column(upload(data, device), v, typ, dictionary)
 
 
 def batch_from_numpy(

@@ -1,24 +1,35 @@
 """Local query executor: logical plan -> torch kernels -> host result.
 
-Reference: presto_tpu/exec/executor.py.  This slice ports the dynamic
-executor for values/scan -> filter -> project -> join -> aggregate
-(DISTINCT aggregates included) -> sort/topn/limit -> output, the path of
-all 22 TPC-H queries.  Each node materializes a whole-column Batch on
-the session's device; filters AND into `sel`.  Joins run INNER, LEFT,
-RIGHT (the mirrored LEFT), SEMI, ANTI and MARK, as index joins or sort
-joins (`kernels.build_probe`), always resident.
+Reference: presto_tpu/exec/executor.py.  A SELECT runs as the
+reference's does: in `execution_mode` "auto" (the default) and
+"compiled", `run_compiled` runs the static executor, `Executor(static=
+True)`: fixed capacities from the planner's statistics, every static
+assumption kept as a device bool (a guard) and one packed fetch at the
+end, with no host read before it.  On a CUDA device
+`compile_cache.build_graph` captures it as one CUDA graph per query,
+which later runs of the same text replay from the session's memo
+(`compile_cache.GraphMemo`, bounded in device bytes and entries, least
+recently used out).  A tripped guard or a
+`StaticFallback` sends the query to the dynamic executor (`Executor`),
+which materializes each node at its live size; "dynamic" selects it
+directly.  Each node produces a whole-column Batch on the session's
+device; filters AND into `sel`.  Joins run INNER, LEFT, RIGHT (the
+mirrored LEFT), SEMI, ANTI and MARK, as index joins or sort joins
+(`kernels.build_probe`), always resident.
 
-Not ported yet, and raising NotImplementedError when reached: compiled
-and chunked execution, distributed execution, float32_compute, every
-statement other than a query, FULL and CROSS joins, and every plan node
-outside the slice (Window, Union, ...).  Ordering-aware execution (sort
-elision, the sort, group-id and build-order memos), dynamic filtering
-and spill degradation are not ported either; none of them changes
-results, only which sorts run and which rows are pruned early.
+Not ported yet, and raising NotImplementedError when reached: chunked
+and distributed execution, batched compiled execution and prepared
+statements, float32_compute, every statement other than a query, FULL
+and CROSS joins, and every plan node outside the slice (Window, Union,
+...).  Ordering-aware execution (sort elision, the sort, group-id and
+build-order memos, presorted grouping in the static executor), dynamic
+filtering and spill degradation are not ported either; none of them
+changes results, only which sorts run and which rows are pruned early.
 """
 
 from __future__ import annotations
 
+import re
 import time
 from typing import Dict, List, Optional
 
@@ -29,7 +40,8 @@ from presto_tpu_torch import session_ctx
 from presto_tpu_torch import types as T
 from presto_tpu_torch.batch import (Batch, Column, Dictionary,
                                     batch_from_numpy, column_from_numpy,
-                                    to_numpy)
+                                    decode_host_column, to_numpy, upload)
+from presto_tpu_torch.exec import compile_cache as CC
 from presto_tpu_torch.exec import kernels as K
 from presto_tpu_torch.exec.colval import translate_codes
 from presto_tpu_torch.exec.compiler import (EvalContext, eval_expr,
@@ -48,6 +60,12 @@ class ExecutionError(Exception):
     pass
 
 
+class StaticFallback(Exception):
+    """Raised when a plan cannot run in the static executor (an
+    unbounded join fanout, a static expansion too large); "auto" mode
+    then runs the dynamic executor."""
+
+
 def execute_query(session, text: str) -> QueryResult:
     """Query lifecycle wrapper: stats around the dispatch."""
     from presto_tpu_torch.observe.stats import QueryMonitor
@@ -55,9 +73,10 @@ def execute_query(session, text: str) -> QueryResult:
     mon = QueryMonitor.begin(session, text)
     session_ctx.activate(session)
     try:
-        with mon.phase("parse"):
-            stmt = parse(text)
-        result = _dispatch_statement(session, text, stmt, mon)
+        with CC.recording(mon.stats):
+            with mon.phase("parse"):
+                stmt = parse(text)
+            result = _dispatch_statement(session, text, stmt, mon)
         mon.finish(result)
         result.stats = mon.stats
         return result
@@ -77,19 +96,173 @@ def _dispatch_statement(session, text: str, stmt, mon) -> QueryResult:
     if props.get("float32_compute", False):
         raise NotImplementedError("float32_compute is not ported")
     mode = props.get("execution_mode", "auto")
-    if mode in ("compiled", "chunked"):
-        raise NotImplementedError(
-            f"execution_mode={mode} is not ported; 'auto' and 'dynamic' "
-            "run the dynamic executor")
-    if mode not in ("auto", "dynamic"):
+    if mode == "chunked":
+        raise NotImplementedError("execution_mode=chunked is not ported")
+    if mode not in ("auto", "compiled", "dynamic"):
         raise ValueError(f"unknown execution_mode {mode!r}")
-    # auto runs the dynamic executor, which is where the reference lands
-    # after a StaticFallback
+    if mode in ("auto", "compiled"):
+        try:
+            with mon.phase("execute"):
+                mon.stats.execution_mode = "compiled"
+                return run_compiled(session, text, stmt, mon=mon)
+        except StaticFallback as e:
+            if mode == "compiled":
+                raise StaticFallback(str(e)) from e
     mon.stats.execution_mode = "dynamic"
     with mon.phase("plan"):
         plan = plan_statement(session, stmt)
     with mon.phase("execute"):
         return Executor(session, monitor=mon).run(plan)
+
+
+def _collect_tablescans(node: P.PlanNode, out: list):
+    if isinstance(node, P.TableScan):
+        out.append(node)
+    for s in node.sources:
+        _collect_tablescans(s, out)
+
+
+def _static_root_bound(node: P.PlanNode):
+    """Row bound of the plan root when provable (TopN/Limit under
+    Output/Project): the compiled query then compacts its output to that
+    many rows on the device before the fetch."""
+    while isinstance(node, (P.Output, P.Project)):
+        node = node.source
+    if isinstance(node, (P.TopN, P.Limit)) and node.count <= 1_000_000:
+        return int(node.count)
+    return None
+
+
+def _compact_batch(out: Batch, bound: int) -> Batch:
+    """Order-preserving compaction to a fixed capacity on the device: a
+    top-k over a positional score finds the first `bound` live rows
+    (torch.topk, the library call the reference makes as
+    jax.lax.top_k).  The indices ascend, so the gather is presorted."""
+    cap = out.capacity
+    pos = torch.arange(cap, dtype=torch.int32, device=out.device)
+    score = torch.where(out.sel, cap - pos, 0)  # earliest live = largest
+    top = torch.topk(score, bound).values
+    idx = (cap - top).clamp(0, cap - 1)
+    count = out.sel.sum()
+    raw, _ = K.take_columns(out.columns, idx, presorted=True)
+    cols = {n: Column(data, valid, out.columns[n].type,
+                      out.columns[n].dictionary)
+            for n, (data, valid) in raw.items()}
+    return Batch(cols, torch.arange(bound, device=out.device) < count)
+
+
+# results larger than this skip pack_fetch for to_numpy's selective
+# fetch (batch.py's _COMPACT_THRESHOLD)
+_PACK_FETCH_MAX = 262_144
+
+#: functions whose value must differ between executions of the same
+#: text: a compiled query bakes them in, so such queries key the memo
+#: per execution
+_VOLATILE_RE = re.compile(
+    r"\b(?:now|random|rand|uuid|shuffle)\s*\("
+    r"|\bcurrent_(?:date|time|timestamp)\b|\blocaltime(?:stamp)?\b"
+    r"|\btablesample\b",
+    re.IGNORECASE)
+
+
+def _volatile_nonce(text: str) -> int:
+    """0 for deterministic queries (one executable for every run); the
+    per-query sequence number otherwise (every run builds anew)."""
+    if _VOLATILE_RE.search(text) is None:
+        return 0
+    return session_ctx.query_seq()
+
+
+def query_cache_key(session, text: str) -> tuple:
+    """The session memo's key: raw text x catalog version x the whole
+    property map x the volatile nonce."""
+    return (text, getattr(session.catalog, "version", 0),
+            tuple(sorted((k, repr(v))
+                         for k, v in session.properties.items())),
+            _volatile_nonce(text))
+
+
+def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
+    """Compiled execution: the whole plan runs in the static executor
+    (capacities from connector stats, guards for every static
+    assumption, one packed fetch), built once per session and text by
+    compile_cache.build_graph (on a CUDA device one captured CUDA graph,
+    replayed on every later run).  Scalar subqueries run first in the
+    dynamic executor and are baked in, as the reference's are.  A
+    tripped guard reruns the query in the dynamic executor and marks the
+    text "DYNAMIC", so that later runs go there directly; a
+    StaticFallback while building propagates to the caller."""
+    cache = getattr(session, "_compiled_cache", None)
+    if cache is None:
+        cache = session._compiled_cache = CC.GraphMemo(0, 0)
+    cache.max_bytes = CC.memo_bound(session)
+    cache.max_entries = CC.MEMO_MAX_ENTRIES
+    key = query_cache_key(session, text)
+    entry = cache.get(key)
+    if entry == "DYNAMIC":  # static assumptions known to fail here
+        return Executor(session, monitor=mon).run(
+            plan_statement(session, stmt))
+    if entry is None:
+        plan = plan_statement(session, stmt)
+        ex0 = Executor(session)
+        scalar_results = ex0.ctx.scalar_results
+        for pid, sub in sorted(plan.subplans.items()):
+            scalar_results[pid] = _single_value(ex0.exec_node(sub))
+        scan_nodes: list = []
+        _collect_tablescans(plan.root, scan_nodes)
+        bound = _static_root_bound(plan.root)
+        batches = [scan_batch(session.catalog.get(n.table), n,
+                              session.device) for n in scan_nodes]
+        meta_box: list = []  # the fetch layout, set by every run
+
+        def program(*batches):
+            ex = Executor(session, static=True,
+                          scan_inputs={id(n): b for n, b
+                                       in zip(scan_nodes, batches)})
+            ex.ctx.scalar_results = scalar_results
+            out = ex.exec_node(plan.root)
+            if bound is not None and out.capacity > 4 * bound:
+                out = _compact_batch(out, bound)
+            guard = torch.stack([g.reshape(()) for g in ex.guards]).any() \
+                if ex.guards else torch.zeros((), dtype=torch.bool,
+                                              device=session.device)
+            if out.capacity > _PACK_FETCH_MAX or any(
+                    c.data.ndim > 1 for c in out.columns.values()):
+                # a root over a scan-sized capacity: to_numpy's selective
+                # fetch pulls only the live rows
+                meta_box[:] = [None]
+                return out, guard
+            (buf, side), meta = K.pack_fetch(out, guard)
+            meta_box[:] = [meta]
+            flat = K.flat_fetch(buf, side)
+            return flat, flat[buf.shape[0] - 1] != 0
+
+        exe = CC.build_graph(program, tuple(batches), session.device)
+        entry = (plan, exe, scan_nodes, meta_box, batches)
+    else:
+        CC.note("compile_cache_hits")
+    plan, exe, _scan_nodes, meta_box, _batches = entry
+    out, guard = exe()
+    meta = meta_box[0]
+    ex = Executor(session)
+    if meta is None:
+        tripped = bool(guard)
+        result = None if tripped else ex.run_batch(plan, out)
+    else:
+        datas, sel, tripped = K.unpack_fetch(
+            K.split_flat_fetch(out.cpu().numpy(), meta), meta)
+        result = None if tripped else ex.materialize_host(plan, meta,
+                                                          datas, sel)
+    if tripped:
+        # the data is static, so the guard would trip again: go straight
+        # to the dynamic executor from now on
+        cache.put(key, "DYNAMIC")
+        return Executor(session, monitor=mon).run(
+            plan_statement(session, stmt))
+    held = exe.pool_bytes + sum(b.sel.nbytes for b in entry[4]) + sum(
+        t.nbytes for t in (exe.keep.tensors.values() if exe.keep else ()))
+    cache.put(key, entry, held, exe)
+    return result
 
 
 def plan_statement(session, stmt) -> P.QueryPlan:
@@ -102,9 +275,16 @@ def plan_statement(session, stmt) -> P.QueryPlan:
 
 
 class Executor:
-    def __init__(self, session, monitor=None):
+    def __init__(self, session, static: bool = False, scan_inputs=None,
+                 monitor=None):
         self.session = session
         self.device = session.device
+        # static: the compiled mode's executor -- capacities fixed by the
+        # planner's statistics, no host read, every static assumption a
+        # device bool in `guards` (True: rerun in the dynamic executor)
+        self.static = static
+        self.scan_inputs = scan_inputs  # {id(TableScan): Batch}
+        self.guards: List[torch.Tensor] = []
         self.monitor = monitor  # QueryMonitor collecting per-node stats
         self.ctx = EvalContext()
         # plan DAGs (transitive semi-join inference shares a filter
@@ -115,8 +295,20 @@ class Executor:
     def run(self, plan: P.QueryPlan) -> QueryResult:
         if self.monitor is not None:
             self.monitor.plan = plan
-        batch = self.evaluate(plan)
+        return self.run_batch(plan, self.evaluate(plan))
+
+    def run_batch(self, plan: P.QueryPlan, batch: Batch) -> QueryResult:
+        """The plan's result from its root's batch on the device."""
         arrays, sel = to_numpy(batch)
+        return self._format_result(plan, arrays, sel)
+
+    def materialize_host(self, plan: P.QueryPlan, meta: dict,
+                         datas: Dict[str, tuple], sel) -> QueryResult:
+        """The plan's result from an unpack_fetch (host numpy arrays)."""
+        arrays = {}
+        for name, _dtype_s, _words, _has_valid, typ, dic in meta["cols"]:
+            data, valid = datas[name]
+            arrays[name] = decode_host_column(data, valid, typ, dic)
         return self._format_result(plan, arrays, sel)
 
     def _format_result(self, plan: P.QueryPlan, arrays, sel) -> QueryResult:
@@ -174,6 +366,8 @@ class Executor:
 
     # ---- leaves ------------------------------------------------------
     def _exec_tablescan(self, node: P.TableScan) -> Batch:
+        if self.scan_inputs is not None:
+            return self.scan_inputs[id(node)]
         return scan_batch(self.session.catalog.get(node.table), node,
                           self.device)
 
@@ -295,6 +489,8 @@ class Executor:
                    node: Optional[P.Aggregate] = None) -> Batch:
         if not group_keys:
             return self._global_aggregate(b, aggs)
+        if self.static:
+            return self._aggregate_static(b, group_keys, aggs, node)
         pack_order = self._agg_pack_order(node, group_keys)
         pack_cols = [b.columns[k] for k in pack_order]
         key, layout = K.pack_keys(pack_cols, b.sel)
@@ -325,6 +521,96 @@ class Executor:
         sel = torch.ones((max(n_groups, 0),), dtype=torch.bool,
                          device=self.device)
         return Batch(out_cols, sel)
+
+    # layouts this narrow use the packed key as the group id (no sort);
+    # the key columns come back from slot arithmetic
+    _DIRECT_GID_BITS = 12
+
+    def _aggregate_static(self, b: Batch, group_keys: List[str],
+                          aggs: Dict[str, ir.AggCall],
+                          node: Optional[P.Aggregate]) -> Batch:
+        """Grouping at the planner's capacity (`capacity_hint`), with a
+        guard for each assumption: the keys inside their static layout
+        and no more groups than the capacity.  A small layout groups
+        directly by the packed key; live rows far below the capacity
+        are compacted first, under a guard on the estimate."""
+        cap = getattr(node, "capacity_hint", None) if node is not None \
+            else None
+        if cap is None:
+            cap = b.capacity
+        cap = min(cap, b.capacity) or 1
+        est = getattr(node, "input_est_hint", None) if node is not None \
+            else None
+        b2 = self._maybe_compact_static(b, est)
+        if b2 is not b:
+            b = b2
+            cap = min(cap, b.capacity)
+        key_stats = getattr(node, "key_stats", {}) if node is not None \
+            else {}
+        pack_order = self._agg_pack_order(node, group_keys)
+        pack_cols = [b.columns[k] for k in pack_order]
+        layout = K.static_layout(pack_cols,
+                                 [key_stats.get(k) for k in pack_order])
+        key = K.pack_with_layout(pack_cols, b.sel, layout)  # None: hash
+        if layout is not None:
+            self.guards.append(K.layout_range_guard(pack_cols, b.sel,
+                                                    layout))
+            total_bits = sum(w for _, _, w in layout)
+            if total_bits <= self._DIRECT_GID_BITS and not any(
+                    c.data.is_floating_point() for c in pack_cols):
+                return self._aggregate_direct(b, pack_order, pack_cols,
+                                              aggs, key, layout, total_bits)
+        gid, rep_rows, exists, overflow = K.group_ids_static(key, cap)
+        self.guards.append(overflow)
+        out_cols: Dict[str, Column] = {}
+        raw, _ = K.take_columns({k: b.columns[k] for k in group_keys},
+                                rep_rows)
+        for k, (data, valid) in raw.items():
+            c = b.columns[k]
+            out_cols[k] = Column(data, None if valid is None
+                                 else (valid & exists), c.type, c.dictionary)
+        fused = self._fused_sum_aggs(b, aggs, gid, cap)
+        order = K.GroupOrder(gid, cap)
+        for sym, a in aggs.items():
+            out_cols[sym] = fused.get(sym) or self._agg_column(b, a, order)
+        return Batch(out_cols, exists)
+
+    def _aggregate_direct(self, b: Batch, group_keys, key_cols, aggs,
+                          key, layout, total_bits: int) -> Batch:
+        """Sort-free grouping for small static layouts: the packed key is
+        the group id, a slot in [0, 2^total_bits), and each key column
+        comes back from its slot's bits.  TPC-H Q1's grouping becomes one
+        elementwise pass and the fused sums."""
+        cap = 1 << total_bits
+        # masked rows carry the key sentinel; the clamp sends them to
+        # the dead slot `cap`
+        gid = key.clamp(0, cap).to(torch.int32)
+        order = K.GroupOrder(gid, cap)
+        exists = K.segment_sum(b.sel.to(torch.int32), gid, cap, order) > 0
+        slots = torch.arange(cap, dtype=torch.int64, device=self.device)
+        out_cols: Dict[str, Column] = {}
+        for k, c, (lo, stride, width) in zip(group_keys, key_cols, layout):
+            code = (slots // stride) & ((1 << width) - 1)
+            data = (code - 1 + lo).to(c.data.dtype)
+            valid = None if c.valid is None else ((code != 0) & exists)
+            out_cols[k] = Column(data, valid, c.type, c.dictionary)
+        fused = self._fused_sum_aggs(b, aggs, gid, cap)
+        for sym, a in aggs.items():
+            out_cols[sym] = fused.get(sym) or self._agg_column(b, a, order)
+        return Batch(out_cols, exists)
+
+    def _maybe_compact_static(self, b: Batch, est) -> Batch:
+        """Compaction to a power-of-two bound from the planner's row
+        estimate, under a guard that the live rows fit it: dropping
+        masked rows never changes a result, and a wrong estimate sends
+        the query to the dynamic executor."""
+        if not self.static or est is None or b.capacity < (1 << 19):
+            return b
+        bound = 1 << max(int(np.ceil(np.log2(max(est, 1) * 2))), 14)
+        if bound > min(b.capacity // 4, 1 << 20):
+            return b
+        self.guards.append(b.sel.to(torch.int32).sum() > bound)
+        return _compact_batch(b, bound)
 
     def _fused_sum_aggs(self, b: Batch, aggs: Dict[str, ir.AggCall],
                         gid, n_groups: int) -> Dict[str, Column]:
@@ -502,6 +788,13 @@ class Executor:
                 f"{node.join_type} joins are not ported to presto_tpu_torch")
         left = self.exec_node(node.left)
         right = self.exec_node(node.right)
+        left = self._maybe_compact_static(
+            left, getattr(node, "left_est_hint", None))
+        if getattr(node, "index_lookup", None) is None:
+            # an index join needs the build's whole table in its natural
+            # order: never compact it
+            right = self._maybe_compact_static(
+                right, getattr(node, "right_est_hint", None))
         if node.join_type == "RIGHT":
             # RIGHT = mirrored LEFT with output order left-cols-first
             node = P.Join(node.right, node.left, "LEFT",
@@ -531,8 +824,23 @@ class Executor:
             index_ridx, counts = probe
         else:
             index_ridx = None
-            rkey, layout = K.pack_keys(rkeys, rsel, extra_cols=lkeys)
-            lkey = K.pack_with_layout(lkeys, lsel, layout)
+            if self.static:
+                # layout from the planner's key ranges, shared by both
+                # sides, under a guard on each; unknown ranges hash
+                key_stats = getattr(node, "key_stats", {})
+                layout = K.static_layout(rkeys, [
+                    _merge_range(key_stats.get(lk), key_stats.get(rk))
+                    for lk, rk in node.criteria])
+                rkey = K.pack_with_layout(rkeys, rsel, layout)
+                lkey = K.pack_with_layout(lkeys, lsel, layout)
+                if layout is not None:
+                    self.guards.append(
+                        K.layout_range_guard(rkeys, rsel, layout))
+                    self.guards.append(
+                        K.layout_range_guard(lkeys, lsel, layout))
+            else:
+                rkey, layout = K.pack_keys(rkeys, rsel, extra_cols=lkeys)
+                lkey = K.pack_with_layout(lkeys, lsel, layout)
             order, lb, ub = K.build_probe(rkey, lkey)
             counts = ub - lb
 
@@ -543,8 +851,23 @@ class Executor:
             return left.with_sel(left.sel & (found if jt == "SEMI"
                                              else ~found))
         # a dense unique build has at most one match: no host sync
-        max_matches = 1 if index_ridx is not None else \
-            (int(counts.max()) if counts.shape[0] else 0)
+        if index_ridx is not None:
+            max_matches = 1
+        elif self.static:
+            # the planner's fanout bound (1 for a unique build), guarded
+            bound = 1 if getattr(node, "build_unique", False) \
+                else getattr(node, "fanout_bound", None)
+            if bound is None:
+                raise StaticFallback(f"join fanout unbounded "
+                                     f"({jt} on {node.criteria})")
+            if counts.shape[0]:
+                self.guards.append(counts.max() > bound)
+            if bound > 1:
+                return self._expanding_join_static(left, right, node, order,
+                                                   lb, counts, bound)
+            max_matches = 1
+        else:
+            max_matches = int(counts.max()) if counts.shape[0] else 0
         if max_matches > 1:
             return self._expanding_join(left, right, node, order, lb, counts)
         found = counts > 0
@@ -600,8 +923,9 @@ class Executor:
         the match of probe key k at a computed row, so the probe is ONE
         gather, no sorts (hint from plan/optimizer._index_lookup_info).
         Returns (ridx, counts), or None for the sort join: no hint, a
-        probe much wider than a strided build, or a build whose rows do
-        not hold the claimed layout (checked on the host)."""
+        probe much wider than a strided build, or (dynamic executor) a
+        build whose rows do not hold the claimed layout, checked on the
+        host; the static executor guards the layout instead."""
         il = getattr(node, "index_lookup", None)
         if il is None or len(lkeys) != 1 \
                 or lkeys[0].dictionary is not None \
@@ -624,10 +948,13 @@ class Executor:
         ar = torch.arange(nrows, dtype=torch.int64, device=self.device)
         # row i holds key base + (i // br) * bk + i % br; dense layouts
         # are the bk == br == 1 case
-        base = torch.tensor(il["min"], dtype=torch.int64,
-                            device=self.device) if full_build else rk[0]
+        base = torch.full((), il["min"], dtype=torch.int64,
+                          device=self.device) if full_build else rk[0]
         expect = base + (ar // br) * bk + ar % br if strided else base + ar
-        if bool((rsel & (rk != expect)).any()):
+        layout_bad = (rsel & (rk != expect)).any()
+        if self.static:
+            self.guards.append(layout_bad)
+        elif bool(layout_bad):
             return None
         lk = lkeys[0].data.to(torch.int64)
         off = lk - base
@@ -670,6 +997,53 @@ class Executor:
             mvalid = found | ok | ~right.sel.any()
         merged[node.mark] = Column(found, mvalid, T.BOOLEAN, None)
         return Batch(merged, left.sel)
+
+    def _expanding_join_static(self, left: Batch, right: Batch,
+                               node: P.Join, order, lb, counts,
+                               bound: int) -> Batch:
+        """One-to-many join in a static slot layout: probe row i owns
+        output slots [i * bound, (i + 1) * bound), `bound` the planner's
+        fanout bound (e.g. 7 lineitems an order).  Unmatched slots are
+        masked, not skipped, so the shape is fixed."""
+        jt = node.join_type
+        n = left.capacity
+        total = n * bound
+        if total > 100_000_000:
+            raise StaticFallback(
+                f"static expansion too large: {n} x fanout {bound}")
+        counts = torch.where(left.sel, counts, 0)
+        slot = torch.arange(total, dtype=torch.int32, device=self.device)
+        lidx = slot // bound  # nondecreasing
+        k = slot % bound
+        cnt_l, lb_l = K.take_rows(
+            [counts.clamp(max=bound).to(torch.int32), lb.to(torch.int32)],
+            lidx, presorted=True)
+        slot_live = k < cnt_l
+        rpos = (lb_l + k).clamp(0, max(order.shape[0] - 1, 0))
+        lbatch = K.gather_batch(left, lidx, presorted=True)
+        rbatch = K.gather_batch(right, order[rpos.long()],
+                                idx_valid=slot_live)
+        merged = dict(lbatch.columns)
+        merged.update(rbatch.columns)
+        out = Batch(merged, lbatch.sel & slot_live)
+        match_ok = out.sel
+        if node.filter is not None:
+            match_ok = match_ok & eval_predicate(node.filter, out, self.ctx)
+        if jt == "INNER":
+            return out.with_sel(match_ok)
+        if jt in ("SEMI", "ANTI"):
+            hit = K.segment_any(match_ok, lidx, n)
+            return left.with_sel(left.sel & (hit if jt == "SEMI" else ~hit))
+        if jt == "LEFT":
+            any_ok = K.segment_any(match_ok, lidx, n)
+            keep = torch.where(any_ok[lidx.long()], match_ok,
+                               (k == 0) & left.sel[lidx.long()])
+            for name in rbatch.columns:
+                c = merged[name]
+                v = match_ok if c.valid is None else (c.valid & match_ok)
+                merged[name] = Column(c.data, v, c.type, c.dictionary)
+            return Batch(merged, keep)
+        raise StaticFallback(f"static join type {jt} not supported")
 
     def _expanding_join(self, left: Batch, right: Batch, node: P.Join,
                         order, lb, counts) -> Batch:
@@ -750,6 +1124,17 @@ def scan_batch(table, node: P.TableScan, device: torch.device) -> Batch:
     return Batch(cols, torch.ones((n,), dtype=torch.bool, device=device))
 
 
+def _merge_range(a, b):
+    """The union of two ColStats ranges (None when either is unknown):
+    one packing layout for both sides of a join key."""
+    from presto_tpu_torch.plan.stats import ColStats
+
+    if a is None or b is None or a.min is None or b.min is None \
+            or a.max is None or b.max is None:
+        return None
+    return ColStats(min=min(a.min, b.min), max=max(a.max, b.max))
+
+
 def _unify_key_dictionaries(lkeys: List[Column], rkeys: List[Column]):
     """Join keys that are string columns with different dictionaries are
     re-encoded into a merged dictionary, so code equality is string
@@ -763,8 +1148,8 @@ def _unify_key_dictionaries(lkeys: List[Column], rkeys: List[Column]):
         merged = Dictionary(np.unique(np.concatenate(
             [lc.dictionary.values, rc.dictionary.values])))
         for c, out in ((lc, lout), (rc, rout)):
-            lut = torch.from_numpy(translate_codes(c.dictionary, merged)) \
-                .to(c.data.device)
+            lut = upload(translate_codes(c.dictionary, merged),
+                         c.data.device)
             codes = c.data.clamp(0, len(c.dictionary) - 1).long()
             out.append(Column(lut[codes], c.valid, c.type, merged))
     return lout, rout

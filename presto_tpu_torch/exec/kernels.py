@@ -5,7 +5,11 @@ needs key packing, sort-based grouping, segmented reductions, the ORDER
 BY permutation, the join probe, packed row gathers (whose large staged
 gathers run the block_gather CUDA kernel, exec/gather.py) and the fused
 multi-aggregate reduction `fused_group_sums`, whose CUDA kernel lives in
-presto_tpu_torch/csrc/fused_group_sums.cu.
+presto_tpu_torch/csrc/fused_group_sums.cu.  The static executor of
+compiled mode adds layouts from statistics with their range guard
+(`static_layout`, `layout_range_guard`), grouping at a fixed capacity
+(`group_ids_static`) and the packed result fetch (`pack_fetch`,
+`unpack_fetch`); none of these reads a tensor back to the host.
 
 Two differences from the reference's JAX code are deliberate:
 - torch has no multi-operand sort, so lexicographic sorts are built
@@ -22,7 +26,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from presto_tpu_torch.batch import Batch, Column
+from presto_tpu_torch.batch import Batch, Column, upload
 from presto_tpu_torch.exec import gather as G
 
 I64_MIN = np.iinfo(np.int64).min
@@ -101,7 +105,43 @@ def _apply_layout(cols: List[Column], layout) -> torch.Tensor:
     return key
 
 
-_POW2 = None  # exact power-of-two table, built on first use
+def static_layout(cols: List[Column], stats_list) -> Optional[list]:
+    """Pack layout from metadata alone, for the static executor: a
+    dictionary's size for string codes, the connector's ColStats range
+    for integers.  None when a column's range is unknown (callers then
+    hash, which needs no range and no host read)."""
+    parts = []
+    for c, st in zip(cols, stats_list):
+        if c.dictionary is not None:
+            lo, hi = 0, max(len(c.dictionary) - 1, 0)
+        elif c.data.dtype == torch.bool:
+            lo, hi = 0, 1
+        elif st is not None and st.min is not None and st.max is not None \
+                and not c.data.is_floating_point():
+            lo, hi = int(st.min), int(st.max)
+        else:
+            return None
+        parts.append((lo, hi - lo + 2))
+    total_bits = sum(int(np.ceil(np.log2(max(card, 2)))) for _, card in parts)
+    if total_bits > 62:
+        return None
+    return _assign_strides(parts)
+
+
+def layout_range_guard(cols: List[Column], sel, layout) -> torch.Tensor:
+    """True (a device bool) when a live value lies outside its static
+    layout range: it would spill into the next packed field, so the
+    compiled query must rerun in the dynamic executor."""
+    bad = torch.zeros((), dtype=torch.bool, device=sel.device)
+    for c, (lo, _stride, width) in zip(cols, layout):
+        d = _orderable_int(c)
+        live = sel & _valid_arr(c)
+        hi = lo + (1 << width) - 2  # code 0 stands for NULL
+        bad = bad | (live & ((d < lo) | (d > hi))).any()
+    return bad
+
+
+_POW2: Dict[str, torch.Tensor] = {}  # exact power-of-two table per device
 
 
 def _f64_orderable_arith(d: torch.Tensor) -> torch.Tensor:
@@ -112,11 +152,10 @@ def _f64_orderable_arith(d: torch.Tensor) -> torch.Tensor:
     mirror; +-0 and subnormals map to 0; +-inf and NaN get sentinels
     with NaN largest (Presto sort order).  Bit for bit the keys of
     presto_tpu.exec.kernels._f64_orderable_arith."""
-    global _POW2
-    if _POW2 is None:
-        _POW2 = torch.tensor([2.0 ** i for i in range(-1099, 1024)],
-                             dtype=torch.float64)
-    pow2 = _POW2.to(d.device)
+    pow2 = _POW2.get(str(d.device))
+    if pow2 is None:
+        pow2 = _POW2[str(d.device)] = upload(
+            np.asarray([2.0 ** i for i in range(-1099, 1024)]), d.device)
 
     min_normal = 2.2250738585072014e-308
     ax = d.abs()
@@ -216,15 +255,18 @@ def _hash_keys(cols: List[Column], sel) -> torch.Tensor:
 
 def nonzero_i32(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     """jnp.nonzero(mask, size=, fill_value=)[0] in int32: the first
-    `size` positions where mask is set, padded with the (clipped) fill."""
+    `size` positions where mask is set, padded with the (clipped) fill.
+    No host read: the i-th set position is where the running count of
+    set rows first reaches i + 1 (one cumsum, `size` binary searches)."""
     n = mask.shape[0]
     fill = min(max(int(fill), 0), max(n - 1, 0))
-    idx = torch.nonzero(mask).flatten().to(torch.int32)[:size]
-    if idx.shape[0] < size:
-        pad = torch.full((size - idx.shape[0],), fill, dtype=torch.int32,
-                         device=mask.device)
-        idx = torch.cat([idx, pad])
-    return idx
+    if n == 0:
+        return torch.full((size,), fill, dtype=torch.int32,
+                          device=mask.device)
+    count = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
+    want = torch.arange(1, size + 1, dtype=torch.int32, device=mask.device)
+    pos = torch.searchsorted(count, want).to(torch.int32)
+    return torch.where(want <= count[-1], pos, fill)
 
 
 def unpermute(order: torch.Tensor, *payloads):
@@ -303,6 +345,33 @@ def group_ids(key: torch.Tensor, sel,
     rep_rows = order[rep_sorted_pos.long()][:n_groups] if n_groups \
         else torch.zeros((0,), dtype=order.dtype, device=key.device)
     return gid, rep_rows, n_groups
+
+
+def group_ids_static(key: torch.Tensor, cap: int):
+    """group_ids at a fixed group capacity, without a host read.  Returns
+    (gid, rep_rows[cap], exists[cap], overflow): live rows of groups past
+    `cap` and masked rows get gid == cap; overflow is a device bool, true
+    when the rows hold more than `cap` groups (the compiled query then
+    reruns in the dynamic executor)."""
+    n = key.shape[0]
+    skey, order = sort_pair(key)
+    newgrp = torch.ones((n,), dtype=torch.bool, device=key.device)
+    if n > 1:
+        newgrp[1:] = skey[1:] != skey[:-1]
+    live_sorted = skey != key_sentinel(key)
+    newgrp = newgrp & live_sorted
+    n_groups = newgrp.sum()
+    gid_sorted = torch.cumsum(newgrp.to(torch.int32), 0,
+                              dtype=torch.int32) - 1
+    gid_sorted = torch.where(live_sorted & (gid_sorted < cap), gid_sorted,
+                             cap)
+    gid = unpermute(order, gid_sorted)
+    if n == 0:
+        rep_rows = torch.zeros((cap,), dtype=torch.int32, device=key.device)
+    else:
+        rep_rows = order[nonzero_i32(newgrp, cap, 0).long()]
+    exists = torch.arange(cap, device=key.device) < n_groups
+    return gid, rep_rows, exists, n_groups > cap
 
 
 class GroupOrder:
@@ -621,6 +690,107 @@ def gather_batch(batch: Batch, idx: torch.Tensor, idx_valid=None,
     if idx_valid is not None:
         sel = sel & idx_valid
     return Batch(cols, sel)
+
+
+def pack_fetch(batch: Batch, guard: torch.Tensor):
+    """A result batch and its guard as one int32 buffer, so the host
+    pulls one array: sel, then each column's words (4-byte types as bit
+    views, 8-byte integers as (low, high) word pairs, bools and narrower
+    integers widened) and its validity, then the guard as the last
+    word; f64 columns ride beside it.  The reference's uint32 layout,
+    bit for bit.  Returns ((buffer, [f64 columns]), meta); unpack_fetch
+    inverts it on the host."""
+    n = batch.capacity
+    parts = [batch.sel.to(torch.int32)]
+    side = []
+    cols_meta = []
+    for name, c in batch.columns.items():
+        d = c.data
+        if d.dtype == torch.float64:
+            side.append(d)
+            words = 0
+        elif d.dtype == torch.bool:
+            parts.append(d.to(torch.int32))
+            words = 1
+        elif d.dtype.itemsize == 8:
+            parts.append(d.contiguous().view(torch.int32))  # lo, hi a row
+            words = 2
+        elif d.dtype.itemsize == 4:
+            parts.append(d.contiguous().view(torch.int32))
+            words = 1
+        else:
+            parts.append(d.to(torch.int32))
+            words = 1
+        if c.valid is not None:
+            parts.append(c.valid.to(torch.int32))
+        cols_meta.append((name, _numpy_dtype_name(d.dtype), words,
+                          c.valid is not None, c.type, c.dictionary))
+    parts.append(guard.reshape(1).to(torch.int32))
+    return (torch.cat(parts), side), {"n": n, "cols": cols_meta}
+
+
+_NUMPY_NAMES = {torch.bool: "bool", torch.int8: "int8", torch.int16: "int16",
+                torch.int32: "int32", torch.int64: "int64",
+                torch.float32: "float32", torch.float64: "float64"}
+
+
+def _numpy_dtype_name(dt: torch.dtype) -> str:
+    return _NUMPY_NAMES[dt]
+
+
+def flat_fetch(buf: torch.Tensor, side: List[torch.Tensor]) -> torch.Tensor:
+    """pack_fetch's buffer with each f64 column's words behind it: what
+    one copy brings to the host (split_flat_fetch divides it again)."""
+    return torch.cat([buf] + [d.contiguous().view(torch.int32)
+                              for d in side])
+
+
+def split_flat_fetch(flat: np.ndarray, meta: dict):
+    """flat_fetch's host copy back into pack_fetch's (buffer, [f64
+    columns])."""
+    n = meta["n"]
+    n_side = sum(1 for c in meta["cols"] if c[2] == 0)
+    n_buf = len(flat) - 2 * n * n_side
+    side = [flat[n_buf + 2 * n * i:n_buf + 2 * n * (i + 1)].copy()
+            .view(np.float64) for i in range(n_side)]
+    return flat[:n_buf], side
+
+
+def unpack_fetch(fetched, meta: dict):
+    """The host's inverse of pack_fetch, over numpy arrays: returns
+    ({name: (data, valid)}, sel, guard)."""
+    buf, side = fetched
+    n = meta["n"]
+    buf = np.asarray(buf).view(np.uint32)
+    side = [np.asarray(a) for a in side]
+    si = 0
+    sel = buf[:n] != 0
+    off = n
+    datas = {}
+    for name, dtype_s, words, has_valid, _typ, _dic in meta["cols"]:
+        dt = np.dtype(dtype_s)
+        if words == 0:
+            data = side[si]
+            si += 1
+        else:
+            raw = buf[off:off + n * words]
+            off += n * words
+            if dt == np.bool_:
+                data = raw != 0
+            elif words == 2:
+                pair = raw.reshape(n, 2).astype(np.uint64)
+                data = (pair[:, 0] | (pair[:, 1] << np.uint64(32))).view(dt)
+            elif dt.itemsize == 4:
+                data = raw.view(dt)
+            else:
+                data = raw.view(np.int32).astype(dt)
+        valid = None
+        if has_valid:
+            valid = buf[off:off + n] != 0
+            off += n
+        datas[name] = (data, valid)
+    guard = bool(buf[off]) if off < len(buf) else False
+    return datas, sel, guard
 
 
 # ---------------------------------------------------------------------------

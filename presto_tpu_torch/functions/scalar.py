@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.batch import Dictionary
+from presto_tpu_torch.batch import Dictionary, upload
 from presto_tpu_torch.exec.colval import ColVal, all_valid, translate_codes
 
 _TORCH_DTYPES = {
@@ -104,7 +104,7 @@ _DIM = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
 def days_in_month(y, m):
     leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
     if _is_tensor(m):
-        dim = torch.tensor(_DIM, dtype=torch.int64, device=m.device)[m - 1]
+        dim = upload(np.asarray(_DIM, dtype=np.int64), m.device)[m - 1]
     else:
         dim = _DIM[m - 1]
     return _where((m == 2) & leap, 29, dim)
@@ -234,8 +234,8 @@ def _on_tensors(fn):
             return fn(torch.tensor(x, dtype=torch.int64),
                       torch.tensor(y, dtype=torch.int64)).item()
         ref = x if _is_tensor(x) else y
-        x, y = (v if _is_tensor(v) else torch.tensor(
-            v, dtype=ref.dtype, device=ref.device) for v in (x, y))
+        x, y = (v if _is_tensor(v) else torch.full(
+            (), v, dtype=ref.dtype, device=ref.device) for v in (x, y))
         return fn(x, y)
 
     return run
@@ -344,8 +344,7 @@ def _gather_lut(col: ColVal, lut: np.ndarray) -> torch.Tensor:
     n = len(col.dictionary)
     if n == 0:
         return torch.zeros_like(col.data, dtype=torch.from_numpy(lut).dtype)
-    return torch.from_numpy(lut).to(col.data.device)[
-        col.data.clamp(0, n - 1).long()]
+    return upload(lut, col.data.device)[col.data.clamp(0, n - 1).long()]
 
 
 def _dictionary_lut(col: ColVal, fn) -> torch.Tensor:
@@ -450,8 +449,8 @@ def _select(cond, x, y, t: T.Type):
     dt = torch_dtype(t)
 
     def tensor(v):
-        return v.to(dt) if _is_tensor(v) else torch.tensor(
-            v, dtype=dt, device=cond.device)
+        return v.to(dt) if _is_tensor(v) else torch.full(
+            (), v, dtype=dt, device=cond.device)
 
     return torch.where(cond, tensor(x), tensor(y))
 
@@ -463,9 +462,12 @@ def _merge_valid(cond, a: ColVal, b: ColVal):
     vb = True if b.valid is None else b.valid
     if _is_tensor(cond) or _is_tensor(va) or _is_tensor(vb):
         dev = next(v.device for v in (cond, va, vb) if _is_tensor(v))
-        return torch.where(torch.as_tensor(cond, device=dev),
-                           torch.as_tensor(va, device=dev),
-                           torch.as_tensor(vb, device=dev))
+
+        def tensor(v):
+            return v if _is_tensor(v) else torch.full(
+                (), v, dtype=torch.bool, device=dev)
+
+        return torch.where(tensor(cond), tensor(va), tensor(vb))
     return va if cond else vb
 
 
@@ -517,10 +519,10 @@ def _literal_dictionary(v: ColVal) -> ColVal:
 
 
 def _recode(v: ColVal, to: Dictionary) -> ColVal:
-    lut = torch.from_numpy(translate_codes(v.dictionary, to))
+    lut = translate_codes(v.dictionary, to)
     hi = max(len(v.dictionary) - 1, 0)
     if _is_tensor(v.data):
-        codes = lut.to(v.data.device)[v.data.clamp(0, hi).long()]
+        codes = upload(lut, v.data.device)[v.data.clamp(0, hi).long()]
     else:
         codes = int(lut[min(max(int(v.data), 0), hi)])
     return ColVal(codes, v.valid, v.type, to)

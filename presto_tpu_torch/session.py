@@ -22,6 +22,10 @@ DEFAULT_SESSION_PROPERTIES: Dict[str, Any] = {
     "agg_capacity_hint": 0,  # 0 = derive from input size
     "optimizer_enabled": True,
     "execution_mode": "auto",  # auto | compiled | dynamic
+    # the device bytes compiled mode's session memo may hold
+    # (exec/compile_cache.GraphMemo; 0 = a quarter of the device's
+    # memory); past them it evicts the least recently used query
+    "compiled_cache_max_bytes": 0,
     # distributed execution over the device mesh (parallel/dist_executor.py)
     "distributed": False,
     "mesh_devices": 0,  # 0 = all local devices

@@ -140,7 +140,10 @@ def test_forced_staging_gives_the_same_rows(qid, port_tpch, monkeypatch):
     the query goes through block_gather (here its plain version) and the
     rows do not change."""
     sql = Q18_250 if qid == 18 else QUERIES[qid]
-    flat = presto_tpu_torch.connect(port_tpch, device="cpu").sql(sql).rows
+    # the dynamic executor's gathers (compiled mode's are held in
+    # tests/test_torch_compiled.py)
+    flat = presto_tpu_torch.connect(port_tpch, device="cpu",
+                                    execution_mode="dynamic").sql(sql).rows
     monkeypatch.setattr(G, "_staging_enabled", lambda device: True)
     monkeypatch.setattr(G, "_STAGED_MIN_INDICES", 1000)
     monkeypatch.setattr(G, "_IB", 64)
@@ -152,7 +155,8 @@ def test_forced_staging_gives_the_same_rows(qid, port_tpch, monkeypatch):
         return real(src, sidx)
 
     monkeypatch.setattr(G, "block_gather", spy)
-    staged = presto_tpu_torch.connect(port_tpch, device="cpu").sql(sql).rows
+    staged = presto_tpu_torch.connect(port_tpch, device="cpu",
+                                      execution_mode="dynamic").sql(sql).rows
     assert staged == flat
     # customer at orders (4 words), orders at lineitem (12 / 11 words),
     # and for Q18 the subquery's l_orderkey group keys (2 words)

@@ -75,7 +75,10 @@ def test_query_texts_are_the_reference_corpus():
 def test_query_matches_reference_and_oracle(qid, port_catalog,
                                             tpch_catalog_tiny,
                                             tpch_sqlite_tiny, fused_calls):
-    rows = presto_tpu_torch.connect(port_catalog, device="cpu") \
+    # the dynamic executor's kernel calls (compiled mode's are held in
+    # tests/test_torch_compiled.py)
+    rows = presto_tpu_torch.connect(port_catalog, device="cpu",
+                                    execution_mode="dynamic") \
         .sql(QUERIES[qid]).rows
     ref = presto_tpu.connect(tpch_catalog_tiny).sql(QUERIES[qid]).rows
     oracle = tpch_sqlite_tiny.execute(to_sqlite(QUERIES[qid])).fetchall()
@@ -122,7 +125,7 @@ def test_tpch_generator_matches_reference():
             assert np.array_equal(mine[col], theirs[col]), (table, col)
 
 
-@pytest.mark.parametrize("prop", [{"execution_mode": "compiled"},
+@pytest.mark.parametrize("prop", [{"distributed": True},
                                   {"execution_mode": "chunked"},
                                   {"float32_compute": True}])
 def test_unported_modes_raise(prop, port_catalog):

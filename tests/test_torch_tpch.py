@@ -1,6 +1,8 @@
-"""All 22 TPC-H queries through presto_tpu_torch on the CPU at SF0.01,
-held against the sqlite oracle (with the ORDERED set and the comparison
-of tests/test_tpch_correctness.py) and against presto_tpu's rows.
+"""All 22 TPC-H queries through presto_tpu_torch's dynamic executor on
+the CPU at SF0.01, held against the sqlite oracle (with the ORDERED set
+and the comparison of tests/test_tpch_correctness.py) and against
+presto_tpu's rows.  Compiled mode, the default, has the same checks in
+tests/test_torch_compiled.py.
 
 The port reads its own generated tables (presto_tpu_torch.catalog
 .tpch_catalog), which equal the reference's column for column
@@ -33,7 +35,8 @@ RTOL = 1e-9
 @pytest.fixture(scope="module")
 def port_rows():
     """{qid: rows} of the port, each query run once on first use."""
-    session = presto_tpu_torch.connect(tpch_catalog(0.01), device="cpu")
+    session = presto_tpu_torch.connect(tpch_catalog(0.01), device="cpu",
+                                       execution_mode="dynamic")
     cache = {}
 
     def rows(qid):
