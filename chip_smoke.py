@@ -41,8 +41,16 @@ tie-aware comparison: rows
 whose ORDER BY keys agree within QUERY_RTOL compare as a multiset, and
 at a LIMIT the rows tied with the last kept row may differ.  Q1, Q3, Q6
 and Q18 are also held against numpy computations from the generated
-columns.  segment_sum is held to bit identity in ten calls and to the
-correctly rounded sums on the inputs of Q15 and Q3; the integer
+columns.  Every run's counters of ordering-aware execution and dynamic
+filtering (sorts taken, elided and replayed from the memo, ordering
+guard trips, runtime filters produced and applied, probe rows pruned)
+must equal presto_tpu's at SF1 (REFERENCE_COUNTERS_SF1), in both
+executors, and Q3, Q5, Q8, Q17 and Q18 run again in each with
+both features switched off and with each alone: nothing elided,
+memoized or pruned by what is off, rows that agree with the runs with
+both on, and the times of every variant printed side by side.
+segment_sum is held to bit identity in ten calls and to the correctly
+rounded sums on the inputs of Q15 and Q3; the integer
 division fault C1, a SELECT without FROM and a DISTINCT aggregate run on
 the card against the CPU; a profile of each query gives its device busy
 and idle shares.  No check reads a time.
@@ -128,6 +136,70 @@ CPU_CHECK_SF = {q: SF if q in (1, 2, 6, 11, 16, 22) else 0.1
 # guard there; compiled mode on the card must leave the same entries
 REFERENCE_MEMO_SF1 = {q: "DYNAMIC" if q in (9, 13, 16) else "executable"
                       for q in SLICE_QUERIES}
+# the counters of ordering-aware execution and dynamic filtering in
+# QueryStats (in the order of presto_tpu_torch.exec.executor
+# .SORT_STATS_KEYS), presto_tpu's for each query run once at SF1
+# on the CPU in each executor (`python -m tests.test_torch_compiled 1 Q`,
+# one query a process; the port's CPU run gave the same for all 22):
+# "compiled" is the default mode's first run, a tripped guard's dynamic
+# rerun included (Q9, Q13, Q16); the card must give the same
+REFERENCE_COUNTERS_SF1 = {
+    1: {"dynamic": [2, 1, 0, 0, 0, 0, 0],
+        "compiled": [0, 1, 0, 0, 0, 0, 0]},
+    2: {"dynamic": [3, 3, 0, 0, 2, 2, 1432244],
+        "compiled": [3, 3, 0, 0, 2, 2, 0]},
+    3: {"dynamic": [4, 2, 0, 0, 2, 2, 6569069],
+        "compiled": [4, 2, 0, 0, 2, 2, 0]},
+    4: {"dynamic": [5, 1, 0, 0, 0, 0, 0],
+        "compiled": [3, 1, 0, 0, 0, 0, 0]},
+    5: {"dynamic": [6, 0, 0, 0, 1, 1, 4809915],
+        "compiled": [4, 0, 0, 0, 1, 1, 0]},
+    6: {"dynamic": [0, 0, 0, 0, 0, 0, 0],
+        "compiled": [0, 0, 0, 0, 0, 0, 0]},
+    7: {"dynamic": [6, 0, 0, 0, 3, 3, 0],
+        "compiled": [6, 0, 0, 0, 3, 3, 0]},
+    8: {"dynamic": [6, 0, 0, 0, 3, 3, 7275856],
+        "compiled": [3, 0, 0, 0, 3, 3, 0]},
+    9: {"dynamic": [8, 1, 0, 0, 1, 1, 0],
+        "compiled": [14, 1, 0, 0, 2, 2, 0]},
+    10: {"dynamic": [6, 0, 0, 0, 2, 2, 5751803],
+         "compiled": [6, 0, 0, 0, 2, 2, 0]},
+    11: {"dynamic": [1, 2, 0, 0, 2, 2, 1532640],
+         "compiled": [1, 2, 0, 0, 2, 2, 766320]},
+    12: {"dynamic": [6, 0, 0, 0, 1, 1, 1469369],
+         "compiled": [4, 0, 0, 0, 1, 1, 0]},
+    13: {"dynamic": [6, 2, 0, 0, 0, 0, 0],
+         "compiled": [12, 4, 0, 0, 0, 0, 0]},
+    14: {"dynamic": [0, 0, 0, 0, 1, 1, 0],
+         "compiled": [0, 0, 0, 0, 1, 1, 0]},
+    15: {"dynamic": [8, 0, 0, 0, 0, 0, 0],
+         "compiled": [8, 0, 0, 0, 0, 0, 0]},
+    16: {"dynamic": [3, 2, 0, 0, 1, 1, 679688],
+         "compiled": [6, 4, 0, 0, 2, 2, 679688]},
+    17: {"dynamic": [4, 1, 0, 0, 1, 1, 5995018],
+         "compiled": [4, 1, 0, 0, 1, 1, 0]},
+    18: {"dynamic": [11, 3, 1, 0, 4, 4, 7500090],
+         "compiled": [7, 4, 0, 0, 4, 4, 0]},
+    19: {"dynamic": [0, 0, 0, 0, 0, 0, 0],
+         "compiled": [0, 0, 0, 0, 0, 0, 0]},
+    20: {"dynamic": [9, 0, 0, 0, 1, 1, 791336],
+         "compiled": [9, 0, 0, 0, 1, 1, 0]},
+    21: {"dynamic": [11, 1, 0, 0, 1, 1, 5755660],
+         "compiled": [8, 1, 0, 0, 1, 1, 0]},
+    22: {"dynamic": [5, 1, 0, 0, 0, 0, 0],
+         "compiled": [3, 1, 0, 0, 0, 0, 0]}}
+# the queries these features touch, run again with both switched off
+# (ordering_aware_execution and dynamic_filtering) and with each alone:
+# the same rows, and nothing elided, memoized or pruned by what is off
+SWITCHED_OFF_QUERIES = (3, 5, 8, 17, 18)
+SWITCHES_OFF = {
+    "both_off": {"ordering_aware_execution": False,
+                 "dynamic_filtering": False},
+    "ordering_off": {"ordering_aware_execution": False},
+    "filtering_off": {"dynamic_filtering": False}}
+# the counters (positions in SORT_STATS_KEYS) each switch leaves at 0
+SWITCH_ZEROES = {"ordering_aware_execution": (1, 2, 3),
+                 "dynamic_filtering": (4, 5, 6)}
 # the memo phase: distinct TPC-H texts, as qgen's streams send them (Q1's
 # delta, Q6's year, discount and quantity), in one session whose memo
 # may hold MEMO_BOUND_BYTES; each is checked against the dynamic run
@@ -980,15 +1052,21 @@ def phase_query(qid, sql, sessions, capture, counters, out):
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    runs, times = [], []
+    runs, times, sorts = [], [], []
     for _ in range(DYNAMIC_RUNS):
         t = time.perf_counter()
-        runs.append(gpu.sql(sql).rows)
+        result = gpu.sql(sql)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
+        runs.append(result.rows)
+        sorts.append(sort_counters(result.stats))
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     out["launches"] = launches
+    out["dynamic_counters"] = sorts[0]
+    if any(c != sorts[0] for c in sorts[1:]):
+        raise AssertionError(f"Q{qid}: counters differ between runs: "
+                             f"{sorts}")
     capture.run(gpu, qid, sql, "dynamic")
     capture.check()
     out["fgs_paths"] = sorted(capture.paths)
@@ -996,6 +1074,7 @@ def phase_query(qid, sql, sessions, capture, counters, out):
         out["segment_sum_input"] = capture.seg
     rows = runs[0]
     out["rows"], out["warm_ms"] = rows, times[1:]
+    out["dynamic_rows"] = rows
     identical = all(r == rows for r in runs[1:])
     # the register path of fused_group_sums and segment_sum add in a
     # fixed order; the shared-table path adds with atomics
@@ -1023,6 +1102,94 @@ def phase_query(qid, sql, sessions, capture, counters, out):
         assert_query_rows(f"Q{qid} cuda vs numpy", qid, rows,
                           out["numpy"][qid])
     row["matches_numpy"] = qid in out["numpy"] or "not checked"
+    emit(row)
+
+
+def sort_counters(stats) -> list:
+    """A QueryStats' counters of ordering-aware execution and dynamic
+    filtering, in SORT_STATS_KEYS order."""
+    from presto_tpu_torch.exec.executor import SORT_STATS_KEYS
+
+    return [getattr(stats, k) for k in SORT_STATS_KEYS]
+
+
+def phase_counters(qid, out):
+    """The counters of the query's runs in both executors on the card
+    against presto_tpu's (REFERENCE_COUNTERS_SF1)."""
+    ref = REFERENCE_COUNTERS_SF1.get(qid, {})
+    row = {"phase": "counters", "query": f"Q{qid}", "sf": SF,
+           "reference": ref}
+    wrong = []
+    for mode in ("dynamic", "compiled"):
+        got = row[mode] = out.get(f"{mode}_counters")
+        if got is None or got != ref.get(mode):
+            wrong.append(f"{mode} {got} on cuda, {ref.get(mode)} in "
+                         "presto_tpu")
+    emit(row)
+    if wrong:
+        raise AssertionError(f"Q{qid} counters: " + "; ".join(wrong))
+
+
+def drop_memo(session) -> None:
+    """Release every graph of a session's memo and give its pools back
+    to the card."""
+    import torch
+
+    from presto_tpu_torch.exec import compile_cache as CC
+
+    memo = getattr(session, "_compiled_cache", None)
+    for entry in (memo.values() if memo is not None else ()):
+        if isinstance(entry, tuple):
+            entry[1].release()
+    session._compiled_cache = CC.GraphMemo(0, 0)
+    torch.cuda.empty_cache()
+
+
+def phase_switched_off(qid, sql, sessions, out):
+    """The query with ordering-aware execution and dynamic filtering
+    switched off, both and each alone (SWITCHES_OFF), in both executors:
+    DYNAMIC_RUNS dynamic runs, and a build with COMPILED_REPLAYS
+    replays.  What is off may elide, memoize, trip or prune nothing
+    (sorts_taken still counts the sorts run), and the rows must agree
+    with the runs with both on (tie-aware, QUERY_RTOL).  The times of
+    every variant are printed beside those with both on; nothing is
+    claimed from them."""
+    import torch
+
+    row = {"phase": "switched_off", "query": f"Q{qid}", "sf": SF,
+           "card": card_line(),
+           "on": {"dynamic_warm_ms": out.get("warm_ms"),
+                  "compiled_replay_ms": out.get("replay_ms")}}
+    for variant, props in SWITCHES_OFF.items():
+        got = row[variant] = {}
+        zero = sorted({i for p in props for i in SWITCH_ZEROES[p]})
+        for mode, runs_n in (("dynamic", DYNAMIC_RUNS),
+                             ("compiled", 1 + COMPILED_REPLAYS)):
+            session = sessions[variant, mode]
+            results, times = [], []
+            for _ in range(runs_n):
+                t = time.perf_counter()
+                results.append(session.sql(sql))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            counts = got[f"{mode}_counters"] = sort_counters(
+                results[0].stats)
+            if any(counts[i] for i in zero):
+                raise AssertionError(f"Q{qid}: {mode} with {variant} "
+                                     f"counts {counts}")
+            on_rows = out.get(f"{mode}_rows")
+            if on_rows is None:
+                raise AssertionError(f"Q{qid}: no {mode} run with both on")
+            assert_query_rows(f"Q{qid} {mode} {variant} vs on", qid,
+                              results[0].rows, on_rows)
+            if mode == "dynamic":
+                got["dynamic_warm_ms"] = times[1:]
+            else:
+                got.update({"compiled_first_run_ms": times[0],
+                            "compiled_replay_ms": times[1:],
+                            "compiled_memo": memo_entry(session, sql)})
+                drop_memo(session)
+        got["rows_match_on"] = True
     emit(row)
 
 
@@ -1089,11 +1256,24 @@ def phase_compiled(qid, sql, sessions, capture, counters, out):
         row["launches_per_graph"] = {name: n // 2
                                      for name, n in launches.items()}
     runs, times = [first.rows], []
+    sorts = [sort_counters(first.stats)]
     for _ in range(COMPILED_REPLAYS):
         t = time.perf_counter()
-        runs.append(gpu.sql(sql).rows)
+        result = gpu.sql(sql)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
+        runs.append(result.rows)
+        sorts.append(sort_counters(result.stats))
+    # a memo hit reports the build's counters; after a tripped guard
+    # the build reports its static pass and its dynamic rerun, and the
+    # later runs the dynamic executor's alone
+    out["compiled_counters"] = sorts[0]
+    later = out.get("dynamic_counters") \
+        if row["memo"] == "DYNAMIC" else sorts[0]
+    if any(c != later for c in sorts[1:]):
+        raise AssertionError(f"Q{qid}: counters of the later runs "
+                             f"{sorts[1:]}, {later} expected")
+    out["compiled_rows"], out["replay_ms"] = runs[0], times
     row.update({"replay_ms": times, "replay_median_ms": median(times),
                 "dynamic_warm_ms": out.get("warm_ms"),
                 "replay_phase_ms": {k: v / 1e6 for k, v in
@@ -1304,6 +1484,11 @@ def phase_slice(capture):
         for sf, cat in cats.items()})
     sessions["compiled", SF] = presto_tpu_torch.connect(cats[SF],
                                                         device="cuda")
+    for variant, props in SWITCHES_OFF.items():
+        sessions[variant, "dynamic"] = presto_tpu_torch.connect(
+            cats[SF], device="cuda", execution_mode="dynamic", **props)
+        sessions[variant, "compiled"] = presto_tpu_torch.connect(
+            cats[SF], device="cuda", **props)
     need = {"lineitem": ["l_quantity", "l_extendedprice", "l_discount",
                          "l_tax", "l_returnflag", "l_linestatus",
                          "l_shipdate", "l_orderkey"],
@@ -1335,6 +1520,10 @@ def phase_slice(capture):
                 sessions, capture, counters, out)
         guarded("compiled", f"Q{qid}", phase_compiled, qid, QUERIES[qid],
                 sessions, capture, counters, out)
+        guarded("counters", f"Q{qid}", phase_counters, qid, out)
+        if qid in SWITCHED_OFF_QUERIES:
+            guarded("switched_off", f"Q{qid}", phase_switched_off, qid,
+                    QUERIES[qid], sessions, out)
         for mode, got in (("dynamic", out.get("launches")),
                           ("compiled", out.get("compiled_launches"))):
             if got is not None:

@@ -17,14 +17,27 @@ device; filters AND into `sel`.  Joins run INNER, LEFT, RIGHT (the
 mirrored LEFT), SEMI, ANTI and MARK, as index joins or sort joins
 (`kernels.build_probe`), always resident.
 
+Ordering-aware execution (plan/properties.py) and dynamic filtering
+(plan/runtime_filters.py) run as the reference's do, in both executors:
+sorts whose input is already ordered are elided (Sort, TopN, presorted
+grouping and join builds, each under a guard where the order is only
+claimed), a key sorted once in a query is not sorted again (the sort,
+permutation and group-id memos), and a selective INNER or SEMI join
+runs its build side first and prunes its probe scan's rows with the
+build keys' summary (kernels.rf_build, rf_probe).  QueryStats counts
+both in sorts_taken, sorts_elided, sort_memo_hits,
+ordering_guard_trips, df_filters_produced, df_filters_applied and
+df_rows_pruned.
+
 Not ported yet, and raising NotImplementedError when reached: chunked
 and distributed execution, batched compiled execution and prepared
 statements, float32_compute, every statement other than a query, FULL
 and CROSS joins, and every plan node outside the slice (Window, Union,
-...).  Ordering-aware execution (sort elision, the sort, group-id and
-build-order memos, presorted grouping in the static executor), dynamic
-filtering and spill degradation are not ported either; none of them
-changes results, only which sorts run and which rows are pruned early.
+...).  Not ported either, and changing no result: sort-order
+materialization (it serves chunked execution), runtime-domain stripe
+pruning (df_splits_pruned: its tables are not ported), the host
+summaries of the cluster side channel, spill degradation and adaptive
+partial aggregation.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ from presto_tpu_torch.exec.compiler import (EvalContext, eval_expr,
 from presto_tpu_torch.functions.scalar import torch_dtype
 from presto_tpu_torch.plan import ir
 from presto_tpu_torch.plan import nodes as P
+from presto_tpu_torch.plan import runtime_filters as RF
 from presto_tpu_torch.plan.optimizer import optimize
 from presto_tpu_torch.plan.planner import Planner
 from presto_tpu_torch.session import QueryResult
@@ -58,6 +72,20 @@ from presto_tpu_torch.sql.parser import parse
 
 class ExecutionError(Exception):
     pass
+
+
+#: the QueryStats counters this executor fills (reference:
+#: presto_tpu/exec/executor.py _merge_sort_stats)
+SORT_STATS_KEYS = ("sorts_taken", "sorts_elided", "sort_memo_hits",
+                   "ordering_guard_trips", "df_filters_produced",
+                   "df_filters_applied", "df_rows_pruned")
+
+
+def _merge_sort_stats(stats, counts: dict) -> None:
+    """Add an executor's ordering and dynamic-filtering counters to a
+    QueryStats."""
+    for k in SORT_STATS_KEYS:
+        setattr(stats, k, getattr(stats, k, 0) + int(counts.get(k, 0)))
 
 
 class StaticFallback(Exception):
@@ -204,7 +232,11 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
             plan_statement(session, stmt))
     if entry is None:
         plan = plan_statement(session, stmt)
-        ex0 = Executor(session)
+        # the build's counters (the scalar subqueries' dynamic runs and
+        # the static program's decisions) go into every run's stats,
+        # memo hits included, as the reference's do
+        sort_counts: dict = {}
+        ex0 = Executor(session, sort_stats=sort_counts)
         scalar_results = ex0.ctx.scalar_results
         for pid, sub in sorted(plan.subplans.items()):
             scalar_results[pid] = _single_value(ex0.exec_node(sub))
@@ -214,11 +246,15 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
         batches = [scan_batch(session.catalog.get(n.table), n,
                               session.device) for n in scan_nodes]
         meta_box: list = []  # the fetch layout, set by every run
+        counts_box: list = [sort_counts]  # the counters, set by every run
 
         def program(*batches):
+            counts = dict(sort_counts)
+            counts_box[:] = [counts]
             ex = Executor(session, static=True,
                           scan_inputs={id(n): b for n, b
-                                       in zip(scan_nodes, batches)})
+                                       in zip(scan_nodes, batches)},
+                          sort_stats=counts)
             ex.ctx.scalar_results = scalar_results
             out = ex.exec_node(plan.root)
             if bound is not None and out.capacity > 4 * bound:
@@ -238,11 +274,13 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
             return flat, flat[buf.shape[0] - 1] != 0
 
         exe = CC.build_graph(program, tuple(batches), session.device)
-        entry = (plan, exe, scan_nodes, meta_box, batches)
+        entry = (plan, exe, scan_nodes, meta_box, batches, counts_box)
     else:
         CC.note("compile_cache_hits")
-    plan, exe, _scan_nodes, meta_box, _batches = entry
+    plan, exe, _scan_nodes, meta_box, _batches, counts_box = entry
     out, guard = exe()
+    if mon is not None:
+        _merge_sort_stats(mon.stats, counts_box[0])
     meta = meta_box[0]
     ex = Executor(session)
     if meta is None:
@@ -276,7 +314,7 @@ def plan_statement(session, stmt) -> P.QueryPlan:
 
 class Executor:
     def __init__(self, session, static: bool = False, scan_inputs=None,
-                 monitor=None):
+                 monitor=None, sort_stats=None):
         self.session = session
         self.device = session.device
         # static: the compiled mode's executor -- capacities fixed by the
@@ -290,12 +328,190 @@ class Executor:
         # plan DAGs (transitive semi-join inference shares a filter
         # subquery between both join sides) run each shared node once
         self._shared_results: Dict[int, tuple] = {}
+        # ordering-aware execution (plan/properties.py):
+        # - the counters, merged into QueryStats (SORT_STATS_KEYS)
+        # - the sort memo (packed key -> (skey, order)), the permutation
+        #   memo (Sort/TopN keys -> perm) and the group-id memo (packed
+        #   key -> (gid, rep_rows, n_groups)), each keyed by the
+        #   identity of its source tensors (_key_fp) and holding them
+        #   alive, so that a recycled id() never aliases a dead entry
+        # - the orderings this executor built itself: id(Batch) ->
+        #   (batch, ((symbol, asc), ...), tail_ok), the only claims that
+        #   Sort and TopN elision trust without a guard
+        self.sort_stats = sort_stats if sort_stats is not None else {}
+        self._sort_memo: Dict[tuple, tuple] = {}
+        self._perm_memo: Dict[tuple, tuple] = {}
+        self._gid_memo: Dict[tuple, tuple] = {}
+        self._batch_order: Dict[int, tuple] = {}
+        # dynamic filtering (plan/runtime_filters.py): filter id -> the
+        # build keys' device summary (kernels.rf_build), registered by a
+        # producer join before its probe subtree runs
+        self._rf: Dict[str, dict] = {}
+
+    # ---- ordering-aware execution and dynamic filtering --------------
+    def _count(self, key: str, n: int = 1) -> None:
+        self.sort_stats[key] = self.sort_stats.get(key, 0) + n
+
+    def _ordering_enabled(self) -> bool:
+        return bool(self.session.properties.get(
+            "ordering_aware_execution", True))
+
+    def _df_enabled(self) -> bool:
+        return RF.enabled(self.session)
+
+    def _rf_build_complete(self, node) -> bool:
+        """May this executor derive a filter from the join's build batch:
+        is that batch the whole build key set?  Always, on one device (a
+        sharded executor sees a part and must not)."""
+        return True
+
+    def _rf_register(self, specs, right: Batch) -> None:
+        """Producer side: summarize and register one join's build keys.
+        A key the kernels cannot summarize (dictionary codes, floats,
+        matrix-shaped data) registers nothing, and its consumer scan
+        then runs unfiltered."""
+        for spec in specs:
+            col = right.columns.get(spec["build_sym"])
+            if col is None or col.dictionary is not None \
+                    or col.data.ndim != 1 or col.data.is_floating_point():
+                continue
+            live = right.sel
+            if col.valid is not None:
+                live = live & col.valid
+            self._rf[spec["fid"]] = K.rf_build(col, live)
+            self._count("df_filters_produced")
+
+    def _rf_apply(self, node: P.TableScan, b: Batch) -> Batch:
+        """Consumer side: AND each registered filter's mask into the
+        scan's sel.  An id nobody registered is skipped: dynamic
+        filtering never changes a result.  The dynamic executor counts
+        the pruned rows (one host read); the static executor reads
+        nothing and counts the filters alone."""
+        specs = getattr(node, "rf_consume", None)
+        if not specs or not self._df_enabled():
+            return b
+        sel = b.sel
+        applied = False
+        for spec in specs:
+            summary = self._rf.get(spec["fid"])
+            if summary is None:
+                continue
+            col = b.columns.get(spec["sym"])
+            if col is None or col.dictionary is not None \
+                    or col.data.ndim != 1 or col.data.is_floating_point():
+                continue
+            mask = K.rf_probe(summary, col)
+            if self.static:
+                sel = sel & mask
+            else:
+                sel2 = sel & mask
+                before, after = torch.stack([sel.sum(), sel2.sum()]).tolist()
+                self._count("df_rows_pruned", before - after)
+                sel = sel2
+            self._count("df_filters_applied")
+            applied = True
+        if not applied:
+            return b
+        out = b.with_sel(sel)
+        # masking moves no row, but punches holes
+        self._copy_order(b, out, tail_ok=False)
+        return out
+
+    def _key_fp(self, cols, sel, layout):
+        """(fingerprint, refs) of a packed key: the identity of its source
+        tensors and its layout, the memos' key.  refs go into the memo
+        entry to keep the tensors alive.  None: not fingerprintable
+        (matrix-shaped data)."""
+        parts = []
+        refs = [sel]
+        for c in cols:
+            d = c.data
+            if d.ndim != 1:
+                return None, ()
+            parts.append((id(d), None if c.valid is None else id(c.valid)))
+            refs.append(d)
+            if c.valid is not None:
+                refs.append(c.valid)
+        lay = None if layout is None else tuple(tuple(x) for x in layout)
+        return (tuple(parts), id(sel), lay), tuple(refs)
+
+    def _memo_pair(self, key, fp, refs):
+        """(skey, order) of a packed key through the sort memo: a later
+        grouping or join on the same key replays the permutation."""
+        if not self._ordering_enabled():
+            fp = None  # the switch turns the memo off too
+        entry = self._sort_memo.get(fp) if fp is not None else None
+        if entry is not None:
+            self._count("sort_memo_hits")
+            self._count("sorts_elided")
+            return entry[1]
+        self._count("sorts_taken")
+        pair = K.sort_pair(key)
+        if fp is not None:
+            self._sort_memo[fp] = (refs, pair)
+        return pair
+
+    def _note_order(self, batch: Batch, keys, tail_ok: bool = True) -> None:
+        """Record an ordering this executor built: the live rows of
+        `batch` sorted on `keys` ((symbol, asc), ...).  tail_ok: masked
+        rows sit in a suffix, so the whole packed key is nondecreasing
+        (what a presorted join build needs); after a filter only the
+        live rows are in order, which Sort and TopN elision need."""
+        if keys:
+            self._batch_order[id(batch)] = (batch, tuple(keys), tail_ok)
+
+    def _copy_order(self, src: Batch, dst: Batch, tail_ok=None) -> None:
+        e = self._batch_order.get(id(src))
+        if e is not None and e[0] is src:
+            self._note_order(dst, e[1],
+                             e[2] if tail_ok is None else (e[2] and tail_ok))
+
+    def _order_satisfies(self, b: Batch, want) -> bool:
+        """Does the ordering this executor built for `b` satisfy the sort
+        keys `want` ((symbol, asc, nulls_first), ...)?  They must be a
+        prefix of it, over columns without NULLs (a packed order puts
+        the NULL group first, which SQL's defaults need not)."""
+        e = self._batch_order.get(id(b))
+        if e is None or e[0] is not b:
+            return False
+        have = e[1]
+        if len(want) > len(have):
+            return False
+        for (sym, asc, _nf), (hsym, hasc) in zip(want, have):
+            if sym != hsym or bool(asc) != bool(hasc):
+                return False
+            col = b.columns.get(sym)
+            if col is None or col.valid is not None:
+                return False
+        return True
+
+    def _build_order_certain(self, node, right: Batch, rkeys) -> bool:
+        """This executor built `right` sorted on the join key with its
+        masked rows in a suffix (a grouped output joined on its leading
+        group key, for one)."""
+        if len(node.criteria) != 1 or rkeys[0].valid is not None:
+            return False
+        e = self._batch_order.get(id(right))
+        if e is None or e[0] is not right or not e[2]:
+            return False
+        keys = e[1]
+        return bool(keys) and keys[0] == (node.criteria[0][1], True)
+
+    def _build_presorted(self, node, right: Batch, rkeys) -> bool:
+        if len(node.criteria) != 1:
+            return False
+        return bool(getattr(node, "build_ordering_hint", False)) \
+            or self._build_order_certain(node, right, rkeys)
 
     # ------------------------------------------------------------------
     def run(self, plan: P.QueryPlan) -> QueryResult:
         if self.monitor is not None:
             self.monitor.plan = plan
-        return self.run_batch(plan, self.evaluate(plan))
+        try:
+            return self.run_batch(plan, self.evaluate(plan))
+        finally:
+            if self.monitor is not None:
+                _merge_sort_stats(self.monitor.stats, self.sort_stats)
 
     def run_batch(self, plan: P.QueryPlan, batch: Batch) -> QueryResult:
         """The plan's result from its root's batch on the device."""
@@ -367,9 +583,9 @@ class Executor:
     # ---- leaves ------------------------------------------------------
     def _exec_tablescan(self, node: P.TableScan) -> Batch:
         if self.scan_inputs is not None:
-            return self.scan_inputs[id(node)]
-        return scan_batch(self.session.catalog.get(node.table), node,
-                          self.device)
+            return self._rf_apply(node, self.scan_inputs[id(node)])
+        return self._rf_apply(node, scan_batch(
+            self.session.catalog.get(node.table), node, self.device))
 
     def _exec_values(self, node: P.Values) -> Batch:
         """Literal rows (a SELECT without FROM, VALUES lists) as a batch
@@ -398,14 +614,32 @@ class Executor:
     # ---- row-wise ----------------------------------------------------
     def _exec_filter(self, node: P.Filter) -> Batch:
         b = self.exec_node(node.source)
-        return b.with_sel(b.sel & eval_predicate(node.predicate, b, self.ctx))
+        out = b.with_sel(b.sel & eval_predicate(node.predicate, b, self.ctx))
+        # masking moves no row, but punches holes
+        self._copy_order(b, out, tail_ok=False)
+        return out
 
     def _exec_project(self, node: P.Project) -> Batch:
         b = self.exec_node(node.source)
         cols = {sym: to_column(eval_expr(e, b, self.ctx), b.capacity,
                                self.device)
                 for sym, e in node.assignments.items()}
-        return Batch(cols, b.sel)
+        out = Batch(cols, b.sel)
+        src = self._batch_order.get(id(b))
+        if src is not None and src[0] is b:
+            # row-wise: an ordering survives renames (Refs) up to its
+            # first key that is not one
+            renames = {}
+            for sym, e in node.assignments.items():
+                if isinstance(e, ir.Ref):
+                    renames.setdefault(e.name, sym)
+            mapped = []
+            for sym, asc in src[1]:
+                if sym not in renames:
+                    break
+                mapped.append((renames[sym], asc))
+            self._note_order(out, tuple(mapped), tail_ok=src[2])
+        return out
 
     # ---- aggregation -------------------------------------------------
     def _exec_aggregate(self, node: P.Aggregate) -> Batch:
@@ -495,19 +729,40 @@ class Executor:
         pack_cols = [b.columns[k] for k in pack_order]
         key, layout = K.pack_keys(pack_cols, b.sel)
         gid = None
-        if layout is not None and self.session.properties.get(
-                "ordering_aware_execution", True) \
+        if layout is not None and self._ordering_enabled() \
                 and getattr(node, "ordering_hint", None) == pack_order[0]:
-            # presorted grouping: run-boundary scan, no sort; falls back
-            # to the sort path when the ordering claim lied
+            # presorted grouping: one run-boundary scan in place of the
+            # grouping sort and the unpermute; the guard and the group
+            # count come back in one read, and a claim that lied falls
+            # back to the sort path
             g2, newgrp, ng_t, guard = K.group_ids_presorted(key, b.sel)
-            if not bool(guard):
-                n_groups = int(ng_t)
+            tripped, n_groups = torch.stack(
+                [guard.to(torch.int64), ng_t.to(torch.int64)]).tolist()
+            if not tripped:
                 gid = g2
                 rep_rows = K.nonzero_i32(newgrp, max(n_groups, 1),
                                          0)[:n_groups]
+                self._count("sorts_elided", 2)
+            else:
+                self._count("ordering_guard_trips")
         if gid is None:
-            gid, rep_rows, n_groups = K.group_ids(key, b.sel)
+            fp, refs = self._key_fp(pack_cols, b.sel, layout)
+            hit = self._gid_memo.get(fp) if fp is not None \
+                and self._ordering_enabled() else None
+            if hit is not None:
+                # a second grouping over the same key tensors (a
+                # distinct pre-pass, say) replays the whole mapping: the
+                # grouping sort and the unpermute are both elided
+                gid, rep_rows, n_groups = hit[1]
+                self._count("sort_memo_hits")
+                self._count("sorts_elided", 2)
+            else:
+                pair = self._memo_pair(key, fp, refs)
+                self._count("sorts_taken")  # the unpermute
+                gid, rep_rows, n_groups = K.group_ids(key, b.sel,
+                                                      sorted_pair=pair)
+                if fp is not None:
+                    self._gid_memo[fp] = (refs, (gid, rep_rows, n_groups))
         out_cols: Dict[str, Column] = {}
         raw, _ = K.take_columns({k: b.columns[k] for k in group_keys},
                                 rep_rows)
@@ -520,7 +775,12 @@ class Executor:
             out_cols[sym] = fused.get(sym) or self._agg_column(b, a, order)
         sel = torch.ones((max(n_groups, 0),), dtype=torch.bool,
                          device=self.device)
-        return Batch(out_cols, sel)
+        out = Batch(out_cols, sel)
+        if layout is not None:
+            # an exact packing numbers the groups in ascending packed-key
+            # order, lexicographic on pack_order, on either path
+            self._note_order(out, tuple((k, True) for k in pack_order))
+        return out
 
     # layouts this narrow use the packed key as the group id (no sort);
     # the key columns come back from slot arithmetic
@@ -560,7 +820,22 @@ class Executor:
                     c.data.is_floating_point() for c in pack_cols):
                 return self._aggregate_direct(b, pack_order, pack_cols,
                                               aggs, key, layout, total_bits)
-        gid, rep_rows, exists, overflow = K.group_ids_static(key, cap)
+        if layout is not None and self._ordering_enabled() \
+                and getattr(node, "ordering_hint", None) == pack_order[0] \
+                and getattr(node, "ordering_hint_safe", False):
+            # presorted grouping under a guard, for safe hints alone (the
+            # other keys provably constant within a leading run): a trip
+            # costs the whole compiled query
+            gid, rep_rows, exists, overflow, guard = \
+                K.group_ids_presorted_static(key, cap)
+            self.guards.append(guard)
+            self._count("sorts_elided", 2)
+        else:
+            fp, refs = self._key_fp(pack_cols, b.sel, layout)
+            pair = self._memo_pair(key, fp, refs)
+            self._count("sorts_taken")  # the unpermute
+            gid, rep_rows, exists, overflow = K.group_ids_static(
+                key, cap, sorted_pair=pair)
         self.guards.append(overflow)
         out_cols: Dict[str, Column] = {}
         raw, _ = K.take_columns({k: b.columns[k] for k in group_keys},
@@ -573,7 +848,12 @@ class Executor:
         order = K.GroupOrder(gid, cap)
         for sym, a in aggs.items():
             out_cols[sym] = fused.get(sym) or self._agg_column(b, a, order)
-        return Batch(out_cols, exists)
+        out = Batch(out_cols, exists)
+        if layout is not None:
+            # the live groups ascend in a prefix; the dead slots behind
+            # them hold sentinels
+            self._note_order(out, tuple((k, True) for k in pack_order))
+        return out
 
     def _aggregate_direct(self, b: Batch, group_keys, key_cols, aggs,
                           key, layout, total_bits: int) -> Batch:
@@ -597,7 +877,12 @@ class Executor:
         fused = self._fused_sum_aggs(b, aggs, gid, cap)
         for sym, a in aggs.items():
             out_cols[sym] = fused.get(sym) or self._agg_column(b, a, order)
-        return Batch(out_cols, exists)
+        out = Batch(out_cols, exists)
+        # slot order is packed-key order, but empty slots lie between
+        # the live ones: not tail-masked
+        self._note_order(out, tuple((k, True) for k in group_keys),
+                         tail_ok=False)
+        return out
 
     def _maybe_compact_static(self, b: Batch, est) -> Batch:
         """Compaction to a power-of-two bound from the planner's row
@@ -610,7 +895,13 @@ class Executor:
         if bound > min(b.capacity // 4, 1 << 20):
             return b
         self.guards.append(b.sel.to(torch.int32).sum() > bound)
-        return _compact_batch(b, bound)
+        out = _compact_batch(b, bound)
+        e = self._batch_order.get(id(b))
+        if e is not None and e[0] is b:
+            # compaction keeps the live rows in order and moves them to
+            # a prefix: the ordering becomes tail-masked
+            self._note_order(out, e[1], tail_ok=True)
+        return out
 
     def _fused_sum_aggs(self, b: Batch, aggs: Dict[str, ir.AggCall],
                         gid, n_groups: int) -> Dict[str, Column]:
@@ -754,26 +1045,64 @@ class Executor:
                                           device=self.device))
 
     # ---- ordering ----------------------------------------------------
+    def _sort_perm(self, b: Batch, key_spec) -> torch.Tensor:
+        """sort_perm through the permutation memo: the same sort of the
+        same batch (key columns, sel and directions) replays it."""
+        keys = [(b.columns[s], asc, nf) for s, asc, nf in key_spec]
+        fp, refs = self._key_fp([c for c, _, _ in keys], b.sel,
+                                [("sort", s, bool(asc), nf)
+                                 for s, asc, nf in key_spec])
+        if not self._ordering_enabled():
+            fp = None
+        entry = self._perm_memo.get(fp) if fp is not None else None
+        if entry is not None:
+            self._count("sort_memo_hits")
+            self._count("sorts_elided")
+            return entry[1]
+        self._count("sorts_taken")
+        perm = K.sort_perm(b, keys)
+        if fp is not None:
+            self._perm_memo[fp] = (refs, perm)
+        return perm
+
     def _exec_sort(self, node: P.Sort) -> Batch:
         b = self.exec_node(node.source)
-        keys = [(b.columns[s], asc, nf) for s, asc, nf in node.keys]
-        return K.gather_batch(b, K.sort_perm(b, keys))
+        if self._ordering_enabled() and self._order_satisfies(b, node.keys):
+            # the input is in order already (an ordering this executor
+            # built): its live rows surface in order, masked rows hidden
+            self._count("sorts_elided")
+            return b
+        out = K.gather_batch(b, self._sort_perm(b, node.keys))
+        self._note_order(out, tuple((s, asc) for s, asc, _nf in node.keys))
+        return out
 
     def _exec_topn(self, node: P.TopN) -> Batch:
         """TopN = key sort + k-row gather (reference: TopNOperator's
         bounded heap), without a full-capacity gather of every column."""
         b = self.exec_node(node.source)
-        keys = [(b.columns[s], asc, nf) for s, asc, nf in node.keys]
-        perm = K.sort_perm(b, keys)  # masked rows sort last
+        if self._ordering_enabled() and self._order_satisfies(b, node.keys):
+            # in order already: TopN is a LIMIT
+            self._count("sorts_elided")
+            out = self._limit(b, node.count)
+            self._copy_order(b, out)
+            return out
+        perm = self._sort_perm(b, node.keys)  # masked rows sort last
+        sorted_keys = tuple((s, asc) for s, asc, _nf in node.keys)
         k = min(int(node.count), b.capacity)
         if k == b.capacity:
-            return K.gather_batch(b, perm)
-        out = K.gather_batch(b, perm[:k])
-        live = torch.arange(k, device=self.device) < b.sel.sum()
-        return out.with_sel(out.sel & live)
+            out = K.gather_batch(b, perm)
+        else:
+            out = K.gather_batch(b, perm[:k])
+            live = torch.arange(k, device=self.device) < b.sel.sum()
+            out = out.with_sel(out.sel & live)
+        self._note_order(out, sorted_keys)
+        return out
 
     def _exec_limit(self, node: P.Limit) -> Batch:
-        return self._limit(self.exec_node(node.source), node.count)
+        b = self.exec_node(node.source)
+        out = self._limit(b, node.count)
+        self._copy_order(b, out)  # a rank mask: no row moves
+        return out
 
     @staticmethod
     def _limit(b: Batch, n: int) -> Batch:
@@ -786,8 +1115,18 @@ class Executor:
         if node.join_type in ("FULL", "CROSS"):
             raise NotImplementedError(
                 f"{node.join_type} joins are not ported to presto_tpu_torch")
-        left = self.exec_node(node.left)
-        right = self.exec_node(node.right)
+        produce = getattr(node, "rf_produce", None)
+        if produce and node.join_type in ("INNER", "SEMI") \
+                and self._df_enabled() and self._rf_build_complete(node):
+            # dynamic filtering: the build side runs first and registers
+            # its keys' summary, which the probe subtree's scans then
+            # apply (the planner wires no filter into a shared subtree)
+            right = self.exec_node(node.right)
+            self._rf_register(produce, right)
+            left = self.exec_node(node.left)
+        else:
+            left = self.exec_node(node.left)
+            right = self.exec_node(node.right)
         left = self._maybe_compact_static(
             left, getattr(node, "left_est_hint", None))
         if getattr(node, "index_lookup", None) is None:
@@ -800,7 +1139,11 @@ class Executor:
             node = P.Join(node.right, node.left, "LEFT",
                           [(rk, lk) for lk, rk in node.criteria], node.filter)
             left, right = right, left
-        return self._join_batches(left, right, node)
+        out = self._join_batches(left, right, node)
+        if node.join_type in ("SEMI", "ANTI", "MARK"):
+            # the probe masked in place: no row moved
+            self._copy_order(left, out)
+        return out
 
     def _join_batches(self, left: Batch, right: Batch, node: P.Join) -> Batch:
         jt = node.join_type
@@ -841,7 +1184,35 @@ class Executor:
             else:
                 rkey, layout = K.pack_keys(rkeys, rsel, extra_cols=lkeys)
                 lkey = K.pack_with_layout(lkeys, lsel, layout)
-            order, lb, ub = K.build_probe(rkey, lkey)
+            build_order = None
+            if layout is not None and self._ordering_enabled() \
+                    and self._build_presorted(node, right, rkeys):
+                # presorted build: the packed build key is nondecreasing
+                # end to end (masked rows' sentinels in a suffix), so its
+                # sort is the identity.  An ordering this executor built
+                # needs no check; a planner claim is checked on the host
+                # here and guarded in the static executor
+                if self.static:
+                    self.guards.append(K.monotone_guard(rkey))
+                    presorted = True
+                else:
+                    presorted = self._build_order_certain(
+                        node, right, rkeys) or not bool(K.monotone_guard(rkey))
+                if presorted:
+                    build_order = torch.arange(
+                        rkey.shape[0], dtype=torch.int32, device=self.device)
+                    self._count("sorts_elided")
+                else:
+                    self._count("ordering_guard_trips")
+            if build_order is None:
+                # keyed on rsel's parts (the batch's sel and the keys'
+                # validity), so two probes of one shared build match
+                fp, refs = self._key_fp(rkeys, right.sel, layout)
+                build_order = self._memo_pair(rkey, fp, refs)[1]
+            order, lb, ub = K.build_probe(rkey, lkey, build_order=build_order)
+            # the reference's composite sort and its way home; the port
+            # sorts once, stably, for both
+            self._count("sorts_taken", 2)
             counts = ub - lb
 
         if jt == "MARK":  # filter-free by construction (planner)
@@ -1121,7 +1492,14 @@ def scan_batch(table, node: P.TableScan, device: torch.device) -> Batch:
         c = cache[src]
         cols[sym] = Column(c.data, c.valid, node.types[sym], c.dictionary)
         n = c.data.shape[0]
-    return Batch(cols, torch.ones((n,), dtype=torch.bool, device=device))
+    # one all-live sel per table and capacity: two scans of a table hand
+    # out the same (data, sel) tensors, so the sort memo sees a key of
+    # both as one sort (reference: scan_batch)
+    sel = cache.get(("__sel__", n))
+    if sel is None:
+        sel = cache[("__sel__", n)] = torch.ones((n,), dtype=torch.bool,
+                                                  device=device)
+    return Batch(cols, sel)
 
 
 def _merge_range(a, b):

@@ -10,13 +10,19 @@ compiled mode adds layouts from statistics with their range guard
 (`static_layout`, `layout_range_guard`), grouping at a fixed capacity
 (`group_ids_static`) and the packed result fetch (`pack_fetch`,
 `unpack_fetch`); none of these reads a tensor back to the host.
+Ordering-aware execution adds sort-free grouping of presorted keys
+(`group_ids_presorted`, `group_ids_presorted_static`), the check of a
+presorted join build (`monotone_guard`) and `build_probe`'s
+`build_order`; dynamic filtering the runtime-filter summaries
+(`rf_build`, `rf_probe`, `rf_domain`), whose bloom bits are the
+reference's bit for bit.
 
 Two differences from the reference's JAX code are deliberate:
 - torch has no multi-operand sort, so lexicographic sorts are built
   from stable single-key sorts, minor key to major (`sort_perm`);
 - torch's CPU kernels have no `>>` on unsigned integers, so the 64-bit
-  mixing in `_hash_keys` runs on int64 bit patterns with the logical
-  shift emulated by a mask (`_lsr`).
+  mixing in `_hash_keys` and `_rf_mix64` runs on int64 bit patterns
+  with the logical shift emulated by a mask (`_lsr`).
 """
 
 from __future__ import annotations
@@ -347,14 +353,44 @@ def group_ids(key: torch.Tensor, sel,
     return gid, rep_rows, n_groups
 
 
-def group_ids_static(key: torch.Tensor, cap: int):
+def group_ids_presorted_static(key: torch.Tensor, cap: int):
+    """group_ids_presorted at a fixed group capacity, without a host
+    read: (gid, rep_rows[cap], exists[cap], overflow, guard) with
+    group_ids_static's contract; the guard (the ordering claim lied)
+    joins the static executor's guards."""
+    live, newgrp, guard = _live_runs(key)
+    n = key.shape[0]
+    n_groups = newgrp.to(torch.int32).sum()
+    if n == 0:
+        gid = torch.zeros((0,), dtype=torch.int32, device=key.device)
+        rep_rows = torch.zeros((cap,), dtype=torch.int32, device=key.device)
+    else:
+        gid = torch.cumsum(newgrp.to(torch.int32), 0, dtype=torch.int32) - 1
+        gid = torch.where(live & (gid < cap), gid, cap)
+        rep_rows = nonzero_i32(newgrp, cap, 0)
+    exists = torch.arange(cap, device=key.device) < n_groups
+    return gid, rep_rows, exists, n_groups > cap, guard
+
+
+def monotone_guard(key: torch.Tensor) -> torch.Tensor:
+    """True (a device bool) when `key` is not nondecreasing end to end:
+    the check of a presorted join build, whose masked rows (sentinels)
+    must already sit in a suffix."""
+    if key.shape[0] < 2:
+        return torch.zeros((), dtype=torch.bool, device=key.device)
+    return (key[1:] < key[:-1]).any()
+
+
+def group_ids_static(key: torch.Tensor, cap: int, sorted_pair=None):
     """group_ids at a fixed group capacity, without a host read.  Returns
     (gid, rep_rows[cap], exists[cap], overflow): live rows of groups past
     `cap` and masked rows get gid == cap; overflow is a device bool, true
     when the rows hold more than `cap` groups (the compiled query then
-    reruns in the dynamic executor)."""
+    reruns in the dynamic executor).  `sorted_pair` replays a memoized
+    (skey, order) of this very key."""
     n = key.shape[0]
-    skey, order = sort_pair(key)
+    skey, order = sorted_pair if sorted_pair is not None \
+        else sort_pair(key)
     newgrp = torch.ones((n,), dtype=torch.bool, device=key.device)
     if n > 1:
         newgrp[1:] = skey[1:] != skey[:-1]
@@ -509,7 +545,8 @@ def pack_with_layout(cols: List[Column], sel, layout) -> torch.Tensor:
     return torch.where(sel, key, key_sentinel(key))
 
 
-def build_probe(build_key: torch.Tensor, probe_key: torch.Tensor):
+def build_probe(build_key: torch.Tensor, probe_key: torch.Tensor,
+                build_order=None):
     """Sort the build side; position every probe key among the build
     keys.  Returns (order, lb, ub): build_key[order] is sorted and the
     matches of probe row i are order[lb[i]:ub[i]].
@@ -517,9 +554,13 @@ def build_probe(build_key: torch.Tensor, probe_key: torch.Tensor):
     The reference sorts (key, side flag) together.  Build rows precede
     probe rows in the concatenation, so one stable sort on the key alone
     puts builds before probes within a run of equal keys: the same
-    order."""
+    order.  `build_order` skips the build's own sort: a memoized
+    permutation of this very key, or the identity when the key is
+    nondecreasing end to end (callers check with monotone_guard); the
+    stable sort of such a key is the identity too."""
     nb = build_key.shape[0]
-    order = sort_pair(build_key)[1]
+    order = build_order if build_order is not None \
+        else sort_pair(build_key)[1]
     allk = torch.cat([build_key, probe_key])
     n = allk.shape[0]
     sk, sidx = sort_pair(allk)
@@ -839,6 +880,119 @@ def _sort_operand_native(col: Column) -> torch.Tensor:
 def argsort_stable(key: torch.Tensor) -> torch.Tensor:
     """Stable argsort (equal keys keep input order)."""
     return torch.argsort(key, stable=True)
+
+
+def sort_values(x: torch.Tensor) -> torch.Tensor:
+    """Ascending value sort."""
+    return torch.sort(x).values
+
+
+# ---------------------------------------------------------------------------
+# runtime filters (dynamic filtering, plan/runtime_filters.py): a join's
+# build keys summarized on the device, probed by the probe side's scans.
+#   exact: the sorted live build keys, probed by binary search (build
+#          capacities up to RF_EXACT_MAX)
+#   bloom: a blocked bloom bitset, RF_BLOOM_K bits per key inside one
+#          64-bit block (false positives possible, false negatives never)
+# The reference mixes in uint64; here the same bits run in int64, with
+# the constants as their two's-complement values, every shift logical
+# (_lsr) and the modulo by a power of two a mask.  No function reads a
+# tensor back to the host, so the static executor builds and probes
+# filters inside its captured program.
+# ---------------------------------------------------------------------------
+
+
+RF_EXACT_MAX = 1 << 17   # build capacities up to this probe exactly
+RF_BLOOM_K = 3           # bits set and tested per key
+RF_BLOOM_BITS_PER_KEY = 16  # bitset density m/n: false positives ~0.5%
+
+_RF_M1 = _u64(0xBF58476D1CE4E5B9)
+_RF_M2 = _u64(0x94D049BB133111EB)
+
+
+def rf_bloom_bits(n_keys: int) -> int:
+    """Bloom bitset size for n keys: about RF_BLOOM_BITS_PER_KEY bits a
+    key, a power of two, at least 1024."""
+    n = max(int(n_keys), 1)
+    return 1 << max(int(np.ceil(np.log2(n * RF_BLOOM_BITS_PER_KEY))), 10)
+
+
+def _rf_mix64(v: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer over int64 key values; the uint64 result
+    as int64 bits."""
+    z = v.to(torch.int64) + _GOLDEN
+    z = (z ^ _lsr(z, 30)) * _RF_M1
+    z = (z ^ _lsr(z, 27)) * _RF_M2
+    return z ^ _lsr(z, 31)
+
+
+def _rf_bloom_positions(h: torch.Tensor, nbits: int) -> List[torch.Tensor]:
+    """RF_BLOOM_K bit positions for each hash, all in one 64-bit block.
+    nblocks is a power of two, so the unsigned `h % nblocks` is the low
+    bits of h."""
+    nblocks = max(nbits // 64, 1)
+    block = (h & (nblocks - 1)) * 64
+    return [block + (_lsr(h, 8 + 6 * j) & 63) for j in range(RF_BLOOM_K)]
+
+
+def rf_build(col: Column, live: torch.Tensor, structure: str = "auto") -> dict:
+    """The build side's summary over the live rows of an integer key
+    column: {"kind": "exact", "keys": sorted int64, dead rows as I64_MAX}
+    or {"kind": "bloom", "bits": bool[nbits]}.  "auto" chooses by the
+    column's capacity, not by its live rows."""
+    d = _orderable_int(col)
+    live = live & _valid_arr(col)
+    n = int(d.shape[0])
+    kind = structure
+    if kind == "auto":
+        kind = "exact" if n <= RF_EXACT_MAX else "bloom"
+    if kind == "exact":
+        return {"kind": "exact",
+                "keys": sort_values(torch.where(live, d, I64_MAX))}
+    nbits = rf_bloom_bits(n)
+    h = _rf_mix64(d)
+    # dead rows set the overflow slot nbits, sliced off
+    idx = torch.cat([torch.where(live, p, nbits)
+                     for p in _rf_bloom_positions(h, nbits)])
+    bits = torch.zeros((nbits + 1,), dtype=torch.bool, device=d.device)
+    bits.index_fill_(0, idx, True)
+    return {"kind": "bloom", "bits": bits[:nbits]}
+
+
+def rf_probe(summary: dict, col: Column) -> torch.Tensor:
+    """The probe side's mask: True where the row may have a build match
+    (exact: iff; bloom: with false positives, never a false negative).
+    NULL probe rows are False: an equi-join NULL never matches.  The
+    reference's third kind, a host-made min/max "domain", comes with the
+    cluster side channel, which is not ported."""
+    d = _orderable_int(col)
+    valid = _valid_arr(col)
+    if summary["kind"] == "exact":
+        keys = summary["keys"]
+        nb = keys.shape[0]
+        if nb == 0:
+            return torch.zeros(d.shape, dtype=torch.bool, device=d.device)
+        pos = torch.searchsorted(keys, d).clamp(0, nb - 1)
+        # a probe value equal to the dead-row sentinel "matches" a masked
+        # build slot: kept, a safe false positive
+        return valid & (keys[pos] == d)
+    bits = summary["bits"]
+    m = valid
+    for p in _rf_bloom_positions(_rf_mix64(d), int(bits.shape[0])):
+        m = m & bits[p]
+    return m
+
+
+def rf_domain(col: Column, live: torch.Tensor):
+    """(lo, hi) of the live key values as 0-d device tensors; an empty
+    live set gives (I64_MAX, I64_MIN)."""
+    d = _orderable_int(col)
+    live = live & _valid_arr(col)
+    if d.shape[0] == 0:
+        return (torch.tensor(I64_MAX, device=d.device),
+                torch.tensor(I64_MIN, device=d.device))
+    return (torch.where(live, d, I64_MAX).min(),
+            torch.where(live, d, I64_MIN).max())
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,11 @@ SF0.01.
 - All 22 TPC-H queries through `connect(catalog, device="cpu")` in the
   default "auto" mode: the execution mode must be presto_tpu's
   ("compiled" for all 22), so must the memo's entry (an executable, not
-  "DYNAMIC", for all 22), and the rows presto_tpu's compiled rows
-  (keys and counts equal, sums and averages within rtol 1e-9) and the
-  sqlite oracle's (with the ORDERED set).
+  "DYNAMIC", for all 22), the seven counters of ordering-aware
+  execution and dynamic filtering (on the first run and on a memo
+  hit), and the rows presto_tpu's compiled rows (keys and counts equal,
+  sums and averages within rtol 1e-9) and the sqlite oracle's (with
+  the ORDERED set).
 - The static kernels against presto_tpu's on seeded numpy inputs, exact
   for integers and bits.
 - The static executor reads nothing back to the host before its packed
@@ -57,7 +59,8 @@ from presto_tpu_torch.plan.stats import ColStats
 from presto_tpu_torch.tpch_queries import QUERIES
 from tests.sqlite_oracle import assert_same_results, to_sqlite
 from tests.test_torch_kernels import _cols, _t
-from tests.test_torch_tpch import _assert_rows_match, oracle  # noqa: F401
+from tests.test_torch_tpch import _assert_rows_match, counters
+from tests.test_torch_tpch import oracle  # noqa: F401
 from tests.test_tpch_correctness import ORDERED
 
 
@@ -82,6 +85,7 @@ def results(port_cat, tpch_catalog_tiny):
                           _memo_state(ref, sql))
         return cache[qid]
 
+    run.sessions = (port, ref)
     return run
 
 
@@ -101,6 +105,26 @@ def test_query_matches_reference_in_compiled_mode(qid, results):
     # a tripped guard reports "compiled" too: the memo tells them apart
     assert my_memo == ref_memo == ["executable"]
     _assert_rows_match(mine.rows, ref.rows, qid in ORDERED)
+
+
+@pytest.mark.parametrize("qid", sorted(QUERIES))
+def test_compiled_counters_match_reference(qid, results):
+    mine, ref, _, _ = results(qid)
+    assert counters(mine.stats) == counters(ref.stats)
+
+
+@pytest.mark.parametrize("qid", [3, 17, 18])
+def test_memo_hit_counters_match_reference(qid, results):
+    """A memo hit reports the counters of the build, in both packages:
+    the decisions are the executable's (Q3 elides sorts, Q17 and Q18
+    filter lineitem, Q18 replays a memoized sort)."""
+    first, ref_first, _, _ = results(qid)
+    port, ref = results.sessions
+    again, ref_again = port.sql(QUERIES[qid]), ref.sql(QUERIES[qid])
+    assert again.stats.compile_cache_hits == 1
+    assert counters(again.stats) == counters(ref_again.stats) \
+        == counters(first.stats)
+    assert again.rows == first.rows
 
 
 @pytest.mark.parametrize("qid", sorted(QUERIES))
@@ -494,35 +518,46 @@ def test_violated_static_assumption_matches_reference(
             assert_same_results(mine[2], expected, ordered=True)
 
 
-def memo_states(sf, qids, cache_dir=None):
-    """{qid: (presto_tpu's memo entry, the port's)} for each TPC-H query
-    run once in "auto" on the CPU at scale factor `sf`: where a query's
-    guards trip ("DYNAMIC") in each package."""
+def sf_states(sf, qids, cache_dir=None):
+    """{qid: {"memo": [presto_tpu's memo entry, the port's], "counters":
+    [presto_tpu's, the port's]}} for each TPC-H query run on the CPU at
+    scale factor `sf`, once in "auto" and once in "dynamic" in each
+    package: where its guards trip ("DYNAMIC"), and its seven counters
+    ({"compiled": [...], "dynamic": [...]}, in SORT_STATS_KEYS order;
+    "compiled" is the "auto" run's, a tripped guard's dynamic rerun
+    included)."""
     from presto_tpu.catalog import tpch_catalog as ref_catalog
 
-    ref = presto_tpu.connect(ref_catalog(sf, cache_dir))
-    port = presto_tpu_torch.connect(tpch_catalog(sf, cache_dir),
-                                    device="cpu")
-    out = {}
-    for qid in qids:
-        for session in (ref, port):
-            session.sql(QUERIES[qid])
-        out[qid] = tuple(_memo_state(s, QUERIES[qid]) for s in (ref, port))
+    out = {qid: {"memo": [], "counters": []} for qid in qids}
+    for lib, cat, kw in ((presto_tpu, ref_catalog(sf, cache_dir), {}),
+                         (presto_tpu_torch, tpch_catalog(sf, cache_dir),
+                          {"device": "cpu"})):
+        auto = lib.connect(cat, **kw)
+        dynamic = lib.connect(cat, execution_mode="dynamic", **kw)
+        for qid in qids:
+            got = {}
+            for mode, session in (("compiled", auto), ("dynamic", dynamic)):
+                stats = session.sql(QUERIES[qid]).stats
+                got[mode] = [getattr(stats, k) for k in E.SORT_STATS_KEYS]
+            out[qid]["memo"].append(_memo_state(auto, QUERIES[qid]))
+            out[qid]["counters"].append(got)
     return out
 
 
 if __name__ == "__main__":
     # JAX_PLATFORMS=cpu python -m tests.test_torch_compiled SF Q[,Q...]
-    # [CACHE_DIR]: one JSON line of both packages' memo entries.  At SF1
-    # presto_tpu's Q9 peaks near 14 GB of host memory: run a few
-    # queries a process.
+    # [CACHE_DIR]: one JSON line of both packages' memo entries and
+    # counters.  At SF1 presto_tpu's Q9 peaks near 14 GB of host memory:
+    # run a few queries a process.
     import json
     import sys
 
     qids = [int(q) for q in sys.argv[2].split(",")]
-    states = memo_states(float(sys.argv[1]), qids,
-                         sys.argv[3] if len(sys.argv) > 3 else None)
-    print(json.dumps({"sf": float(sys.argv[1]),
-                      "presto_tpu": {f"Q{q}": r[0] for q, r in states.items()},
-                      "presto_tpu_torch": {f"Q{q}": r[1]
-                                           for q, r in states.items()}}))
+    states = sf_states(float(sys.argv[1]), qids,
+                       sys.argv[3] if len(sys.argv) > 3 else None)
+    print(json.dumps({
+        "sf": float(sys.argv[1]), "counters": list(E.SORT_STATS_KEYS),
+        **{pkg: {f"Q{q}": {"memo": r["memo"][i],
+                           "counters": r["counters"][i]}
+                 for q, r in states.items()}
+           for i, pkg in enumerate(("presto_tpu", "presto_tpu_torch"))}}))

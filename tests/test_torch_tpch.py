@@ -1,7 +1,12 @@
 """All 22 TPC-H queries through presto_tpu_torch's dynamic executor on
 the CPU at SF0.01, held against the sqlite oracle (with the ORDERED set
 and the comparison of tests/test_tpch_correctness.py) and against
-presto_tpu's rows.  Compiled mode, the default, has the same checks in
+presto_tpu's dynamic executor: its rows, and the seven counters of
+ordering-aware execution and dynamic filtering in QueryStats
+(sorts_taken, sorts_elided, sort_memo_hits, ordering_guard_trips,
+df_filters_produced, df_filters_applied, df_rows_pruned), which must be
+equal: the port sorts, elides and prunes what presto_tpu does.
+Compiled mode, the default, has the same checks in
 tests/test_torch_compiled.py.
 
 The port reads its own generated tables (presto_tpu_torch.catalog
@@ -11,10 +16,10 @@ it plans with the same statistics and key layouts.  Against presto_tpu,
 keys and counts must be equal and sums and averages agree to rtol 1e-9,
 the tolerance the reference holds itself to across summation orders.
 The catalogs, the oracle and both sessions are built once per module,
-and the port runs each query once for both legs.  The oracle is a copy
-of the shared sqlite database with indexes on the join keys: sqlite
-then runs all 22 queries in under a second, where Q21 alone took 77 s
-without them (CPU, SF0.01).  Indexes change no result.
+and each package runs each query once for all its legs.  The oracle is
+a copy of the shared sqlite database with indexes on the join keys:
+sqlite then runs all 22 queries in under a second, where Q21 alone took
+77 s without them (CPU, SF0.01).  Indexes change no result.
 """
 
 import math
@@ -25,6 +30,7 @@ import pytest
 import presto_tpu
 import presto_tpu_torch
 from presto_tpu_torch.catalog import tpch_catalog
+from presto_tpu_torch.exec.executor import SORT_STATS_KEYS
 from presto_tpu_torch.tpch_queries import QUERIES
 from tests.sqlite_oracle import assert_same_results, normalize, to_sqlite
 from tests.test_tpch_correctness import ORDERED
@@ -32,19 +38,23 @@ from tests.test_tpch_correctness import ORDERED
 RTOL = 1e-9
 
 
-@pytest.fixture(scope="module")
-def port_rows():
-    """{qid: rows} of the port, each query run once on first use."""
-    session = presto_tpu_torch.connect(tpch_catalog(0.01), device="cpu",
-                                       execution_mode="dynamic")
+def _once(session):
+    """{qid: QueryResult} of `session`, each query run once on first
+    use."""
     cache = {}
 
-    def rows(qid):
+    def result(qid):
         if qid not in cache:
-            cache[qid] = session.sql(QUERIES[qid]).rows
+            cache[qid] = session.sql(QUERIES[qid])
         return cache[qid]
 
-    return rows
+    return result
+
+
+@pytest.fixture(scope="module")
+def port_results():
+    return _once(presto_tpu_torch.connect(tpch_catalog(0.01), device="cpu",
+                                          execution_mode="dynamic"))
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +75,14 @@ def oracle(tpch_sqlite_tiny):
 
 @pytest.fixture(scope="module")
 def reference(tpch_catalog_tiny):
-    return presto_tpu.connect(tpch_catalog_tiny)
+    return _once(presto_tpu.connect(tpch_catalog_tiny,
+                                    execution_mode="dynamic"))
+
+
+def counters(stats) -> dict:
+    """The seven counters of ordering-aware execution and dynamic
+    filtering in a QueryStats."""
+    return {k: getattr(stats, k) for k in SORT_STATS_KEYS}
 
 
 def _assert_rows_match(actual, expected, ordered):
@@ -86,17 +103,25 @@ def _assert_rows_match(actual, expected, ordered):
 
 
 @pytest.mark.parametrize("qid", sorted(QUERIES))
-def test_query_matches_oracle(qid, port_rows, oracle):
+def test_query_matches_oracle(qid, port_results, oracle):
     expected = oracle.execute(to_sqlite(QUERIES[qid])).fetchall()
-    assert_same_results(port_rows(qid), expected, ordered=qid in ORDERED)
+    assert_same_results(port_results(qid).rows, expected,
+                        ordered=qid in ORDERED)
 
 
 # presto_tpu's Q21 is its suite's heaviest dynamic-mode query, slow-marked
 # in tests/test_tpch_correctness.py too; the port's Q21 stays in tier-1
-# through the oracle leg above
+# through the oracle leg above, and presto_tpu's through the counters
+# leg below (about 9 s, CPU)
 @pytest.mark.parametrize("qid", [
     pytest.param(q, marks=pytest.mark.slow) if q == 21 else q
     for q in sorted(QUERIES)])
-def test_query_matches_reference(qid, port_rows, reference):
-    expected = reference.sql(QUERIES[qid]).rows
-    _assert_rows_match(port_rows(qid), expected, qid in ORDERED)
+def test_query_matches_reference(qid, port_results, reference):
+    _assert_rows_match(port_results(qid).rows, reference(qid).rows,
+                       qid in ORDERED)
+
+
+@pytest.mark.parametrize("qid", sorted(QUERIES))
+def test_query_counters_match_reference(qid, port_results, reference):
+    assert counters(port_results(qid).stats) \
+        == counters(reference(qid).stats)
