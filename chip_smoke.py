@@ -49,6 +49,17 @@ executors, and Q3, Q5, Q8, Q17 and Q18 run again in each with
 both features switched off and with each alone: nothing elided,
 memoized or pruned by what is off, rows that agree with the runs with
 both on, and the times of every variant printed side by side.
+The relational phase runs the 13 queries of presto_tpu_torch/
+relational_queries.py (window functions, UNION ALL, ROLLUP, EXCEPT,
+INTERSECT, FULL and CROSS joins) at SF1 the same way in both executors,
+with the same checks (rows against the port's CPU run at SF1, or at
+SF0.1 on both for W1 and W2; W3's running sums, prefix-sum differences
+that torch.cumsum adds on the card in an order that may vary, within a
+tolerance from the magnitude of the prefix, FLOAT_PREFIX_QUERIES), its
+counters and memo entries against presto_tpu's SF1 values, and prints
+one `relational` line a query: warm and replay times, device busy and
+idle shares, the top device operations for W1, J1 and S2, and the
+kernel shapes each query reached.
 segment_sum is held to bit identity in ten calls and to the correctly
 rounded sums on the inputs of Q15 and Q3; the integer
 division fault C1, a SELECT without FROM and a DISTINCT aggregate run on
@@ -127,15 +138,34 @@ BG_MIN_COMPARED_MS = 0.02
 SLICE_QUERIES = tuple(range(1, 23))
 DYNAMIC_RUNS = 3  # runs of each query in the dynamic executor
 COMPILED_REPLAYS = 3  # replays of each query's graph after its first run
+# the relational corpus (presto_tpu_torch/relational_queries.py): window
+# functions (W), set operations and grouping sets (S), FULL and CROSS
+# joins (J)
+RELATIONAL = ("W1", "W2", "W3", "W4", "W5", "W6", "S1", "S2", "S3", "S4",
+              "J1", "J2", "J3")
 # the port's CPU run each card run is held against: SF1 where the CPU
 # takes a few seconds, SF0.1 elsewhere
-CPU_CHECK_SF = {q: SF if q in (1, 2, 6, 11, 16, 22) else 0.1
-                for q in SLICE_QUERIES}
+CPU_CHECK_SF = {**{q: SF if q in (1, 2, 6, 11, 16, 22) else 0.1
+                   for q in SLICE_QUERIES},
+                **{n: 0.1 if n in ("W1", "W2") else SF for n in RELATIONAL}}
+# queries whose float sums are prefix-sum differences (a window's running
+# sum): torch.cumsum on the card adds in an order that may vary from run
+# to run, so their rows need not be identical, and they agree with the
+# CPU within PREFIX_ULPS_PER_SQRT_ROW * sqrt(n) ulps of the largest
+# prefix (a running sum's rounding error grows as a random walk over the
+# n rows it adds), computed from the column in the phase
+FLOAT_PREFIX_QUERIES = {"W3": ("orders", "o_totalprice")}
+PREFIX_ULPS_PER_SQRT_ROW = 1.0
+# the relational queries whose profile lists the top device operations
+RELATIONAL_TOP = ("W1", "J1", "S2")
 # presto_tpu's memo entry for each query run once at SF1 on the CPU
 # (`python -m tests.test_torch_compiled 1 Q`): three queries trip a
 # guard there; compiled mode on the card must leave the same entries
-REFERENCE_MEMO_SF1 = {q: "DYNAMIC" if q in (9, 13, 16) else "executable"
-                      for q in SLICE_QUERIES}
+REFERENCE_MEMO_SF1 = {**{q: "DYNAMIC" if q in (9, 13, 16) else "executable"
+                         for q in SLICE_QUERIES},
+                      # the relational corpus (`python -m
+                      # tests.test_torch_setops_joins 1 NAME`)
+                      **{name: "executable" for name in RELATIONAL}}
 # the counters of ordering-aware execution and dynamic filtering in
 # QueryStats (in the order of presto_tpu_torch.exec.executor
 # .SORT_STATS_KEYS), presto_tpu's for each query run once at SF1
@@ -187,7 +217,35 @@ REFERENCE_COUNTERS_SF1 = {
     21: {"dynamic": [11, 1, 0, 0, 1, 1, 5755660],
          "compiled": [8, 1, 0, 0, 1, 1, 0]},
     22: {"dynamic": [5, 1, 0, 0, 0, 0, 0],
-         "compiled": [3, 1, 0, 0, 0, 0, 0]}}
+         "compiled": [3, 1, 0, 0, 0, 0, 0]},
+    # the relational corpus, the same way (`python -m
+    # tests.test_torch_setops_joins 1 NAME`, one query a process)
+    "W1": {"dynamic": [2, 1, 0, 0, 0, 0, 0],
+           "compiled": [3, 0, 0, 0, 0, 0, 0]},
+    "W2": {"dynamic": [2, 1, 0, 0, 0, 0, 0],
+           "compiled": [0, 1, 0, 0, 0, 0, 0]},
+    "W3": {"dynamic": [1, 0, 0, 0, 0, 0, 0],
+           "compiled": [1, 0, 0, 0, 0, 0, 0]},
+    "W4": {"dynamic": [1, 0, 0, 0, 0, 0, 0],
+           "compiled": [1, 0, 0, 0, 0, 0, 0]},
+    "W5": {"dynamic": [1, 0, 0, 0, 0, 0, 0],
+           "compiled": [1, 0, 0, 0, 0, 0, 0]},
+    "W6": {"dynamic": [1, 0, 0, 0, 0, 0, 0],
+           "compiled": [1, 0, 0, 0, 0, 0, 0]},
+    "S1": {"dynamic": [2, 1, 0, 0, 0, 0, 0],
+           "compiled": [0, 1, 0, 0, 0, 0, 0]},
+    "S2": {"dynamic": [5, 0, 0, 0, 0, 0, 0],
+           "compiled": [1, 0, 0, 0, 0, 0, 0]},
+    "S3": {"dynamic": [3, 2, 0, 0, 0, 0, 0],
+           "compiled": [3, 2, 0, 0, 0, 0, 0]},
+    "S4": {"dynamic": [3, 2, 0, 0, 0, 0, 0],
+           "compiled": [3, 2, 0, 0, 0, 0, 0]},
+    "J1": {"dynamic": [6, 0, 0, 0, 0, 0, 0],
+           "compiled": [6, 0, 0, 0, 0, 0, 0]},
+    "J2": {"dynamic": [1, 0, 0, 0, 0, 0, 0],
+           "compiled": [1, 0, 0, 0, 0, 0, 0]},
+    "J3": {"dynamic": [0, 0, 0, 0, 0, 0, 0],
+           "compiled": [0, 0, 0, 0, 0, 0, 0]}}
 # the queries these features touch, run again with both switched off
 # (ordering_aware_execution and dynamic_filtering) and with each alone:
 # the same rows, and nothing elided, memoized or pruned by what is off
@@ -206,7 +264,8 @@ SWITCH_ZEROES = {"ordering_aware_execution": (1, 2, 3),
 MEMO_BOUND_BYTES = 2 << 30
 MEMO_TEXTS = 24
 # each query's ORDER BY as (output column, 1 ascending or -1
-# descending), and its LIMIT (tests/tpch_queries.py)
+# descending), and its LIMIT (tests/tpch_queries.py,
+# presto_tpu_torch/relational_queries.py)
 ORDER_KEYS = {
     1: ((0, 1), (1, 1)), 2: ((0, -1), (2, 1), (1, 1), (3, 1)),
     3: ((1, -1), (2, 1)), 4: ((0, 1),), 5: ((1, -1),),
@@ -214,8 +273,12 @@ ORDER_KEYS = {
     10: ((2, -1),), 11: ((1, -1),), 12: ((0, 1),), 13: ((1, -1), (0, -1)),
     15: ((0, 1),), 16: ((3, -1), (0, 1), (1, 1), (2, 1)),
     18: ((4, -1), (3, 1)), 20: ((0, 1),), 21: ((1, -1), (0, 1)),
-    22: ((0, 1),)}
-LIMITS = {2: 100, 3: 10, 10: 20, 18: 100, 21: 100}
+    22: ((0, 1),),
+    "W1": ((0, 1),), "W2": ((0, 1),), "W3": ((0, 1), (1, 1)),
+    "W4": ((0, 1),), "W5": ((0, 1), (1, 1)), "W6": ((0, 1),),
+    "S1": ((0, 1),), "S2": ((0, 1), (1, 1)), "J2": ((0, 1), (1, 1))}
+LIMITS = {2: 100, 3: 10, 10: 20, 18: 100, 21: 100,
+          "W3": 100, "W4": 80, "W5": 100, "W6": 100}
 # queries whose float segment_sum input is held to bit identity and to
 # the correctly rounded sums
 SEGMENT_SUM_QUERIES = (15, 3)
@@ -855,24 +918,26 @@ def numpy_q18(c, o, li):
     return _top(out, 100, lambda t: (-t[4], t[3]))
 
 
-def values_agree(a, b) -> bool:
-    """Floats within QUERY_RTOL, everything else equal."""
+def values_agree(a, b, abs_tol=0.0) -> bool:
+    """Floats within QUERY_RTOL (or abs_tol), everything else equal."""
     if isinstance(a, float) and isinstance(b, float):
-        return a == b or math.isclose(a, b, rel_tol=QUERY_RTOL, abs_tol=0)
+        return a == b or math.isclose(a, b, rel_tol=QUERY_RTOL,
+                                      abs_tol=abs_tol)
     return a == b
 
 
-def rows_agree(ra, rb) -> bool:
-    return len(ra) == len(rb) and all(values_agree(a, b)
+def rows_agree(ra, rb, abs_tol=0.0) -> bool:
+    return len(ra) == len(rb) and all(values_agree(a, b, abs_tol)
                                       for a, b in zip(ra, rb))
 
 
-def unmatched(actual, expected):
+def unmatched(actual, expected, abs_tol=0.0):
     """The expected rows that no distinct actual row agrees with."""
     left = list(actual)
     missing = []
     for r in expected:
-        i = next((i for i, a in enumerate(left) if rows_agree(a, r)), None)
+        i = next((i for i, a in enumerate(left)
+                  if rows_agree(a, r, abs_tol)), None)
         if i is None:
             missing.append(r)
         else:
@@ -881,27 +946,36 @@ def unmatched(actual, expected):
 
 
 def in_order(ka, kb, dirs) -> bool:
-    """Sort key ka comes before kb (or ties with it) under dirs."""
+    """Sort key ka comes before kb (or ties with it) under dirs.  NULL
+    sorts last ascending and first descending (the defaults)."""
     for a, b, d in zip(ka, kb, dirs):
         if values_agree(a, b):
             continue
+        if a is None or b is None:
+            return (b is None) if d > 0 else (a is None)
         return (a < b) if d > 0 else (a > b)
     return True
 
 
-def assert_query_rows(what, qid, actual, expected):
+def label(qid) -> str:
+    """Q<number> for a TPC-H query, the name for a relational one."""
+    return f"Q{qid}" if isinstance(qid, int) else qid
+
+
+def assert_query_rows(what, qid, actual, expected, abs_tol=0.0):
     """Rows of one query against expected rows, tie-aware: consecutive
     expected rows whose ORDER BY keys agree within QUERY_RTOL form one
     group, which the actual rows at the same places must match as a
     multiset with the same key; at a LIMIT, the rows that tie with the
     last kept row may differ (only their key is held).  A query without
-    ORDER BY is one multiset."""
+    ORDER BY is one multiset.  Floats agree within QUERY_RTOL, or within
+    abs_tol where a query's sums are prefix-sum differences."""
     if len(actual) != len(expected):
         raise AssertionError(f"{what}: {len(actual)} rows, expected "
                              f"{len(expected)}")
     spec = ORDER_KEYS.get(qid)
     if spec is None:
-        missing = unmatched(actual, expected)
+        missing = unmatched(actual, expected, abs_tol)
         if missing:
             raise AssertionError(f"{what}: no row agrees with {missing[:3]}")
         return
@@ -928,7 +1002,7 @@ def assert_query_rows(what, qid, actual, expected):
                                      f"has not the sort key {head}")
         if cut and gi == len(groups) - 1:
             continue  # ties with the last kept row may be other rows
-        missing = unmatched(actual[lo:hi], expected[lo:hi])
+        missing = unmatched(actual[lo:hi], expected[lo:hi], abs_tol)
         if missing:
             raise AssertionError(f"{what}: rows {lo}..{hi - 1}: no row "
                                  f"agrees with {missing[:3]}")
@@ -982,7 +1056,7 @@ class Capture:
         real = (K.fused_group_sums, G.block_gather, K.segment_sum)
         self.paths, self.seg, self.shapes = set(), None, []
         self.pending = pending = {}
-        self.query, self.mode = f"Q{qid}", mode
+        self.query, self.mode = label(qid), mode
 
         def fgs(vals, gid, n_groups):
             out = real[0](vals, gid, n_groups)
@@ -1065,9 +1139,10 @@ def phase_query(qid, sql, sessions, capture, counters, out):
     out["launches"] = launches
     out["dynamic_counters"] = sorts[0]
     if any(c != sorts[0] for c in sorts[1:]):
-        raise AssertionError(f"Q{qid}: counters differ between runs: "
+        raise AssertionError(f"{label(qid)}: counters differ between runs: "
                              f"{sorts}")
     capture.run(gpu, qid, sql, "dynamic")
+    out["dynamic_kernel_shapes"] = capture.shapes
     capture.check()
     out["fgs_paths"] = sorted(capture.paths)
     if capture.seg is not None:
@@ -1077,9 +1152,11 @@ def phase_query(qid, sql, sessions, capture, counters, out):
     out["dynamic_rows"] = rows
     identical = all(r == rows for r in runs[1:])
     # the register path of fused_group_sums and segment_sum add in a
-    # fixed order; the shared-table path adds with atomics
-    by_design = "shared_table" not in capture.paths
-    row = {"phase": "query", "query": f"Q{qid}", "sf": SF, "rows": len(rows),
+    # fixed order; the shared-table path adds with atomics, and a float
+    # prefix sum (torch.cumsum on the card) in an order that may vary
+    by_design = "shared_table" not in capture.paths \
+        and qid not in FLOAT_PREFIX_QUERIES
+    row = {"phase": "query", "query": label(qid), "sf": SF, "rows": len(rows),
            "cold_ms": times[0], "warm_ms": times[1:],
            f"launches_in_{DYNAMIC_RUNS}_runs": launches,
            "fgs_paths": out["fgs_paths"],
@@ -1087,7 +1164,8 @@ def phase_query(qid, sql, sessions, capture, counters, out):
            f"runs_identical_of_{DYNAMIC_RUNS}": identical,
            "identical_by_design": by_design}
     if by_design and not identical:
-        raise AssertionError(f"Q{qid}: the card's rows differ between runs")
+        raise AssertionError(
+            f"{label(qid)}: the card's rows differ between runs")
     sf = CPU_CHECK_SF[qid]
     t = time.perf_counter()
     on_cpu = sessions["cpu", sf].sql(sql)
@@ -1095,13 +1173,13 @@ def phase_query(qid, sql, sessions, capture, counters, out):
     out["cpu_mode"] = on_cpu.stats.execution_mode
     out["cpu_memo"] = memo_entry(sessions["cpu", sf], sql)
     on_gpu = rows if sf == SF else sessions["dynamic", sf].sql(sql).rows
-    assert_query_rows(f"Q{qid} cuda vs cpu at SF{sf}", qid, on_gpu,
-                      on_cpu.rows)
+    assert_query_rows(f"{label(qid)} cuda vs cpu at SF{sf}", qid, on_gpu,
+                      on_cpu.rows, out.get("abs_tol", {}).get(sf, 0.0))
     row["matches_cpu_at_sf"] = sf
-    if qid in out["numpy"]:
-        assert_query_rows(f"Q{qid} cuda vs numpy", qid, rows,
+    if qid in out.get("numpy", {}):
+        assert_query_rows(f"{label(qid)} cuda vs numpy", qid, rows,
                           out["numpy"][qid])
-    row["matches_numpy"] = qid in out["numpy"] or "not checked"
+    row["matches_numpy"] = qid in out.get("numpy", {}) or "not checked"
     emit(row)
 
 
@@ -1117,7 +1195,7 @@ def phase_counters(qid, out):
     """The counters of the query's runs in both executors on the card
     against presto_tpu's (REFERENCE_COUNTERS_SF1)."""
     ref = REFERENCE_COUNTERS_SF1.get(qid, {})
-    row = {"phase": "counters", "query": f"Q{qid}", "sf": SF,
+    row = {"phase": "counters", "query": label(qid), "sf": SF,
            "reference": ref}
     wrong = []
     for mode in ("dynamic", "compiled"):
@@ -1127,7 +1205,7 @@ def phase_counters(qid, out):
                          "presto_tpu")
     emit(row)
     if wrong:
-        raise AssertionError(f"Q{qid} counters: " + "; ".join(wrong))
+        raise AssertionError(f"{label(qid)} counters: " + "; ".join(wrong))
 
 
 def drop_memo(session) -> None:
@@ -1156,7 +1234,7 @@ def phase_switched_off(qid, sql, sessions, out):
     claimed from them."""
     import torch
 
-    row = {"phase": "switched_off", "query": f"Q{qid}", "sf": SF,
+    row = {"phase": "switched_off", "query": label(qid), "sf": SF,
            "card": card_line(),
            "on": {"dynamic_warm_ms": out.get("warm_ms"),
                   "compiled_replay_ms": out.get("replay_ms")}}
@@ -1175,12 +1253,13 @@ def phase_switched_off(qid, sql, sessions, out):
             counts = got[f"{mode}_counters"] = sort_counters(
                 results[0].stats)
             if any(counts[i] for i in zero):
-                raise AssertionError(f"Q{qid}: {mode} with {variant} "
+                raise AssertionError(f"{label(qid)}: {mode} with {variant} "
                                      f"counts {counts}")
             on_rows = out.get(f"{mode}_rows")
             if on_rows is None:
-                raise AssertionError(f"Q{qid}: no {mode} run with both on")
-            assert_query_rows(f"Q{qid} {mode} {variant} vs on", qid,
+                raise AssertionError(
+                    f"{label(qid)}: no {mode} run with both on")
+            assert_query_rows(f"{label(qid)} {mode} {variant} vs on", qid,
                               results[0].rows, on_rows)
             if mode == "dynamic":
                 got["dynamic_warm_ms"] = times[1:]
@@ -1235,7 +1314,7 @@ def phase_compiled(qid, sql, sessions, capture, counters, out):
     paths = sorted(capture.paths)
     capture.check()
     exe = entry[1] if isinstance(entry, tuple) else None
-    row = {"phase": "compiled", "query": f"Q{qid}", "sf": SF,
+    row = {"phase": "compiled", "query": label(qid), "sf": SF,
            "execution_mode": first.stats.execution_mode,
            "graph": exe is not None and exe.graph is not None,
            "memo": memo_entry(gpu, sql),
@@ -1251,7 +1330,7 @@ def phase_compiled(qid, sql, sessions, capture, counters, out):
         # the build ran the static executor twice, eagerly and under
         # capture, and the replays launch what the capture recorded
         if any(n % 2 for n in launches.values()):
-            raise AssertionError(f"Q{qid}: odd launch counts {launches} "
+            raise AssertionError(f"{label(qid)}: odd launch counts {launches} "
                                  "in an eager pass and its capture")
         row["launches_per_graph"] = {name: n // 2
                                      for name, n in launches.items()}
@@ -1271,7 +1350,7 @@ def phase_compiled(qid, sql, sessions, capture, counters, out):
     later = out.get("dynamic_counters") \
         if row["memo"] == "DYNAMIC" else sorts[0]
     if any(c != later for c in sorts[1:]):
-        raise AssertionError(f"Q{qid}: counters of the later runs "
+        raise AssertionError(f"{label(qid)}: counters of the later runs "
                              f"{sorts[1:]}, {later} expected")
     out["compiled_rows"], out["replay_ms"] = runs[0], times
     row.update({"replay_ms": times, "replay_median_ms": median(times),
@@ -1289,30 +1368,34 @@ def phase_compiled(qid, sql, sessions, capture, counters, out):
         row["graph_device_ms"] = start.elapsed_time(end)
     row.update(profile_run(gpu, sql))
     identical = all(r == runs[0] for r in runs[1:])
-    by_design = "shared_table" not in paths
+    by_design = "shared_table" not in paths \
+        and qid not in FLOAT_PREFIX_QUERIES
     row.update({f"replays_identical_of_{COMPILED_REPLAYS + 1}": identical,
                 "identical_by_design": by_design})
     if by_design and not identical:
-        raise AssertionError(f"Q{qid}: compiled replays differ")
+        raise AssertionError(f"{label(qid)}: compiled replays differ")
     if "rows" in out:
-        assert_query_rows(f"Q{qid} compiled vs dynamic on cuda", qid,
-                          runs[0], out["rows"])
+        assert_query_rows(f"{label(qid)} compiled vs dynamic on cuda", qid,
+                          runs[0], out["rows"],
+                          out.get("abs_tol", {}).get(SF, 0.0))
         row["matches_dynamic"] = True
     if "cpu_mode" in out:
         row["cpu_execution_mode"] = out["cpu_mode"]
         row["cpu_memo"] = out["cpu_memo"]
         if out["cpu_mode"] != row["execution_mode"]:
             raise AssertionError(
-                f"Q{qid}: execution mode {row['execution_mode']} on cuda, "
+                f"{label(qid)}: execution mode {row['execution_mode']} "
+                "on cuda, "
                 f"{out['cpu_mode']} on the CPU")
         if CPU_CHECK_SF[qid] == SF and out["cpu_memo"] != row["memo"]:
             raise AssertionError(
-                f"Q{qid}: memo {row['memo']} on cuda, {out['cpu_memo']} on "
+                f"{label(qid)}: memo {row['memo']} on cuda, "
+                f"{out['cpu_memo']} on "
                 "the CPU")
     # a tripped guard reports "compiled" too: the memo tells them apart
     row["reference_memo"] = REFERENCE_MEMO_SF1[qid]
     if row["memo"] != REFERENCE_MEMO_SF1[qid]:
-        raise AssertionError(f"Q{qid}: memo {row['memo']} on cuda, "
+        raise AssertionError(f"{label(qid)}: memo {row['memo']} on cuda, "
                              f"{REFERENCE_MEMO_SF1[qid]} in presto_tpu")
     emit(row)
     out["compiled_row"] = row
@@ -1339,7 +1422,7 @@ def phase_segment_sum(qid, x, gid, G):
         acc = torch.zeros((G + 1,), dtype=x.dtype, device=x.device)
         return acc.index_add_(0, gid.long(), x)[:G]
 
-    row = {"phase": "segment_sum", "query": f"Q{qid}", "n": x.shape[0],
+    row = {"phase": "segment_sum", "query": label(qid), "n": x.shape[0],
            "live_rows": int(live.sum()), "groups": G, "dtype": str(x.dtype),
            f"bit_identical_in_{SEGMENT_SUM_REPEATS}": same,
            "max_rel_err_vs_exact": rel,
@@ -1348,10 +1431,11 @@ def phase_segment_sum(qid, x, gid, G):
     emit(row)
     if not same:
         raise AssertionError(f"segment_sum gave different bits in "
-                             f"{SEGMENT_SUM_REPEATS} calls at Q{qid}'s input")
+                             f"{SEGMENT_SUM_REPEATS} calls at "
+                             f"{label(qid)}'s input")
     if not within:
         raise AssertionError(f"segment_sum is {rel} off the correctly "
-                             f"rounded sums at Q{qid}'s input")
+                             f"rounded sums at {label(qid)}'s input")
 
 
 def phase_surface(sessions):
@@ -1425,7 +1509,7 @@ def phase_memo_bound(sessions):
         memo = session._compiled_cache
         if r.stats.execution_mode != "compiled" \
                 or memo_entry(session, sql) != "executable":
-            raise AssertionError(f"a Q{qid} text ran "
+            raise AssertionError(f"a {label(qid)} text ran "
                                  f"{r.stats.execution_mode}, memo "
                                  f"{memo_entry(session, sql)}")
         built += r.stats.compiles
@@ -1434,7 +1518,7 @@ def phase_memo_bound(sessions):
             raise AssertionError(f"the memo holds {memo.nbytes} bytes in "
                                  f"{len(memo)} entries")
         worst = max(worst, torch.cuda.memory_reserved() - base)
-        assert_query_rows(f"memo text of Q{qid}", qid, r.rows,
+        assert_query_rows(f"memo text of {label(qid)}", qid, r.rows,
                           dyn.sql(sql).rows)
     seconds = time.perf_counter() - t0
     memo = session._compiled_cache
@@ -1516,24 +1600,29 @@ def phase_slice(capture):
     compiled_rows = {}
     for qid in SLICE_QUERIES:
         out = {"numpy": expected}
-        guarded("query", f"Q{qid}", phase_query, qid, QUERIES[qid],
+        guarded("query", label(qid), phase_query, qid, QUERIES[qid],
                 sessions, capture, counters, out)
-        guarded("compiled", f"Q{qid}", phase_compiled, qid, QUERIES[qid],
+        guarded("compiled", label(qid), phase_compiled, qid, QUERIES[qid],
                 sessions, capture, counters, out)
-        guarded("counters", f"Q{qid}", phase_counters, qid, out)
+        guarded("counters", label(qid), phase_counters, qid, out)
         if qid in SWITCHED_OFF_QUERIES:
-            guarded("switched_off", f"Q{qid}", phase_switched_off, qid,
+            guarded("switched_off", label(qid), phase_switched_off, qid,
                     QUERIES[qid], sessions, out)
         for mode, got in (("dynamic", out.get("launches")),
                           ("compiled", out.get("compiled_launches"))):
             if got is not None:
-                by_query.setdefault(f"Q{qid}", {})[mode] = got
+                by_query.setdefault(label(qid), {})[mode] = got
                 for name in counters:
                     launches[mode][name] += got[name]
         if qid in SEGMENT_SUM_QUERIES and "segment_sum_input" in out:
             segment_inputs[qid] = out["segment_sum_input"]
         if "compiled_row" in out:
             compiled_rows[qid] = out["compiled_row"]
+    t0 = time.perf_counter()
+    guarded("relational", None, phase_relational, sessions, capture,
+            counters, launches, by_query)
+    emit({"phase": "relational_total", "queries": len(RELATIONAL),
+          "seconds": time.perf_counter() - t0})
     torch.cuda.synchronize()
     emit({"phase": "slice", "launches": launches,
           "launches_by_query": by_query})
@@ -1545,22 +1634,22 @@ def phase_slice(capture):
           "memo_evictions": sessions["compiled", SF]._compiled_cache.evictions,
           "sum_pool_bytes": sum(r.get("pool_bytes", 0)
                                 for r in compiled_rows.values()),
-          "shared_table_path": [f"Q{q}" for q, r in compiled_rows.items()
+          "shared_table_path": [label(q) for q, r in compiled_rows.items()
                                 if "shared_table" in r["fgs_paths"]],
-          "not_captured": {f"Q{q}": (r["execution_mode"], r["memo"])
+          "not_captured": {label(q): (r["execution_mode"], r["memo"])
                            for q, r in compiled_rows.items()
                            if not r["graph"]}})
     for qid in SEGMENT_SUM_QUERIES:
         if qid not in segment_inputs:
-            fail("segment_sum", f"Q{qid}",
-                 f"Q{qid} gave segment_sum no float input")
+            fail("segment_sum", label(qid),
+                 f"{label(qid)} gave segment_sum no float input")
             continue
-        guarded("segment_sum", f"Q{qid}", phase_segment_sum, qid,
+        guarded("segment_sum", label(qid), phase_segment_sum, qid,
                 *segment_inputs.pop(qid))
     guarded("surface", None, phase_surface, sessions)
     guarded("memo_bound", None, phase_memo_bound, sessions)
     for qid in SLICE_QUERIES:
-        guarded("profile", f"Q{qid}", phase_profile,
+        guarded("profile", label(qid), phase_profile,
                 sessions["dynamic", SF], qid, QUERIES[qid])
     for name in counters:
         for mode in launches:
@@ -1568,6 +1657,93 @@ def phase_slice(capture):
                 fail("slice", None, f"no query launched {name} in "
                      f"{mode} mode")
     return launches["compiled"]
+
+
+def prefix_tolerances(sessions):
+    """{query: {sf: abs_tol}} for FLOAT_PREFIX_QUERIES at the scale
+    factors they run at: PREFIX_ULPS_PER_SQRT_ROW * sqrt(n) ulps of the
+    largest prefix, which sum(|x|) over the column bounds."""
+    import numpy as np
+
+    out = {}
+    for name, (table, column) in FLOAT_PREFIX_QUERIES.items():
+        for sf in {SF, CPU_CHECK_SF[name]}:
+            x = sessions["dynamic", sf].catalog.get(table).read(
+                [column])[column]
+            bound = float(np.abs(np.asarray(x, dtype=np.float64)).sum())
+            out.setdefault(name, {})[sf] = (PREFIX_ULPS_PER_SQRT_ROW
+                                            * math.sqrt(len(x))
+                                            * 2.0 ** -52 * bound)
+    return out
+
+
+def relational_row(name, sql, sessions, out, seconds):
+    """The relational phase's line for one corpus query: its card, rows,
+    times in both executors, device busy and idle shares (a profiled warm
+    dynamic run and the compiled replay's), counters and memo entry
+    beside presto_tpu's, the tolerance its rows were held to, and the
+    kernel shapes it reached.  Raises when a step of the query failed."""
+    missing = [k for k in ("warm_ms", "compiled_row", "compiled_counters")
+               if k not in out]
+    if missing:
+        raise AssertionError(f"{name}: no {missing} (a step failed)")
+    comp = out["compiled_row"]
+    prof = profile_run(sessions["dynamic", SF], sql,
+                       top=8 if name in RELATIONAL_TOP else 0)
+    row = {"phase": "relational", "query": name, "card": card_line(),
+           "sf": SF, "rows": len(out["rows"]),
+           "matches_cpu_at_sf": CPU_CHECK_SF[name],
+           "abs_tol": out.get("abs_tol") or None,
+           "dynamic_warm_ms": out["warm_ms"],
+           "compiled_replay_ms": out["replay_ms"],
+           "compiled_graph": comp["graph"],
+           "graph_device_ms": comp.get("graph_device_ms"),
+           "dynamic_profile": prof,
+           "compiled_profile": {k: comp.get(k) for k in (
+               "wall_ms", "device_busy_ms", "device_idle_share",
+               "kernel_launches")},
+           "counters": {"dynamic": out["dynamic_counters"],
+                        "compiled": out["compiled_counters"]},
+           "reference_counters": REFERENCE_COUNTERS_SF1.get(name),
+           "memo": comp["memo"], "reference_memo": REFERENCE_MEMO_SF1[name],
+           "launches": {"dynamic": out["launches"],
+                        "compiled": out.get("compiled_launches")},
+           "kernel_shapes": {"dynamic": out.get("dynamic_kernel_shapes"),
+                             "compiled": comp["kernel_shapes"]},
+           "seconds": seconds}
+    if name in RELATIONAL_TOP and comp.get("top_kernels"):
+        row["compiled_top_kernels"] = comp["top_kernels"]
+    emit(row)
+
+
+def phase_relational(sessions, capture, counters, launches, by_query):
+    """The relational corpus at SF1 on the card, each query in the
+    dynamic executor (phase_query) and in compiled mode (phase_compiled)
+    with its counters against presto_tpu's (phase_counters), then one
+    `relational` line (relational_row).  Launch counts add into the
+    slice's."""
+    from presto_tpu_torch.relational_queries import QUERIES
+
+    if tuple(QUERIES) != RELATIONAL:
+        raise AssertionError(f"corpus {tuple(QUERIES)} != {RELATIONAL}")
+    tolerances = prefix_tolerances(sessions)
+    for name in RELATIONAL:
+        t0 = time.perf_counter()
+        out = {"abs_tol": tolerances.get(name, {})}
+        sql = QUERIES[name]
+        guarded("query", name, phase_query, name, sql, sessions, capture,
+                counters, out)
+        guarded("compiled", name, phase_compiled, name, sql, sessions,
+                capture, counters, out)
+        guarded("counters", name, phase_counters, name, out)
+        guarded("relational", name, relational_row, name, sql, sessions,
+                out, time.perf_counter() - t0)
+        for mode, got in (("dynamic", out.get("launches")),
+                          ("compiled", out.get("compiled_launches"))):
+            if got is not None:
+                by_query.setdefault(name, {})[mode] = got
+                for kernel in counters:
+                    launches[mode][kernel] += got[kernel]
 
 
 def exact_group_sums(vals, gid, G):
@@ -1622,7 +1798,8 @@ def profile_run(session, sql, top=8):
 
 def phase_profile(session, qid, sql):
     """A profile of one warm run of a query in the dynamic executor."""
-    emit({"phase": "profile", "query": f"Q{qid}", **profile_run(session, sql)})
+    emit({"phase": "profile", "query": label(qid),
+          **profile_run(session, sql)})
 
 
 def phase_bg_shapes(capture):

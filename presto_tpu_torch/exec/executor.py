@@ -15,7 +15,11 @@ which materializes each node at its live size; "dynamic" selects it
 directly.  Each node produces a whole-column Batch on the session's
 device; filters AND into `sel`.  Joins run INNER, LEFT, RIGHT (the
 mirrored LEFT), SEMI, ANTI and MARK, as index joins or sort joins
-(`kernels.build_probe`), always resident.
+(`kernels.build_probe`), always resident; FULL runs as a LEFT join
+followed by the build rows an ANTI join leaves, CROSS as two gathers.
+Window (exec/window.py) and Union (UNION ALL; UNION DISTINCT, INTERSECT,
+EXCEPT and GROUPING SETS/ROLLUP/CUBE are planned onto it and onto
+aggregates and SEMI/ANTI joins) run in both executors.
 
 Ordering-aware execution (plan/properties.py) and dynamic filtering
 (plan/runtime_filters.py) run as the reference's do, in both executors:
@@ -31,9 +35,10 @@ df_rows_pruned.
 
 Not ported yet, and raising NotImplementedError when reached: chunked
 and distributed execution, batched compiled execution and prepared
-statements, float32_compute, every statement other than a query, FULL
-and CROSS joins, and every plan node outside the slice (Window, Union,
-...).  Not ported either, and changing no result: sort-order
+statements, float32_compute, every statement other than a query (the
+write nodes TableWriter and TableFinish with them), the plan nodes
+Unnest and SpatialJoin, and the aggregates outside count, count_if,
+sum, avg, min and max.  Not ported either, and changing no result: sort-order
 materialization (it serves chunked execution), runtime-domain stripe
 pruning (df_splits_pruned: its tables are not ported), the host
 summaries of the cluster side channel, spill degradation and adaptive
@@ -59,6 +64,7 @@ from presto_tpu_torch.exec import kernels as K
 from presto_tpu_torch.exec.colval import translate_codes
 from presto_tpu_torch.exec.compiler import (EvalContext, eval_expr,
                                             eval_predicate, to_column)
+from presto_tpu_torch.exec.window import execute_window
 from presto_tpu_torch.functions.scalar import torch_dtype
 from presto_tpu_torch.plan import ir
 from presto_tpu_torch.plan import nodes as P
@@ -1112,9 +1118,6 @@ class Executor:
 
     # ---- joins -------------------------------------------------------
     def _exec_join(self, node: P.Join) -> Batch:
-        if node.join_type in ("FULL", "CROSS"):
-            raise NotImplementedError(
-                f"{node.join_type} joins are not ported to presto_tpu_torch")
         produce = getattr(node, "rf_produce", None)
         if produce and node.join_type in ("INNER", "SEMI") \
                 and self._df_enabled() and self._rf_build_complete(node):
@@ -1147,6 +1150,10 @@ class Executor:
 
     def _join_batches(self, left: Batch, right: Batch, node: P.Join) -> Batch:
         jt = node.join_type
+        if jt == "CROSS":
+            return self._cross_join(left, right, node)
+        if jt == "FULL":
+            return self._full_join(left, right, node)
         if right.capacity == 0:
             return self._empty_build_join(left, right, node)
         lkeys = [left.columns[lk] for lk, _ in node.criteria]
@@ -1469,6 +1476,73 @@ class Executor:
                 merged[name] = Column(c.data, v, c.type, c.dictionary)
             return Batch(merged, sel & keep)
         raise ExecutionError(f"join type {jt} not implemented")
+
+    def _full_join(self, left: Batch, right: Batch, node: P.Join) -> Batch:
+        """FULL = LEFT(l, r) followed by the rows of r that match nothing,
+        their left columns typed NULL: the anti pass swaps probe and
+        build (reference: LookupOuterOperator).  The output capacity is
+        the LEFT expansion's plus r's, with no host read of its own."""
+        lnode = P.Join(node.left, node.right, "LEFT", node.criteria,
+                       node.filter)
+        for attr in ("build_unique", "fanout_bound", "key_stats"):
+            if hasattr(node, attr):
+                setattr(lnode, attr, getattr(node, attr))
+        left_part = self._join_batches(left, right, lnode)
+        anode = P.Join(node.right, node.left, "ANTI",
+                       [(rk, lk) for lk, rk in node.criteria], node.filter)
+        right_anti = self._join_batches(right, left, anode)
+        cap = right_anti.capacity
+        never = torch.zeros((cap,), dtype=torch.bool, device=self.device)
+        # left columns first, as in left_part
+        cols = {name: Column(torch.zeros((cap,), dtype=c.data.dtype,
+                                         device=self.device),
+                             never, c.type, c.dictionary)
+                for name, c in left.columns.items()}
+        cols.update(right_anti.columns)
+        return K.concat_batches([left_part, Batch(cols, right_anti.sel)])
+
+    def _cross_join(self, left: Batch, right: Batch, node: P.Join) -> Batch:
+        if not self.static:  # compaction reads the live counts
+            left = K.compact(left)
+            right = K.compact(right)
+        nl, nr = left.capacity, right.capacity
+        if nl * nr > 50_000_000:
+            if self.static:
+                # the capacities before compaction can be far above the
+                # live rows: let the dynamic executor try
+                raise StaticFallback(
+                    f"static cross join too large: {nl} x {nr}")
+            raise ExecutionError(f"cross join too large: {nl} x {nr}")
+        # output_size spares torch a host read of the total (and capture
+        # forbids one)
+        lidx = torch.repeat_interleave(
+            torch.arange(nl, dtype=torch.int32, device=self.device), nr,
+            output_size=nl * nr)
+        ridx = torch.arange(nr, dtype=torch.int32,
+                            device=self.device).repeat(nl)
+        # lidx is repeat(arange): nondecreasing by construction
+        lbatch = K.gather_batch(left, lidx, presorted=True)
+        rbatch = K.gather_batch(right, ridx)
+        merged = dict(lbatch.columns)
+        merged.update(rbatch.columns)
+        sel = lbatch.sel & rbatch.sel
+        out = Batch(merged, sel)
+        if node.filter is not None:
+            out = out.with_sel(sel & eval_predicate(node.filter, out,
+                                                    self.ctx))
+        return out
+
+    # ---- window and set operations -----------------------------------
+    def _exec_window(self, node: P.Window) -> Batch:
+        return execute_window(self, node)
+
+    def _exec_union(self, node: P.Union) -> Batch:
+        parts = []
+        for src, mapping in zip(node.sources_, node.mappings):
+            b = self.exec_node(src)
+            parts.append(Batch({s: b.columns[mapping[s]]
+                                for s in node.symbols}, b.sel))
+        return K.concat_batches(parts)
 
     def _exec_output(self, node: P.Output) -> Batch:
         return self.exec_node(node.source).select(list(node.symbols))

@@ -15,7 +15,9 @@ Ordering-aware execution adds sort-free grouping of presorted keys
 presorted join build (`monotone_guard`) and `build_probe`'s
 `build_order`; dynamic filtering the runtime-filter summaries
 (`rf_build`, `rf_probe`, `rf_domain`), whose bloom bits are the
-reference's bit for bit.
+reference's bit for bit.  The window, Union and FULL and CROSS joins
+add `compact` (the dynamic executor's, with one host read) and
+`concat_batches`.
 
 Two differences from the reference's JAX code are deliberate:
 - torch has no multi-operand sort, so lexicographic sorts are built
@@ -32,8 +34,9 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from presto_tpu_torch.batch import Batch, Column, upload
+from presto_tpu_torch.batch import Batch, Column, Dictionary, upload
 from presto_tpu_torch.exec import gather as G
+from presto_tpu_torch.exec.colval import translate_codes
 
 I64_MIN = np.iinfo(np.int64).min
 I64_MAX = np.iinfo(np.int64).max
@@ -603,7 +606,9 @@ def take_rows(arrays: List[torch.Tensor], idx: torch.Tensor,
     indices, gather in ascending order through the block_gather kernel
     and carry the rows home in one scatter.  `presorted=True` asserts
     idx is nondecreasing: staging then skips the sort and the way home."""
-    if arrays and arrays[0].shape[0] == 0 and idx.shape[0] > 0:
+    if idx.shape[0] == 0:
+        return [a[:0] for a in arrays]
+    if arrays and arrays[0].shape[0] == 0:
         # gathering from an EMPTY source: every index is dead and the
         # caller masks the result
         return [torch.zeros((idx.shape[0],) + tuple(a.shape[1:]),
@@ -731,6 +736,69 @@ def gather_batch(batch: Batch, idx: torch.Tensor, idx_valid=None,
     if idx_valid is not None:
         sel = sel & idx_valid
     return Batch(cols, sel)
+
+
+def compact(batch: Batch) -> Batch:
+    """Drop masked rows (one host read: the live count).  The dynamic
+    executor's window and cross join call it; the static executor never
+    does."""
+    n_live = int(batch.sel.sum())
+    idx = nonzero_i32(batch.sel, max(n_live, 1), 0)
+    if n_live == 0:
+        idx = idx[:0]
+    # the live positions ascend: the gather is presorted
+    raw, _ = take_columns(batch.columns, idx, presorted=True)
+    cols = {name: Column(data, valid, batch.columns[name].type,
+                         batch.columns[name].dictionary)
+            for name, (data, valid) in raw.items()}
+    return Batch(cols, torch.ones((n_live,), dtype=torch.bool,
+                                  device=batch.device))
+
+
+def concat_batches(batches: List[Batch]) -> Batch:
+    """Concatenate same-schema batches.  String columns whose branches
+    hold different dictionaries are recoded into one merged on the host
+    (np.unique: code order stays lexicographic order); a branch without
+    a dictionary is typed-NULL padding (a grouping set's, say), whose
+    dead codes become 0.  The recode tables reach the device through
+    `upload`, so a compiled query's capture reads them from its log."""
+    names = list(batches[0].columns)
+    cols: Dict[str, Column] = {}
+    for name in names:
+        parts = [b.columns[name] for b in batches]
+        dicts = [p.dictionary for p in parts]
+        with_dict = [d for d in dicts if d is not None]
+        if with_dict and (len({id(d) for d in with_dict}) > 1
+                          or len(with_dict) < len(parts)):
+            # (the reference also merges the tuple dictionaries of ARRAY
+            # columns, which the port does not hold)
+            merged = Dictionary(np.unique(np.concatenate(
+                [d.values for d in with_dict])))
+            luts = {id(d): translate_codes(d, merged) for d in with_dict}
+            datas = []
+            for p in parts:
+                if p.dictionary is None:
+                    datas.append(torch.zeros_like(p.data,
+                                                  dtype=torch.int32))
+                    continue
+                lut = upload(luts[id(p.dictionary)], p.data.device)
+                codes = p.data.clamp(0, len(p.dictionary) - 1).long()
+                datas.append(lut[codes])
+            data = torch.cat(datas)
+            dictionary = merged
+        else:
+            data = torch.cat([p.data for p in parts])
+            dictionary = dicts[0]
+        if any(p.valid is not None for p in parts):
+            valid = torch.cat([
+                p.valid if p.valid is not None
+                else torch.ones(p.data.shape, dtype=torch.bool,
+                                device=p.data.device)
+                for p in parts])
+        else:
+            valid = None
+        cols[name] = Column(data, valid, parts[0].type, dictionary)
+    return Batch(cols, torch.cat([b.sel for b in batches]))
 
 
 def pack_fetch(batch: Batch, guard: torch.Tensor):
