@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from presto_tpu_torch import types as T
+from presto_tpu_torch.connectors import tpcds as tpcds_gen
 from presto_tpu_torch.connectors import tpch as tpch_gen
 
 
@@ -179,6 +180,35 @@ class MemoryTable(ConnectorTable):
         self._invalidate()
         return deleted
 
+def _generated(table, gen, file_name: str):
+    """A generator table's columns, generated once (gen.generate) and
+    kept on the table, and pickled to `file_name` under its cache_dir
+    when it has one.  The file name is this package's own: the cache
+    never unpickles anything written by another package.  A per-table
+    lock: concurrent scans must not generate or unpickle the same table
+    twice."""
+    lock = table.__dict__.setdefault("_mat_lock", threading.Lock())
+    with lock:
+        if not hasattr(table, "_data"):
+            path = None
+            if table.cache_dir:
+                os.makedirs(table.cache_dir, exist_ok=True)
+                path = os.path.join(table.cache_dir, file_name)
+            if path and os.path.exists(path):
+                with open(path, "rb") as f:
+                    table._data = pickle.load(f)
+            else:
+                table._data = gen.generate(table.name, table.sf)
+                if path:
+                    # renamed into place whole: a process reading the
+                    # cache beside this one never sees half a file
+                    tmp = f"{path}.{os.getpid()}.tmp"
+                    with open(tmp, "wb") as f:
+                        pickle.dump(table._data, f, protocol=4)
+                    os.replace(tmp, path)
+        return table._data
+
+
 class TpchTable(ConnectorTable):
     """TPC-H generator table (reference: presto-tpch), with a host disk
     cache so repeated test/bench runs skip regeneration."""
@@ -243,31 +273,8 @@ class TpchTable(ConnectorTable):
         return out
 
     def _full_table(self):
-        # per-table lock: streaming cluster tasks run concurrently and
-        # must not generate/unpickle the same table more than once
-        lock = self.__dict__.setdefault("_mat_lock", threading.Lock())
-        with lock:
-            return self._full_table_locked()
-
-    def _full_table_locked(self):
-        if not hasattr(self, "_data"):
-            path = None
-            if self.cache_dir:
-                os.makedirs(self.cache_dir, exist_ok=True)
-                # a file name of this package's own: the cache never
-                # unpickles anything written by another package
-                path = os.path.join(
-                    self.cache_dir,
-                    f"presto_tpu_torch_tpch_{self.name}_sf{self.sf}.pkl")
-            if path and os.path.exists(path):
-                with open(path, "rb") as f:
-                    self._data = pickle.load(f)
-            else:
-                self._data = tpch_gen.generate(self.name, self.sf)
-                if path:
-                    with open(path, "wb") as f:
-                        pickle.dump(self._data, f, protocol=4)
-        return self._data
+        return _generated(self, tpch_gen,
+                          f"presto_tpu_torch_tpch_{self.name}_sf{self.sf}.pkl")
 
 
 #: every live catalog, for bulk cache release (the test suite frees
@@ -385,6 +392,57 @@ def tpch_catalog(sf: float = 0.01, cache_dir: Optional[str] = None) -> Catalog:
     cat = Catalog()
     for name in tpch_gen.SCHEMAS:
         cat.register(TpchTable(name, sf, cache_dir))
+    return cat
+
+
+class TpcdsTable(ConnectorTable):
+    """TPC-DS generator table (reference: presto-tpcds), same disk-cache
+    scheme as TpchTable.  No bucketing(): the reference's chunk families
+    serve chunked mode only, which this package does not run."""
+
+    def __init__(self, name: str, sf: float, cache_dir: Optional[str] = None):
+        super().__init__(name, tpcds_gen.SCHEMAS[name])
+        self.sf = sf
+        self.cache_dir = cache_dir
+
+    def row_count(self) -> int:
+        return tpcds_gen.row_count(self.name, self.sf)
+
+    def column_stats(self, column: str):
+        from presto_tpu_torch.plan.stats import ColStats
+
+        return tpcds_gen.column_stats(self.name, column, self.sf, ColStats)
+
+    def unique_keys(self):
+        return tpcds_gen.UNIQUE_KEYS.get(self.name, [])
+
+    def max_rows_per_key(self):
+        return tpcds_gen.MAX_ROWS_PER_KEY.get(self.name, {})
+
+    def ordering(self):
+        return tpcds_gen.ORDERINGS.get(self.name, [])
+
+    def splits(self, n_splits):
+        return tpcds_gen.split_ranges(self.name, self.sf, n_splits)
+
+    def read(self, columns=None, split=None):
+        cols = columns if columns is not None else list(self.schema)
+        data = self._full_table()
+        if split is not None:
+            a, b = split
+            return {c: data[c][a:b] for c in cols}
+        return {c: data[c] for c in cols}
+
+    def _full_table(self):
+        return _generated(
+            self, tpcds_gen,
+            f"presto_tpu_torch_tpcds_{self.name}_sf{self.sf}_v2.pkl")
+
+
+def tpcds_catalog(sf: float = 0.01, cache_dir: Optional[str] = None) -> Catalog:
+    cat = Catalog()
+    for name in tpcds_gen.SCHEMAS:
+        cat.register(TpcdsTable(name, sf, cache_dir))
     return cat
 
 

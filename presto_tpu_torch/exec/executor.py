@@ -37,12 +37,12 @@ Not ported yet, and raising NotImplementedError when reached: chunked
 and distributed execution, batched compiled execution and prepared
 statements, float32_compute, every statement other than a query (the
 write nodes TableWriter and TableFinish with them), the plan nodes
-Unnest and SpatialJoin, and the aggregates outside count, count_if,
-sum, avg, min and max.  Not ported either, and changing no result: sort-order
-materialization (it serves chunked execution), runtime-domain stripe
-pruning (df_splits_pruned: its tables are not ported), the host
-summaries of the cluster side channel, spill degradation and adaptive
-partial aggregation.
+Unnest and SpatialJoin, and the aggregates outside count, count_if, sum,
+avg, min, max and the stddev/variance family. Not ported either, and
+changing no result: sort-order materialization (it serves chunked
+execution), runtime-domain stripe pruning (df_splits_pruned: its tables
+are not ported), the host summaries of the cluster side channel, spill
+degradation and adaptive partial aggregation.
 """
 
 from __future__ import annotations
@@ -85,6 +85,11 @@ class ExecutionError(Exception):
 SORT_STATS_KEYS = ("sorts_taken", "sorts_elided", "sort_memo_hits",
                    "ordering_guard_trips", "df_filters_produced",
                    "df_filters_applied", "df_rows_pruned")
+
+
+#: the moment aggregates _agg_column computes from two grouped sums
+_VARIANCE_AGGS = ("stddev", "stddev_samp", "stddev_pop", "variance",
+                  "var_samp", "var_pop")
 
 
 def _merge_sort_stats(stats, counts: dict) -> None:
@@ -255,6 +260,7 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
         counts_box: list = [sort_counts]  # the counters, set by every run
 
         def program(*batches):
+            batches = [_leaf_views(b) for b in batches]
             counts = dict(sort_counts)
             counts_box[:] = [counts]
             ex = Executor(session, static=True,
@@ -1008,7 +1014,8 @@ class Executor:
             return Column(K.segment_sum(m.to(torch.int32), gid, n_groups,
                                         order).to(torch.int64),
                           None, T.BIGINT)
-        if a.fn not in ("count", "sum", "avg", "min", "max"):
+        if a.fn not in ("count", "sum", "avg", "min", "max") \
+                and a.fn not in _VARIANCE_AGGS:
             raise NotImplementedError(
                 f"aggregate {a.fn} is not ported to presto_tpu_torch")
         col = to_column(eval_expr(a.args[0], b, self.ctx), b.capacity,
@@ -1033,6 +1040,22 @@ class Executor:
             x = torch.where(valid, col.data.to(torch.float64), 0.0)
             s = K.segment_sum(x, gid, n_groups, order)
             return Column(s / cnt.clamp_min(1), nonempty, T.DOUBLE)
+        if a.fn in _VARIANCE_AGGS:
+            # the reference's moments: var_pop = E[x^2] - E[x]^2 from two
+            # grouped sums in segment_sum's fixed order, the sample
+            # variants scaled by n / (n - 1) and NULL below two rows
+            x = torch.where(valid, col.data.to(torch.float64), 0.0)
+            s1 = K.segment_sum(x, gid, n_groups, order)
+            s2 = K.segment_sum(x * x, gid, n_groups, order)
+            nf = cnt.clamp_min(1).to(torch.float64)
+            var = (s2 / nf - (s1 / nf) ** 2).clamp_min(0.0)
+            if a.fn in ("stddev_pop", "var_pop"):
+                ok = nonempty
+            else:
+                var = var * nf / (cnt - 1).clamp_min(1).to(torch.float64)
+                ok = nonempty & (cnt > 1)
+            r = torch.sqrt(var) if a.fn.startswith("stddev") else var
+            return Column(r, ok, T.DOUBLE)
         ext = K._reduce_identity(col.data.dtype, a.fn == "min")
         x = torch.where(valid, col.data,
                         torch.full_like(col.data, ext))
@@ -1546,6 +1569,20 @@ class Executor:
 
     def _exec_output(self, node: P.Output) -> Batch:
         return self.exec_node(node.source).select(list(node.symbols))
+
+
+def _leaf_views(b: Batch) -> Batch:
+    """b with every tensor a view of its own (no copy).  Each argument
+    of the reference's jitted program is a tracer of its own, so in its
+    static executor two scans of one table, or two symbols of one
+    column, share no memo entry keyed on identity (_key_fp); the
+    dynamic executor's scans share tensors in both packages."""
+    def view(t):
+        return None if t is None else t.view(t.shape)
+
+    return Batch({sym: Column(view(c.data), view(c.valid), c.type,
+                              c.dictionary)
+                  for sym, c in b.columns.items()}, view(b.sel))
 
 
 def scan_batch(table, node: P.TableScan, device: torch.device) -> Batch:

@@ -1,16 +1,17 @@
 """Scalar function registry: SQL-level signature resolution + torch emission.
 
 Reference: presto_tpu/functions/scalar.py (and the integer `mod` of
-presto_tpu/functions/scalar_ext.py, which overrides it there).  Ported
-so far, the functions the 22 TPC-H queries reach: arithmetic (add, sub,
-mul, div, mod, neg) over the non-decimal numeric types, DATE +-
-INTERVAL, the six comparisons (numeric and temporal; strings against a
-literal, within one dictionary or across two), the three-valued AND /
-OR / NOT, numeric CASTs, IS NULL, COALESCE, NULLIF, IF, CASE, LIKE,
-SUBSTRING / SUBSTR and the EXTRACT family (year, month, day, quarter,
-day of week, day of year, week).  The planner resolves only registered
-names, so any other function raises NotImplementedError with its name
-(plan/planner.py `_call`).
+presto_tpu/functions/scalar_ext.py, which overrides it there). Ported so
+far, the functions the 22 TPC-H and 99 TPC-DS queries reach: arithmetic
+(add, sub, mul, div, mod, neg) over the non-decimal numeric types, ABS
+and ROUND, DATE +- INTERVAL, the six comparisons (numeric and temporal;
+strings against a literal, within one dictionary or across two, whose
+dictionaries then merge), the three-valued AND / OR / NOT, numeric
+CASTs, IS NULL, COALESCE, NULLIF, IF, CASE, LIKE, SUBSTRING / SUBSTR,
+UPPER, CONCAT and `||` over strings, and the EXTRACT family (year,
+month, day, quarter, day of week, day of year, week). The planner
+resolves only registered names, so any other function raises
+NotImplementedError with its name (plan/planner.py `_call`).
 
 String functions are host transforms over the dictionary (one Python
 call per dictionary entry, never per row) followed by one code lookup
@@ -371,8 +372,14 @@ def _string_compare(op: str, a: ColVal, b: ColVal) -> ColVal:
     if a.dictionary is b.dictionary:
         # codes are order-isomorphic within one sorted dictionary
         return ColVal(pyop(a.data, b.data), valid, T.BOOLEAN)
-    raise NotImplementedError(
-        "comparing string columns with different dictionaries is not ported")
+    if op in ("eq", "ne"):
+        # a's codes in b's dictionary (-1: absent, equal to nothing)
+        ta = _recode(a, b.dictionary).data
+        eq = (ta == b.data) & (ta >= 0)
+        return ColVal(eq if op == "eq" else ~eq, valid, T.BOOLEAN)
+    # an order across dictionaries: both recoded into the merged one
+    a, b = _unify_dictionaries(a, b)
+    return ColVal(pyop(a.data, b.data), valid, T.BOOLEAN)
 
 
 def _emit_cmp(name):
@@ -519,6 +526,8 @@ def _literal_dictionary(v: ColVal) -> ColVal:
 
 
 def _recode(v: ColVal, to: Dictionary) -> ColVal:
+    """v's codes in dictionary `to` (-1 for an entry `to` lacks), the
+    table reaching the device through `upload`."""
     lut = translate_codes(v.dictionary, to)
     hi = max(len(v.dictionary) - 1, 0)
     if _is_tensor(v.data):
@@ -687,8 +696,82 @@ def _substr(v, start, length=None):
     return v[s:s + int(length)]
 
 
+def _upper(v):
+    return v.upper()
+
+
+def _append(v, suffix):
+    return v + suffix
+
+
+def _prepend(v, prefix):
+    return prefix + v
+
+
 register("substring", *_str_transform("substring", _substr))
 register("substr", *_str_transform("substr", _substr))
+register("upper", *_str_transform("upper", _upper))
+
+#: the most entries a dictionary-by-dictionary concat materializes (the
+#: reference's cap)
+CONCAT_PRODUCT_MAX = 1 << 20
+
+
+def _concat_pair(a: ColVal, b: ColVal) -> ColVal:
+    """a || b for two string values (reference: _emit_concat)."""
+    valid = all_valid(a, b)
+    la = a.data if isinstance(a.data, str) else None
+    lb = b.data if isinstance(b.data, str) else None
+    if la is not None and lb is not None:
+        return ColVal(la + lb, valid, T.VARCHAR)
+    if lb is not None:
+        lut, out = _transform_lut(a.dictionary, _append, (lb,))
+        return ColVal(_gather_lut(a, lut), valid, T.VARCHAR, out)
+    if la is not None:
+        lut, out = _transform_lut(b.dictionary, _prepend, (la,))
+        return ColVal(_gather_lut(b, lut), valid, T.VARCHAR, out)
+    if a.dictionary is None or b.dictionary is None:
+        raise NotImplementedError("concat of non-dictionary string columns")
+    na, nb = len(a.dictionary), len(b.dictionary)
+    if na * nb > CONCAT_PRODUCT_MAX:
+        raise NotImplementedError(
+            "concat of string columns whose dictionary product "
+            f"({na} x {nb}) exceeds the materialization cap")
+
+    def product():
+        # the value cross product, codes row-major, re-sorted so that
+        # code order stays lexicographic order
+        av = a.dictionary.values.astype(str)
+        bv = b.dictionary.values.astype(str)
+        prod = np.char.add(av[:, None], bv[None, :]).astype(object).ravel()
+        uniq, inverse = np.unique(prod.astype(str), return_inverse=True)
+        return inverse.astype(np.int32), Dictionary(uniq)
+
+    # kept beside the left dictionary, keyed by the right one
+    lut, out = a.dictionary.derived(("concat", b.dictionary), product)
+
+    def clip(v, n):
+        return v.clamp(0, n - 1).long() if _is_tensor(v) \
+            else min(max(int(v), 0), n - 1)
+
+    pair = clip(a.data, na) * nb + clip(b.data, nb)
+    if _is_tensor(pair):
+        codes = upload(lut, pair.device)[pair]
+    else:
+        codes = int(lut[pair])
+    return ColVal(codes, valid, T.VARCHAR, out)
+
+
+def _emit_concat(args):
+    out = args[0]
+    for nxt in args[1:]:
+        out = _concat_pair(out, nxt)
+    return out
+
+
+register("concat",
+         lambda args: T.VARCHAR if all(a.is_string for a in args) else None,
+         _emit_concat)
 
 
 # ---- EXTRACT and its shorthands --------------------------------------------
@@ -729,6 +812,44 @@ for _f in ("YEAR", "MONTH", "DAY", "QUARTER", "DOW", "DOY", "WEEK"):
     register(f"extract_{_f.lower()}", _resolve_temporal, _extract_emit(_f))
 for _f in ("YEAR", "MONTH", "DAY", "QUARTER"):
     register(_f.lower(), _resolve_temporal, _extract_emit(_f))
+
+
+# ---- math -----------------------------------------------------------------
+
+
+def _emit_abs(args):
+    a = args[0]
+    return ColVal(a.data.abs() if _is_tensor(a.data) else abs(a.data),
+                  a.valid, a.type)
+
+
+def _emit_round(args):
+    """SQL round(x[, d]): half away from zero, sign(x) * floor(|x| *
+    10^d + 0.5) / 10^d on the reference's formula (torch.round rounds
+    half to even).  An integer argument comes back as it is."""
+    a = args[0]
+    if a.type.is_integer:
+        return a
+    d = int(args[1].data) if len(args) > 1 else 0
+    scale = 10.0 ** d
+    x = a.data
+    if _is_tensor(x):
+        r = torch.sign(x) * torch.floor(x.abs() * scale + 0.5) / scale
+    else:
+        x = float(x)
+        r = float(np.sign(x) * np.floor(abs(x) * scale + 0.5) / scale)
+    return ColVal(r, a.valid, a.type)
+
+
+def _resolve_numeric1(args):
+    return args[0] if args[0].is_numeric and not args[0].is_decimal \
+        else None
+
+
+register("abs",
+         lambda args: _resolve_numeric1(args) if len(args) == 1 else None,
+         _emit_abs)
+register("round", _resolve_numeric1, _emit_round)
 
 
 # ---- casts ----------------------------------------------------------------

@@ -137,7 +137,7 @@ def test_unported_modes_raise(prop, port_catalog):
 @pytest.mark.parametrize("sql,name", [
     ("SELECT approx_distinct(l_orderkey) FROM lineitem", "approx_distinct"),
     ("CREATE TABLE t AS SELECT l_orderkey FROM lineitem", "CreateTableAs"),
-    ("SELECT upper(l_comment) FROM lineitem", "upper"),
+    ("SELECT lower(l_comment) FROM lineitem", "lower"),
 ])
 def test_unported_nodes_and_functions_raise_with_their_name(sql, name,
                                                             port_catalog):
