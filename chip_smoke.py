@@ -78,6 +78,21 @@ pool bytes, device busy and idle shares, launches and kernel shapes, and
 a summary line the graphs, the queries that ran dynamic, the memo's
 evictions and bytes, and the top device operations of the three slowest
 replays.
+The functions phase runs the 11 queries of presto_tpu_torch/
+function_queries.py (F1 to F11: approx_distinct with its XXH64 of string
+dictionaries, approx_percentile, min_by and max_by, the bivariate and
+moment aggregates, the boolean and bitwise aggregates, avg over
+intervals, and the scalar string, regular expression, date, math,
+bitwise and JSON functions) over the TPC-H SF1 sessions in both
+executors: rows, counters, execution mode and memo entry against
+presto_tpu's SF1 values frozen in FN_REFERENCE_SF1 (rows in order; ints,
+strings, booleans, approx_distinct and approx_percentile exactly, other
+floats within QUERY_RTOL, except F4's cancelling moments, held within a
+forward-error bound computed from the SF1 columns, fn_tolerances), and
+compiled rows against the dynamic ones (columns where presto_tpu's own
+two modes differ exempt, FN_MODE_EXEMPT).  One `functions` line a
+query: cold, warm and replay times, device busy and idle shares, peak
+device bytes, the graph or "DYNAMIC", launches and kernel shapes.
 segment_sum is held to bit identity in ten calls and to the correctly
 rounded sums on the inputs of Q15 and Q3; the integer
 division fault C1, a SELECT without FROM and a DISTINCT aggregate run on
@@ -162,6 +177,18 @@ COMPILED_REPLAYS = 3  # replays of each query's graph after its first run
 # joins (J)
 RELATIONAL = ("W1", "W2", "W3", "W4", "W5", "W6", "S1", "S2", "S3", "S4",
               "J1", "J2", "J3")
+# the function corpus (presto_tpu_torch/function_queries.py)
+FUNCTIONS = tuple(f"F{i}" for i in range(1, 12))
+# device operations each function query's profiles list
+FN_TOP_KERNELS = 5
+# function queries whose compiled rows are held to presto_tpu's dynamic
+# rows: presto_tpu's compiled program reassociates width_bucket's
+# (x - lo) / (hi - lo) * n into (x - lo) * (n / (hi - lo)) (XLA's
+# algebraic simplifier), which moves rows on a bucket's edge into the
+# next bucket at SF1 (ROADMAP.md section C); the port computes the
+# written formula in both executors
+FN_COMPILED_AS_DYNAMIC = {"F9": "presto_tpu's compiled width_bucket is "
+                                "reassociated by XLA"}
 # the port's CPU run each card run is held against: SF1 where the CPU
 # takes a few seconds, SF0.1 elsewhere
 CPU_CHECK_SF = {**{q: SF if q in (1, 2, 6, 11, 16, 22) else 0.1
@@ -559,6 +586,688 @@ DS_RAISES_AT_SF1 = {
 DS_GRAPH_REPORT = (22, 29, 4)
 # replays whose top device operations the summary lists
 DS_TOP_REPLAYS = 3
+# presto_tpu's values for the function corpus at SF1 on the CPU, in each
+# executor (`python -m tests.test_torch_functions_corpus 1 NAME`, one
+# query a process): rows in order (the compiled rows only where they
+# differ from the dynamic ones), the counters in SORT_STATS_KEYS order
+# ("compiled" is the default mode's first run, a tripped guard's dynamic
+# rerun included), the execution mode and memo entry
+FN_REFERENCE_SF1 = {
+    "F1": {
+        "dynamic": {"counters": [2, 1, 0, 0, 0, 0, 0], "rows": [
+            ['A', 'F', 665024, 201491, 1364130, 1224, 1497096, 37139128.0,
+             7259822872861228177, 1497115],
+            ['N', 'F', 32416, 35446, 38773, 29, 38288, 1013152.0,
+             -6438796759407566284, 39234],
+            ['N', 'O', 773205, 201624, 2787159, 1230, 2986792, 73607424.0,
+             4216096910704188318, 2966674],
+            ['R', 'F', 665578, 201503, 1356601, 1224, 1504248, 37127024.0,
+             -1761984145819709982, 1497578]]},
+        "compiled": {"mode": "compiled", "memo": "executable",
+                     "counters": [0, 1, 0, 0, 0, 0, 0]}},
+    "F2": {
+        "dynamic": {"counters": [3, 0, 0, 0, 0, 0, 0], "rows": [
+            [75281, 46, 44, 40, 44],
+            [141335, 42, 40, 42, 42],
+            [121295, 42, 40, 48, 40],
+            [146756, 42, 30, 42, 40],
+            [6905, 39, 35, 35, 39],
+            [75878, 39, 37, 40, 39],
+            [11891, 42, 30, 44, 38],
+            [14291, 39, 37, 37, 38],
+            [24194, 39, 42, 39, 38],
+            [29171, 42, 42, 35, 38],
+            [38633, 37, 37, 30, 38],
+            [74162, 40, 40, 40, 38],
+            [92735, 46, 40, 37, 38],
+            [120176, 39, 42, 42, 38],
+            [44066, 42, 40, 39, 37],
+            [55403, 32, 33, 35, 37],
+            [74036, 35, 37, 30, 37],
+            [85169, 39, 37, 33, 37],
+            [96044, 40, 40, 35, 37],
+            [102428, 44, 35, 35, 37],
+            [130121, 39, 39, 39, 37],
+            [7994, 37, 35, 39, 36],
+            [8843, 33, 39, 37, 36],
+            [12068, 33, 33, 37, 36],
+            [16826, 32, 30, 42, 36],
+            [24107, 39, 37, 30, 36],
+            [28619, 37, 37, 33, 36],
+            [33914, 39, 40, 37, 36],
+            [42008, 30, 33, 39, 36],
+            [54953, 39, 35, 37, 36],
+            [58937, 37, 37, 44, 36],
+            [67067, 33, 32, 44, 36],
+            [68093, 39, 37, 35, 36],
+            [106271, 35, 37, 33, 36],
+            [112037, 39, 35, 35, 36],
+            [130886, 35, 30, 42, 36],
+            [133427, 39, 33, 33, 36],
+            [139949, 37, 39, 40, 36],
+            [53, 37, 33, 37, 35],
+            [3995, 33, 39, 33, 35],
+            [4814, 37, 39, 35, 35],
+            [16454, 35, 30, 33, 35],
+            [25601, 35, 33, 40, 35],
+            [26264, 30, 37, 28, 35],
+            [27431, 37, 37, 42, 35],
+            [31076, 39, 35, 35, 35],
+            [36545, 40, 35, 32, 35],
+            [40553, 37, 37, 35, 35],
+            [41063, 32, 35, 35, 35],
+            [45839, 32, 32, 35, 35],
+            [48149, 30, 33, 33, 35],
+            [48221, 40, 42, 32, 35],
+            [51734, 35, 28, 37, 35],
+            [57860, 39, 35, 37, 35],
+            [62765, 35, 33, 39, 35],
+            [67523, 30, 35, 35, 35],
+            [74657, 39, 37, 40, 35],
+            [79964, 42, 30, 33, 35],
+            [81578, 32, 32, 37, 35],
+            [81743, 37, 37, 39, 35],
+            [83822, 35, 39, 40, 35],
+            [83984, 39, 33, 40, 35],
+            [90101, 40, 37, 39, 35],
+            [90125, 28, 33, 37, 35],
+            [91142, 37, 33, 42, 35],
+            [96176, 42, 37, 37, 35],
+            [107684, 39, 33, 40, 35],
+            [121301, 35, 27, 32, 35],
+            [126212, 40, 30, 44, 35],
+            [6572, 39, 30, 33, 34],
+            [7103, 28, 33, 35, 34],
+            [13319, 37, 30, 35, 34],
+            [14534, 37, 37, 35, 34],
+            [16736, 35, 33, 39, 34],
+            [18308, 35, 33, 32, 34],
+            [27680, 33, 37, 33, 34],
+            [28340, 39, 37, 40, 34],
+            [28364, 37, 30, 37, 34],
+            [28784, 28, 35, 33, 34],
+            [29162, 37, 35, 35, 34],
+            [30629, 28, 39, 28, 34],
+            [31148, 37, 30, 40, 34],
+            [33101, 35, 33, 32, 34],
+            [33197, 37, 30, 35, 34],
+            [33236, 40, 32, 35, 34],
+            [36194, 32, 33, 37, 34],
+            [37700, 35, 30, 35, 34],
+            [38528, 33, 32, 33, 34],
+            [39758, 35, 33, 37, 34],
+            [40811, 35, 28, 35, 34],
+            [47066, 35, 33, 35, 34],
+            [50045, 27, 35, 30, 34],
+            [53381, 37, 37, 32, 34],
+            [58697, 42, 37, 40, 34],
+            [60686, 35, 30, 35, 34],
+            [68705, 35, 35, 35, 34],
+            [74126, 35, 35, 37, 34],
+            [77198, 33, 27, 33, 34],
+            [78062, 40, 37, 35, 34],
+            [79223, 37, 30, 35, 34]]},
+        "compiled": {"mode": "compiled", "memo": "executable",
+                     "counters": [3, 0, 0, 0, 0, 0, 0]}},
+    "F3": {
+        "dynamic": {"counters": [2, 1, 0, 0, 0, 0, 0], "rows": [
+            ['AIR', 36721.880000000005, 50.0, 869058, 'affix foxes run after',
+             'COLLECT COD', 'F', 857885],
+            ['FOB', 36689.93, 50.0, 3799300, 'nag above beyond realms',
+             'COLLECT COD', 'F', 857484],
+            ['MAIL', 36709.86, 50.0, 3826915, 'about accounts special beyond',
+             'TAKE BACK RETURN', 'F', 858774],
+            ['RAIL', 36703.38, 50.0, 5574472,
+             'dependencies detect sleep beans', 'NONE', 'O', 856145],
+            ['REG AIR', 36667.37, 50.0, 86472, 'before along courts final',
+             'COLLECT COD', 'O', 856306],
+            ['SHIP', 36707.62, 50.0, 790050, 'dugouts accounts after sublate',
+             'TAKE BACK RETURN', 'F', 857801],
+            ['TRUCK', 36610.74, 50.0, 2538887, 'along between haggle boost',
+             'DELIVER IN PERSON', 'F', 856206]]},
+        "compiled": {"mode": "compiled", "memo": "executable",
+                     "counters": [0, 1, 0, 0, 0, 0, 0]}},
+    "F4": {
+        "dynamic": {"counters": [2, 1, 0, 0, 0, 0, 0], "rows": [
+            ['A', 0.9288029030982244, 311971.0903493438, 311970.8819678298,
+             1499.1513622250047, 8.634971771811252, -0.00037184593109018096,
+             -1.2291934250456171, 28649.821549971748, 20.249137497970942,
+             57244104191.08004, 0.05002616365476265],
+            ['N', 0.9288527527765829, 312211.62853348156, 312211.5246674855,
+             1499.644982198928, -2.0830063037210493, -0.00043025779841431857,
+             -1.2301412210691398, 28629.19364113183, 21.25446477008346,
+             114908916780.08994, 0.05001949161451377],
+            ['R', 0.9288134033086443, 312262.72309558414, 312262.5145837583,
+             1499.6302551393528, 5.4109259344040765, 0.0010532434904067117,
+             -1.2303787420961032, 28605.84442728059, 20.248934231926317,
+             57232240751.98996, 0.04998392738141184]]},
+        "compiled": {"mode": "compiled", "memo": "executable",
+                     "counters": [0, 1, 0, 0, 0, 0, 0], "rows": [
+            ['A', 0.9288029030982248, 311971.09034934384, 311970.88196782983,
+             1499.1513622250054, 8.634971771796081, -0.0003718459310884407,
+             -1.2291934250456085, 28649.821549971748, 20.249137497970942,
+             57244104191.08004, 0.05002616365476265],
+            ['N', 0.9288527527765832, 312211.6285334816, 312211.52466748556,
+             1499.6449821989283, -2.0830063037325766, -0.0004302577984129461,
+             -1.230141221069131, 28629.19364113183, 21.25446477008346,
+             114908916780.08994, 0.05001949161451377],
+            ['R', 0.9288134033086443, 312262.72309558414, 312262.5145837583,
+             1499.6302551393528, 5.4109259344050535, 0.0010532434904058673,
+             -1.2303787420961043, 28605.84442728059, 20.248934231926317,
+             57232240751.98996, 0.04998392738141184]]}},
+    "F5": {
+        "dynamic": {"counters": [5, 1, 0, 0, 0, 0, 0], "rows": [
+            ['AUTOMOBILE', False, True, True, 0, 262143, 8742672176308498965,
+             43210845673, 1, 301724],
+            ['BUILDING', False, True, True, 0, 262143, -1137479174336715944,
+             42989303237, 1, 300016],
+            ['FURNITURE', False, True, True, 0, 262143, 7394190283433978633,
+             43177316396, 1, 298524],
+            ['HOUSEHOLD', False, True, True, 0, 262143, 2185867574935493672,
+             43319850037, 1, 300075],
+            ['MACHINERY', False, True, True, 0, 262143, 188068202532659996,
+             43324772993, 1, 299661]]},
+        "compiled": {"mode": "compiled", "memo": "DYNAMIC",
+                     "counters": [8, 2, 0, 0, 0, 0, 0]}},
+    "F6": {
+        "dynamic": {"counters": [2, 1, 0, 0, 0, 0, 0], "rows": [
+            ['ANODIZED', 39987, 1309439, 41, 137787, 7937, 5137, 2849,
+             'Manufacturer#5', 'JUMBO BAG', 'Brand#55.-', '11#dnarB',
+             'WRAP_PKG', 2639142, 'A1111'],
+            ['BRUSHED', 40004, 1309163, 41, 130468, 7860, 5011, 2919,
+             'Manufacturer#5', 'JUMBO BAG', 'Brand#55.-', '11#dnarB',
+             'WRAP_PKG', 2640264, 'A1111'],
+            ['BURNISHED', 40359, 1321503, 39, 144909, 8113, 5151, 2947,
+             'Manufacturer#5', 'JUMBO BAG', 'Brand#55.-', '11#dnarB',
+             'WRAP_PKG', 2663694, 'A1111'],
+            ['PLATED', 39911, 1306901, 40, 120550, 7969, 5036, 2925,
+             'Manufacturer#5', 'JUMBO BAG', 'Brand#55.-', '11#dnarB',
+             'WRAP_PKG', 2634126, 'A1111'],
+            ['POLISHED', 39739, 1301517, 40, 135291, 7890, 4922, 2864,
+             'Manufacturer#5', 'JUMBO BAG', 'Brand#55.-', '11#dnarB',
+             'WRAP_PKG', 2622774, 'A1111']]},
+        "compiled": {"mode": "compiled", "memo": "executable",
+                     "counters": [0, 1, 0, 0, 0, 0, 0]}},
+    "F7": {
+        "dynamic": {"counters": [3, 0, 0, 0, 1, 1, 0], "rows": [
+            [0, 595, '000001000', '101002398608', 61485],
+            [1, 504, '000001000', '111001848535', 59264],
+            [2, 571, '000001000', '121003194028', 60587],
+            [3, 595, '000001000', '131001248791', 61936],
+            [4, 563, '000001000', '141005554328', 60721],
+            [5, 539, '000001000', '151002245456', 58214],
+            [6, 561, '000001000', '161006313621', 61364],
+            [7, 561, '000001000', '171005374800', 59706],
+            [8, 548, '000001000', '181007842075', 59627],
+            [9, 575, '000001000', '191001322599', 59354],
+            [10, 552, '000001000', '201001186644', 59287],
+            [11, 583, '000001000', '211001803212', 60294],
+            [12, 586, '000001000', '221002403297', 59507],
+            [13, 570, '000001000', '231005014241', 60470],
+            [14, 557, '000001000', '241002029295', 58596],
+            [15, 602, '000001000', '251001638910', 61470],
+            [16, 518, '000001000', '261001976734', 59277],
+            [17, 548, '000001000', '271002922495', 59220],
+            [18, 523, '000001000', '281003907585', 59789],
+            [19, 521, '000001000', '291001048045', 59783],
+            [20, 558, '000001000', '301001075319', 60381],
+            [21, 518, '000001000', '311002992529', 59553],
+            [22, 532, '000001000', '321004097930', 59418],
+            [23, 542, '000001000', '331002047288', 60884],
+            [24, 558, '000001000', '341001093152', 59813]]},
+        "compiled": {"mode": "compiled", "memo": "executable",
+                     "counters": [1, 0, 0, 0, 1, 1, 0]}},
+    "F8": {
+        "dynamic": {"counters": [2, 1, 0, 0, 0, 0, 0], "rows": [
+            [8035, 19725, 8095, 8066, 50121521, 83, 8065, 78856, 78856, 31, 1,
+             5, 1, 19725, 549984.44],
+            [8066, 18355, 8124, 8095, 46088791, 82, 8094, 74701, 74701, 60, 32,
+             9, 5, 18355, 549958.32],
+            [8095, 19541, 8155, 8126, 48479810, 81, 8125, 76840, 76840, 91, 61,
+             14, 9, 19541, 549997.0],
+            [8126, 19195, 8185, 8156, 47035225, 80, 8155, 76123, 76123, 121,
+             92, 18, 14, 19195, 549981.11],
+            [8156, 19339, 8216, 8187, 46801373, 79, 8186, 81322, 81322, 152,
+             122, 22, 18, 19339, 549986.37],
+            [8187, 18915, 8246, 8217, 45198877, 78, 8216, 72528, 72528, 182,
+             153, 27, 23, 18915, 549996.55],
+            [8217, 19482, 8277, 8248, 45956870, 77, 8247, 77836, 77836, 213,
+             183, 31, 27, 19482, 549963.36],
+            [8248, 19518, 8308, 8279, 45439186, 76, 8278, 79785, 79785, 244,
+             214, 36, 31, 19518, 549993.23],
+            [8279, 18862, 8338, 8309, 43337786, 75, 8308, 73262, 73262, 274,
+             245, 40, 36, 18862, 549994.61],
+            [8309, 19484, 8369, 8340, 44170104, 74, 8339, 80289, 80289, 305,
+             275, 44, 40, 19484, 549993.26],
+            [8340, 18897, 8399, 8370, 42265405, 73, 8369, 75609, 75609, 335,
+             306, 49, 44, 18897, 549973.39],
+            [8370, 19447, 8430, 8401, 42900434, 72, 8400, 75923, 75923, 366,
+             336, 53, 49, 19447, 549991.38],
+            [8401, 19722, 8461, 8432, 42895990, 71, 8431, 82867, 82867, 31, 1,
+             53, 1, 19722, 549938.11],
+            [8432, 17458, 8489, 8460, 37455390, 70, 8459, 69706, 69706, 59, 32,
+             8, 5, 17458, 549964.16],
+            [8460, 19477, 8520, 8491, 41211669, 69, 8490, 74301, 74301, 90, 60,
+             13, 9, 19477, 549985.92],
+            [8491, 19057, 8550, 8521, 39745369, 68, 8520, 76796, 76796, 120,
+             91, 17, 13, 19057, 549992.85],
+            [8521, 19536, 8581, 8552, 40147033, 67, 8551, 79422, 79422, 151,
+             121, 22, 17, 19536, 549977.42],
+            [8552, 18990, 8611, 8582, 38444906, 66, 8581, 74158, 74158, 181,
+             152, 26, 22, 18990, 549999.42],
+            [8582, 19615, 8642, 8613, 39111434, 65, 8612, 80303, 80303, 212,
+             182, 30, 26, 19615, 549976.52],
+            [8613, 19498, 8673, 8644, 38273515, 64, 8643, 77012, 77012, 243,
+             213, 35, 30, 19498, 549968.52],
+            [8644, 18750, 8703, 8674, 36231667, 63, 8673, 74584, 74584, 273,
+             244, 39, 35, 18750, 549970.68],
+            [8674, 19883, 8734, 8705, 37817814, 62, 8704, 83215, 83215, 304,
+             274, 43, 39, 19883, 549975.4],
+            [8705, 18835, 8764, 8735, 35248831, 61, 8734, 72517, 72517, 334,
+             305, 48, 44, 18835, 549994.55],
+            [8735, 19555, 8795, 8766, 36001500, 60, 8765, 78518, 78518, 365,
+             335, 52, 48, 19555, 549972.81],
+            [8766, 19564, 8826, 8797, 35412833, 59, 8796, 79137, 79137, 31, 1,
+             52, 1, 19564, 549978.43],
+            [8797, 17311, 8854, 8825, 30822537, 58, 8824, 69030, 69030, 59, 32,
+             9, 5, 17311, 549978.8],
+            [8825, 19592, 8885, 8856, 34307381, 57, 8855, 76349, 76349, 90, 60,
+             13, 9, 19592, 549999.75],
+            [8856, 18836, 8915, 8886, 32409370, 56, 8885, 76912, 76912, 120,
+             91, 17, 13, 18836, 549993.43],
+            [8886, 19450, 8946, 8917, 32869549, 55, 8916, 76485, 76485, 151,
+             121, 22, 17, 19450, 549991.63],
+            [8917, 18999, 8976, 8947, 31528811, 54, 8946, 75444, 75444, 181,
+             152, 26, 22, 18999, 549954.5],
+            [8947, 19717, 9007, 8978, 32114828, 53, 8977, 82847, 82847, 212,
+             182, 30, 26, 19717, 549897.62],
+            [8978, 19374, 9038, 9009, 30958832, 52, 9008, 73686, 73686, 243,
+             213, 35, 31, 19374, 549997.21],
+            [9009, 18930, 9068, 9039, 29672253, 51, 9038, 76194, 76194, 273,
+             244, 39, 35, 18930, 549988.66],
+            [9039, 19326, 9099, 9070, 29705446, 50, 9069, 78836, 78836, 304,
+             274, 44, 39, 19326, 549988.18],
+            [9070, 18712, 9129, 9100, 28188682, 49, 9099, 72548, 72548, 334,
+             305, 48, 44, 18712, 549998.37],
+            [9100, 19388, 9160, 9131, 28617365, 48, 9130, 79267, 79267, 365,
+             335, 52, 48, 19388, 549992.25],
+            [9131, 19528, 9191, 9162, 28218588, 47, 9161, 77294, 77294, 31, 1,
+             52, 1, 19528, 549892.57],
+            [9162, 17919, 9219, 9190, 25364207, 46, 9189, 71486, 71486, 59, 32,
+             9, 5, 17919, 549998.27],
+            [9190, 19630, 9250, 9221, 27205946, 45, 9220, 78221, 78221, 90, 60,
+             13, 9, 19630, 549992.9],
+            [9221, 18805, 9280, 9251, 25491065, 44, 9250, 77756, 77756, 120,
+             91, 17, 13, 18805, 549996.84],
+            [9251, 19597, 9311, 9282, 25963379, 43, 9281, 74537, 74537, 151,
+             121, 22, 18, 19597, 549970.41],
+            [9282, 18966, 9341, 9312, 24551715, 42, 9311, 76439, 76439, 181,
+             152, 26, 22, 10121, 549993.31],
+            [9312, 19761, 9372, 9343, 24976578, 41, 9342, 80006, 80006, 212,
+             182, 31, 26, 0, 549920.64],
+            [9343, 19559, 9403, 9374, 24116323, 40, 9373, 76255, 76255, 243,
+             213, 35, 31, 0, 549960.27],
+            [9374, 19036, 9433, 9404, 22890487, 39, 9403, 78121, 78121, 273,
+             244, 39, 35, 0, 549975.36],
+            [9404, 19422, 9464, 9435, 22761930, 38, 9434, 76468, 76468, 304,
+             274, 44, 39, 0, 549933.39],
+            [9435, 18992, 9494, 9465, 21680079, 37, 9464, 75113, 75113, 334,
+             305, 48, 44, 0, 549973.25],
+            [9465, 19769, 9525, 9496, 21963138, 36, 9495, 83387, 83387, 365,
+             335, 52, 48, 0, 549992.4],
+            [9496, 19539, 9556, 9527, 21102806, 35, 9526, 73987, 73987, 31, 1,
+             5, 1, 0, 549888.46],
+            [9527, 18214, 9585, 9556, 19125116, 34, 9555, 73469, 73469, 60, 32,
+             9, 5, 0, 549986.41],
+            [9556, 19516, 9616, 9587, 19905703, 33, 9586, 82174, 82174, 91, 61,
+             13, 9, 0, 549978.27],
+            [9587, 18924, 9646, 9617, 18723420, 32, 9616, 72495, 72495, 121,
+             92, 18, 14, 0, 549953.78],
+            [9617, 19671, 9677, 9648, 18864385, 31, 9647, 78515, 78515, 152,
+             122, 22, 18, 0, 549965.01],
+            [9648, 18771, 9707, 9678, 17429560, 30, 9677, 77778, 77778, 182,
+             153, 26, 22, 0, 549998.38],
+            [9678, 19552, 9738, 9709, 17558314, 29, 9708, 74781, 74781, 213,
+             183, 31, 27, 0, 549981.6],
+            [9709, 19796, 9769, 9740, 17163627, 28, 9739, 81524, 81524, 244,
+             214, 35, 31, 0, 549997.41],
+            [9740, 18987, 9799, 9770, 15884277, 27, 9769, 75889, 75889, 274,
+             245, 40, 35, 0, 549983.04],
+            [9770, 19692, 9830, 9801, 15874655, 26, 9800, 76823, 76823, 305,
+             275, 44, 40, 0, 549970.25],
+            [9801, 19075, 9860, 9831, 14793116, 25, 9830, 78531, 78531, 335,
+             306, 48, 44, 0, 549939.31],
+            [9831, 19792, 9891, 9862, 14746313, 24, 9861, 78033, 78033, 366,
+             336, 52, 1, 0, 549996.54],
+            [9862, 19626, 9922, 9893, 14011336, 23, 9892, 78466, 78466, 31, 1,
+             5, 1, 0, 549958.98],
+            [9893, 17625, 9950, 9921, 12065273, 22, 9920, 70854, 70854, 59, 32,
+             9, 5, 0, 549988.65],
+            [9921, 19623, 9981, 9952, 12853304, 21, 9951, 80121, 80121, 90, 60,
+             14, 9, 0, 549993.03],
+            [9952, 19149, 10011, 9982, 11957406, 20, 9981, 74441, 74441, 120,
+             91, 18, 14, 0, 549962.9],
+            [9982, 19468, 10042, 10013, 11561197, 19, 10012, 79366, 79366, 151,
+             121, 22, 18, 0, 549997.32],
+            [10013, 19070, 10072, 10043, 10746864, 18, 10042, 75837, 75837,
+             181, 152, 27, 22, 0, 549986.63],
+            [10043, 19587, 10103, 10074, 10441515, 17, 10073, 76731, 76731,
+             212, 182, 31, 27, 0, 549990.49],
+            [10074, 19461, 10134, 10105, 9769058, 16, 10104, 81234, 81234, 243,
+             213, 35, 31, 0, 549966.66],
+            [10105, 19120, 10164, 10135, 9015030, 15, 10134, 73663, 73663, 273,
+             244, 40, 36, 0, 549996.76],
+            [10135, 19637, 10195, 10166, 8660807, 14, 10165, 78029, 78029, 304,
+             274, 44, 40, 0, 549882.75],
+            [10166, 19003, 10225, 10196, 7801010, 13, 10195, 79246, 79246, 334,
+             305, 48, 44, 0, 549931.74],
+            [10196, 19512, 10256, 10227, 7414267, 12, 10226, 74268, 74268, 365,
+             335, 52, 1, 0, 549934.16],
+            [10227, 19704, 10287, 10258, 6876811, 11, 10257, 80793, 80793, 31,
+             1, 5, 1, 0, 549988.33],
+            [10258, 17689, 10315, 10286, 5649399, 10, 10285, 71134, 71134, 59,
+             32, 9, 5, 0, 549998.1],
+            [10286, 19393, 10346, 10317, 5625072, 9, 10316, 75922, 75922, 90,
+             60, 14, 9, 0, 549996.47],
+            [10317, 18853, 10376, 10347, 4894211, 8, 10346, 74320, 74320, 120,
+             91, 18, 14, 0, 549949.77],
+            [10347, 19623, 10407, 10378, 4497468, 7, 10377, 82402, 82402, 151,
+             121, 22, 18, 0, 549998.4],
+            [10378, 19110, 10437, 10408, 3792904, 6, 10407, 73203, 73203, 181,
+             152, 27, 23, 0, 549985.89],
+            [10408, 1899, 10440, 10439, 345612, 5, 10438, 7602, 7602, 184, 182,
+             27, 27, 0, 549712.01]]},
+        "compiled": {"mode": "compiled", "memo": "executable",
+                     "counters": [3, 0, 0, 0, 0, 0, 0], "rows": [
+            [8035, 19725, 8095, 8066, 50121521, 83, 8065, 78856, 78856, 31, 1,
+             5, 1, 19725, 549984.44],
+            [8066, 18355, 8124, 8095, 46088791, 82, 8094, 74701, 74701, 60, 32,
+             9, 5, 18355, 549958.32],
+            [8095, 19541, 8155, 8126, 48479810, 81, 8125, 76840, 76840, 91, 61,
+             14, 9, 19541, 549997.0],
+            [8126, 19195, 8185, 8156, 47035225, 80, 8155, 76123, 76123, 121,
+             92, 18, 14, 19195, 549981.11],
+            [8156, 19339, 8216, 8187, 46801373, 79, 8186, 81322, 81322, 152,
+             122, 22, 18, 19339, 549986.37],
+            [8187, 18915, 8246, 8217, 45198877, 78, 8216, 72528, 72528, 182,
+             153, 27, 23, 18915, 549996.5499999999],
+            [8217, 19482, 8277, 8248, 45956870, 77, 8247, 77836, 77836, 213,
+             183, 31, 27, 19482, 549963.36],
+            [8248, 19518, 8308, 8279, 45439186, 76, 8278, 79785, 79785, 244,
+             214, 36, 31, 19518, 549993.23],
+            [8279, 18862, 8338, 8309, 43337786, 75, 8308, 73262, 73262, 274,
+             245, 40, 36, 18862, 549994.61],
+            [8309, 19484, 8369, 8340, 44170104, 74, 8339, 80289, 80289, 305,
+             275, 44, 40, 19484, 549993.26],
+            [8340, 18897, 8399, 8370, 42265405, 73, 8369, 75609, 75609, 335,
+             306, 49, 44, 18897, 549973.39],
+            [8370, 19447, 8430, 8401, 42900434, 72, 8400, 75923, 75923, 366,
+             336, 53, 49, 19447, 549991.38],
+            [8401, 19722, 8461, 8432, 42895990, 71, 8431, 82867, 82867, 31, 1,
+             53, 1, 19722, 549938.11],
+            [8432, 17458, 8489, 8460, 37455390, 70, 8459, 69706, 69706, 59, 32,
+             8, 5, 17458, 549964.16],
+            [8460, 19477, 8520, 8491, 41211669, 69, 8490, 74301, 74301, 90, 60,
+             13, 9, 19477, 549985.9199999999],
+            [8491, 19057, 8550, 8521, 39745369, 68, 8520, 76796, 76796, 120,
+             91, 17, 13, 19057, 549992.85],
+            [8521, 19536, 8581, 8552, 40147033, 67, 8551, 79422, 79422, 151,
+             121, 22, 17, 19536, 549977.4199999999],
+            [8552, 18990, 8611, 8582, 38444906, 66, 8581, 74158, 74158, 181,
+             152, 26, 22, 18990, 549999.4199999999],
+            [8582, 19615, 8642, 8613, 39111434, 65, 8612, 80303, 80303, 212,
+             182, 30, 26, 19615, 549976.52],
+            [8613, 19498, 8673, 8644, 38273515, 64, 8643, 77012, 77012, 243,
+             213, 35, 30, 19498, 549968.52],
+            [8644, 18750, 8703, 8674, 36231667, 63, 8673, 74584, 74584, 273,
+             244, 39, 35, 18750, 549970.6799999999],
+            [8674, 19883, 8734, 8705, 37817814, 62, 8704, 83215, 83215, 304,
+             274, 43, 39, 19883, 549975.4],
+            [8705, 18835, 8764, 8735, 35248831, 61, 8734, 72517, 72517, 334,
+             305, 48, 44, 18835, 549994.5499999999],
+            [8735, 19555, 8795, 8766, 36001500, 60, 8765, 78518, 78518, 365,
+             335, 52, 48, 19555, 549972.8099999999],
+            [8766, 19564, 8826, 8797, 35412833, 59, 8796, 79137, 79137, 31, 1,
+             52, 1, 19564, 549978.4299999999],
+            [8797, 17311, 8854, 8825, 30822537, 58, 8824, 69030, 69030, 59, 32,
+             9, 5, 17311, 549978.7999999999],
+            [8825, 19592, 8885, 8856, 34307381, 57, 8855, 76349, 76349, 90, 60,
+             13, 9, 19592, 549999.75],
+            [8856, 18836, 8915, 8886, 32409370, 56, 8885, 76912, 76912, 120,
+             91, 17, 13, 18836, 549993.4299999999],
+            [8886, 19450, 8946, 8917, 32869549, 55, 8916, 76485, 76485, 151,
+             121, 22, 17, 19450, 549991.63],
+            [8917, 18999, 8976, 8947, 31528811, 54, 8946, 75444, 75444, 181,
+             152, 26, 22, 18999, 549954.5],
+            [8947, 19717, 9007, 8978, 32114828, 53, 8977, 82847, 82847, 212,
+             182, 30, 26, 19717, 549897.62],
+            [8978, 19374, 9038, 9009, 30958832, 52, 9008, 73686, 73686, 243,
+             213, 35, 31, 19374, 549997.21],
+            [9009, 18930, 9068, 9039, 29672253, 51, 9038, 76194, 76194, 273,
+             244, 39, 35, 18930, 549988.66],
+            [9039, 19326, 9099, 9070, 29705446, 50, 9069, 78836, 78836, 304,
+             274, 44, 39, 19326, 549988.1799999999],
+            [9070, 18712, 9129, 9100, 28188682, 49, 9099, 72548, 72548, 334,
+             305, 48, 44, 18712, 549998.37],
+            [9100, 19388, 9160, 9131, 28617365, 48, 9130, 79267, 79267, 365,
+             335, 52, 48, 19388, 549992.25],
+            [9131, 19528, 9191, 9162, 28218588, 47, 9161, 77294, 77294, 31, 1,
+             52, 1, 19528, 549892.57],
+            [9162, 17919, 9219, 9190, 25364207, 46, 9189, 71486, 71486, 59, 32,
+             9, 5, 17919, 549998.27],
+            [9190, 19630, 9250, 9221, 27205946, 45, 9220, 78221, 78221, 90, 60,
+             13, 9, 19630, 549992.9],
+            [9221, 18805, 9280, 9251, 25491065, 44, 9250, 77756, 77756, 120,
+             91, 17, 13, 18805, 549996.84],
+            [9251, 19597, 9311, 9282, 25963379, 43, 9281, 74537, 74537, 151,
+             121, 22, 18, 19597, 549970.41],
+            [9282, 18966, 9341, 9312, 24551715, 42, 9311, 76439, 76439, 181,
+             152, 26, 22, 10121, 549993.3099999999],
+            [9312, 19761, 9372, 9343, 24976578, 41, 9342, 80006, 80006, 212,
+             182, 31, 26, 0, 549920.64],
+            [9343, 19559, 9403, 9374, 24116323, 40, 9373, 76255, 76255, 243,
+             213, 35, 31, 0, 549960.27],
+            [9374, 19036, 9433, 9404, 22890487, 39, 9403, 78121, 78121, 273,
+             244, 39, 35, 0, 549975.36],
+            [9404, 19422, 9464, 9435, 22761930, 38, 9434, 76468, 76468, 304,
+             274, 44, 39, 0, 549933.39],
+            [9435, 18992, 9494, 9465, 21680079, 37, 9464, 75113, 75113, 334,
+             305, 48, 44, 0, 549973.25],
+            [9465, 19769, 9525, 9496, 21963138, 36, 9495, 83387, 83387, 365,
+             335, 52, 48, 0, 549992.4],
+            [9496, 19539, 9556, 9527, 21102806, 35, 9526, 73987, 73987, 31, 1,
+             5, 1, 0, 549888.46],
+            [9527, 18214, 9585, 9556, 19125116, 34, 9555, 73469, 73469, 60, 32,
+             9, 5, 0, 549986.41],
+            [9556, 19516, 9616, 9587, 19905703, 33, 9586, 82174, 82174, 91, 61,
+             13, 9, 0, 549978.27],
+            [9587, 18924, 9646, 9617, 18723420, 32, 9616, 72495, 72495, 121,
+             92, 18, 14, 0, 549953.78],
+            [9617, 19671, 9677, 9648, 18864385, 31, 9647, 78515, 78515, 152,
+             122, 22, 18, 0, 549965.01],
+            [9648, 18771, 9707, 9678, 17429560, 30, 9677, 77778, 77778, 182,
+             153, 26, 22, 0, 549998.38],
+            [9678, 19552, 9738, 9709, 17558314, 29, 9708, 74781, 74781, 213,
+             183, 31, 27, 0, 549981.6],
+            [9709, 19796, 9769, 9740, 17163627, 28, 9739, 81524, 81524, 244,
+             214, 35, 31, 0, 549997.41],
+            [9740, 18987, 9799, 9770, 15884277, 27, 9769, 75889, 75889, 274,
+             245, 40, 35, 0, 549983.0399999999],
+            [9770, 19692, 9830, 9801, 15874655, 26, 9800, 76823, 76823, 305,
+             275, 44, 40, 0, 549970.25],
+            [9801, 19075, 9860, 9831, 14793116, 25, 9830, 78531, 78531, 335,
+             306, 48, 44, 0, 549939.3099999999],
+            [9831, 19792, 9891, 9862, 14746313, 24, 9861, 78033, 78033, 366,
+             336, 52, 1, 0, 549996.5399999999],
+            [9862, 19626, 9922, 9893, 14011336, 23, 9892, 78466, 78466, 31, 1,
+             5, 1, 0, 549958.98],
+            [9893, 17625, 9950, 9921, 12065273, 22, 9920, 70854, 70854, 59, 32,
+             9, 5, 0, 549988.65],
+            [9921, 19623, 9981, 9952, 12853304, 21, 9951, 80121, 80121, 90, 60,
+             14, 9, 0, 549993.03],
+            [9952, 19149, 10011, 9982, 11957406, 20, 9981, 74441, 74441, 120,
+             91, 18, 14, 0, 549962.9],
+            [9982, 19468, 10042, 10013, 11561197, 19, 10012, 79366, 79366, 151,
+             121, 22, 18, 0, 549997.32],
+            [10013, 19070, 10072, 10043, 10746864, 18, 10042, 75837, 75837,
+             181, 152, 27, 22, 0, 549986.63],
+            [10043, 19587, 10103, 10074, 10441515, 17, 10073, 76731, 76731,
+             212, 182, 31, 27, 0, 549990.49],
+            [10074, 19461, 10134, 10105, 9769058, 16, 10104, 81234, 81234, 243,
+             213, 35, 31, 0, 549966.66],
+            [10105, 19120, 10164, 10135, 9015030, 15, 10134, 73663, 73663, 273,
+             244, 40, 36, 0, 549996.76],
+            [10135, 19637, 10195, 10166, 8660807, 14, 10165, 78029, 78029, 304,
+             274, 44, 40, 0, 549882.75],
+            [10166, 19003, 10225, 10196, 7801010, 13, 10195, 79246, 79246, 334,
+             305, 48, 44, 0, 549931.74],
+            [10196, 19512, 10256, 10227, 7414267, 12, 10226, 74268, 74268, 365,
+             335, 52, 1, 0, 549934.16],
+            [10227, 19704, 10287, 10258, 6876811, 11, 10257, 80793, 80793, 31,
+             1, 5, 1, 0, 549988.33],
+            [10258, 17689, 10315, 10286, 5649399, 10, 10285, 71134, 71134, 59,
+             32, 9, 5, 0, 549998.1],
+            [10286, 19393, 10346, 10317, 5625072, 9, 10316, 75922, 75922, 90,
+             60, 14, 9, 0, 549996.47],
+            [10317, 18853, 10376, 10347, 4894211, 8, 10346, 74320, 74320, 120,
+             91, 18, 14, 0, 549949.77],
+            [10347, 19623, 10407, 10378, 4497468, 7, 10377, 82402, 82402, 151,
+             121, 22, 18, 0, 549998.4],
+            [10378, 19110, 10437, 10408, 3792904, 6, 10407, 73203, 73203, 181,
+             152, 27, 23, 0, 549985.89],
+            [10408, 1899, 10440, 10439, 345612, 5, 10438, 7602, 7602, 184, 182,
+             27, 27, 0, 549712.01]]}},
+    "F9": {
+        "dynamic": {"counters": [2, 1, 0, 0, 0, 0, 0], "rows": [
+            [1, 855795, 49725546.0, 4357935.0, 3517367.0, 4972554600.0,
+             1688812.2284080735, 900135.6271580162, 1074954.510310152,
+             3160682.6251212666, 1550831.5412056828, 559.0, 2996.214900000001,
+             155065.68168179697, 1328741.5884685894, 37.69911184307752,
+             0.21746254627672362, 8561173.0, 31129.219999999987],
+            [2, 919074, 151158864.0, 4684400.0, 3780026.0, 15115886400.0,
+             3145493.359216203, 966738.24218451, 2242814.4557378567,
+             3868425.9249333357, 3235697.2929270836, 1043.0, 3221.746299999998,
+             166584.83587904327, 1439500.192232194, 75.39822368615503,
+             0.21746254627672362, 11461208.0, 33454.94000000001],
+            [3, 918298, 252075190.0, 4672934.0, 3772193.0, 25207519000.0,
+             4070090.643537906, 965845.7996522832, 2721646.1326135187,
+             4073935.67243781, 3926505.378576147, -1326.0, 3212.2861000000025,
+             166247.55416631568, 1440022.804184132, 113.09733552923255,
+             0.21746254627672362, 18293009.0, 33386.11000000004],
+            [4, 916704, 352487204.0, 4669595.0, 3768017.0, 35248720400.0,
+             4812055.993517986, 964211.3609962895, 3028673.105056638,
+             4202165.003428013, 4369451.669138984, 834.0, 3209.2551000000008,
+             166098.23793631827, 1438228.8274802112, 150.79644737231007,
+             0.21746254627672362, 25572253.0, 33365.15000000001],
+            [5, 881716, 434940971.0, 4488679.0, 3625325.0, 43494097100.0,
+             5203937.287378641, 927380.376358304, 3121558.7649470135,
+             4137587.594875015, 4503457.350032544, -221.0, 3084.2442,
+             159781.80417186694, 1383691.1987551854, 157.07963267948966,
+             0.21746254627672362, 31028696.0, 32070.740000000038],
+            [6, 676775, 406878425.0, 3446491.0, 2783178.0, 40687842500.0,
+             4235091.058866805, 711842.9686910369, 2478164.0556366616,
+             3234158.343610975, 3575234.9935762957, 328.0, 2370.1753999999987,
+             122659.84560946279, 1062195.7995194308, 157.07963267948966,
+             0.21746254627672362, 26657948.0, 24614.34999999998],
+            [7, 456267, 324189365.0, 2323319.0, 1875238.0, 32418936500.0,
+             2971487.7887569424, 479907.24311755184, 1708562.4223836835,
+             2213559.767468897, 2464934.5338221714, -521.0, 1597.7888999999989,
+             82633.45286790335, 716159.9203517236, 157.07963267948966,
+             0.21746254627672362, 19406419.0, 16592.969999999983],
+            [8, 267384, 218841288.0, 1359987.0, 1099816.0, 21884128800.0,
+             1802118.0436520742, 281221.6043248782, 1020052.2907407243,
+             1313643.7789124344, 1471624.3812990715, -310.0, 934.7489000000006,
+             48435.44371740941, 419710.77392185136, 157.07963267948966,
+             0.21746254627672362, 12159551.0, 9716.82999999999],
+            [9, 102033, 93959827.0, 519259.0, 419370.0, 9395982700.0,
+             706838.9839043911, 107315.89499451498, 394937.6911950429,
+             506516.8937656918, 569774.6485472257, 69.0, 356.98090000000025,
+             18483.34005099651, 160166.69524025824, 157.07963267948966,
+             0.21746254627672362, 4898253.0, 3707.8000000000034],
+            [10, 6555, 6598264.0, 32865.0, 26740.0, 659826400.0,
+             46152.53311250505, 6889.4870505765475, 25586.842346265505,
+             32795.282031536575, 36914.010564964934, -134.0,
+             22.436699999999995, 1181.412767609662, 10290.054977112073,
+             157.07963267948966, 0.21746254627672362, 324964.0,
+             236.10999999999993]]},
+        "compiled": {"mode": "compiled", "memo": "executable",
+                     "counters": [3, 0, 0, 0, 0, 0, 0], "rows": [
+            [1, 855801, 49726206.0, 4357964.0, 3517395.0, 4972620600.0,
+             1688831.8194656384, 900141.9271561668, 1074968.7070652922,
+             3160706.8734773495, 1550852.0227881107, 558.0, 2996.2344000124986,
+             155066.9123958939, 1328750.9861575474, 37.69911184307752,
+             0.21746254627672362, 8561237.0, 31129.43999976179],
+            [2, 919082, 151161284.0, 4684442.0, 3780076.0, 15116128400.0,
+             3145538.1243252624, 966746.6550881275, 2242842.961717022,
+             3868462.470494838, 3235738.418363753, 1044.0, 3221.7715000158587,
+             166586.6787210124, 1439512.752737536, 75.39822368615503,
+             0.21746254627672362, 11461440.0, 33455.249999764696],
+            [3, 918284, 252072110.0, 4672863.0, 3772115.0, 25207211000.0,
+             4070026.2874190276, 965831.086751526, 2721603.4298747093,
+             4073874.8785200063, 3926443.7715398856, -1326.0,
+             3212.241400015853, 166244.48061208177, 1440000.8459893134,
+             113.09733552923255, 0.21746254627672362, 18292713.0,
+             33385.579999762034],
+            [4, 916717, 352492924.0, 4669663.0, 3768063.0, 35249292400.0,
+             4812140.6822760375, 964225.0357084381, 3028721.822967725,
+             4202225.368312873, 4369521.9542201925, 835.0, 3209.3032000156677,
+             166100.3648958805, 1438249.2324454316, 150.79644737231007,
+             0.21746254627672362, 25572805.0, 33365.599999762104],
+            [5, 881703, 434935251.0, 4488611.0, 3625279.0, 43493525100.0,
+             5203852.5985845225, 927366.7016467575, 3121510.0470341984,
+             4137527.2299899417, 4503387.064932495, -222.0, 3084.196100013764,
+             159779.67721353204, 1383670.793788488, 157.07963267948966,
+             0.21746254627672362, 31028144.0, 32070.28999974801],
+            [6, 676775, 406878425.0, 3446491.0, 2783178.0, 40687842500.0,
+             4235091.058854287, 711842.9686917473, 2478164.05563691,
+             3234158.343611079, 3575234.993569741, 328.0, 2370.1754000033006,
+             122659.84560965074, 1062195.799520082, 157.07963267948966,
+             0.21746254627672362, 26657948.0, 24614.34999985595],
+            [7, 456267, 324189365.0, 2323319.0, 1875238.0, 32418936500.0,
+             2971487.788755562, 479907.24311842857, 1708562.422383322,
+             2213559.767468868, 2464934.533816651, -521.0, 1597.7888999999268,
+             82633.45286795363, 716159.9203522374, 157.07963267948966,
+             0.21746254627672362, 19406419.0, 16592.969999973448],
+            [8, 267384, 218841288.0, 1359987.0, 1099816.0, 21884128800.0,
+             1802118.0436509578, 281221.6043251037, 1020052.2907403478,
+             1313643.7789124688, 1471624.3812984321, -310.0, 934.7489000013308,
+             48435.44371741712, 419710.7739217899, 157.07963267948966,
+             0.21746254627672362, 12159551.0, 9716.830000012606],
+            [9, 102033, 93959827.0, 519259.0, 419370.0, 9395982700.0,
+             706838.9839047068, 107315.89499453943, 394937.69119456416,
+             506516.89376567875, 569774.6485476128, 69.0, 356.9809000001145,
+             18483.34005100287, 160166.69524025338, 157.07963267948966,
+             0.21746254627672362, 4898253.0, 3707.800000004676],
+            [10, 6555, 6598264.0, 32865.0, 26740.0, 659826400.0,
+             46152.53311250334, 6889.487050576284, 25586.842346267556,
+             32795.28203153662, 36914.01056496173, -134.0, 22.436699999999536,
+             1181.4127676096662, 10290.05497711233, 157.07963267948966,
+             0.21746254627672362, 324964.0, 236.11000000001462]]}},
+    "F10": {
+        "dynamic": {"counters": [2, 1, 0, 0, 0, 0, 0], "rows": [
+            ['F', 83883796, 54293291393, 2156920344537, 47999792, 0, 0, 15, -2,
+             0, 719489, 0, -5999975],
+            ['O', 81859191, 53068398284, 2112483338841, 47999800, 0, 0, 15, -1,
+             0, 703440, 0, -5999976],
+            ['P', 9004965, 5819613085, 231095466316, 47999808, 0, 0, 15, -70,
+             0, 77071, 0, -5999977]]},
+        "compiled": {"mode": "compiled", "memo": "executable",
+                     "counters": [0, 1, 0, 0, 0, 0, 0]}},
+    "F11": {
+        "dynamic": {"counters": [2, 1, 0, 0, 0, 0, 0], "rows": [
+            ['1', 300041, '["a","b"]', '{"p":1,"tags":["a","b"]}', 600082, 0,
+             300041],
+            ['2', 300574, '[]', '{"p":2,"tags":[]}', 0, 0, 300574],
+            ['3', 899385, '["c"]', '{"p":3,"tags":["c"],"x":{"y":true}}',
+             899385, 1, 899385]]},
+        "compiled": {"mode": "compiled", "memo": "executable",
+                     "counters": [0, 1, 0, 0, 0, 0, 0]}},
+}
+REFERENCE_COUNTERS_SF1.update({
+    name: {mode: v[mode]["counters"] for mode in ("dynamic", "compiled")}
+    for name, v in FN_REFERENCE_SF1.items()})
+REFERENCE_MEMO_SF1.update({name: v["compiled"]["memo"]
+                           for name, v in FN_REFERENCE_SF1.items()})
 # presto_tpu's counters and memo entry of each query at each scale
 # factor the card holds it there, {sf: {name: ...}}; the TPC-DS queries
 # keyed "ds<Q>"
@@ -1430,7 +2139,7 @@ def phase_query(qid, sql, sessions, capture, counters, out):
         runs.append(result.rows)
         sorts.append(sort_counters(result.stats))
     launches = {name: fn.launches for name, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
+    peak = out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     out["launches"] = launches
     out["dynamic_counters"] = sorts[0]
     if any(c != sorts[0] for c in sorts[1:]):
@@ -1443,7 +2152,7 @@ def phase_query(qid, sql, sessions, capture, counters, out):
     if capture.seg is not None:
         out["segment_sum_input"] = capture.seg
     rows = runs[0]
-    out["rows"], out["warm_ms"] = rows, times[1:]
+    out["rows"], out["warm_ms"], out["cold_ms"] = rows, times[1:], times[0]
     out["dynamic_rows"] = rows
     identical = all(r == rows for r in runs[1:])
     # the register path of fused_group_sums and segment_sum add in a
@@ -1462,6 +2171,11 @@ def phase_query(qid, sql, sessions, capture, counters, out):
     if by_design and not identical:
         raise AssertionError(
             f"{label(qid)}: the card's rows differ between runs")
+    if "reference_rows" in out:  # frozen presto_tpu rows, not the CPU's
+        out["reference_rows"](f"{label(qid)} dynamic on cuda", rows)
+        row["matches_reference"] = f"presto_tpu at SF{run_sf}"
+        emit(row)
+        return
     sf = CPU_CHECK_SF[qid]
     t = time.perf_counter()
     on_cpu = sessions["cpu", sf].sql(sql)
@@ -1675,9 +2389,9 @@ def phase_compiled(qid, sql, sessions, capture, counters, out):
     if by_design and not identical:
         raise AssertionError(f"{label(qid)}: compiled replays differ")
     if "rows" in out:
-        assert_query_rows(f"{label(qid)} compiled vs dynamic on cuda", qid,
-                          runs[0], out["rows"],
-                          out.get("abs_tol", {}).get(SF, 0.0))
+        (out.get("compare_compiled") or assert_query_rows)(
+            f"{label(qid)} compiled vs dynamic on cuda", qid, runs[0],
+            out["rows"], out.get("abs_tol", {}).get(SF, 0.0))
         row["matches_dynamic"] = True
     if "cpu_mode" in out:
         row["cpu_execution_mode"] = out["cpu_mode"]
@@ -1891,6 +2605,7 @@ def phase_slice(capture):
     li, o, c = cols["lineitem"], cols["orders"], cols["customer"]
     expected = {1: numpy_q1(li), 6: numpy_q6(li), 3: numpy_q3(c, o, li),
                 18: numpy_q18(c, o, li)}
+    fn_tol = {"F4": fn_tolerances(li)}
     del cols, li, o, c
 
     counters = {"fused_group_sums": K.fused_group_sums_cuda,
@@ -1925,6 +2640,11 @@ def phase_slice(capture):
             counters, launches, by_query)
     emit({"phase": "relational_total", "queries": len(RELATIONAL),
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    guarded("functions", None, phase_functions, sessions, capture,
+            counters, launches, by_query, fn_tol)
+    emit({"phase": "functions_total", "queries": len(FUNCTIONS),
+          "tolerances": fn_tol, "seconds": time.perf_counter() - t0})
     torch.cuda.synchronize()
     emit({"phase": "slice", "launches": launches,
           "launches_by_query": by_query})
@@ -2039,6 +2759,214 @@ def phase_relational(sessions, capture, counters, launches, by_query):
                 capture, counters, out)
         guarded("counters", name, phase_counters, name, out)
         guarded("relational", name, relational_row, name, sql, sessions,
+                out, time.perf_counter() - t0)
+        for mode, got in (("dynamic", out.get("launches")),
+                          ("compiled", out.get("compiled_launches"))):
+            if got is not None:
+                by_query.setdefault(name, {})[mode] = got
+                for kernel in counters:
+                    launches[mode][kernel] += got[kernel]
+
+
+UNIT_ROUNDOFF = 2.0 ** -53  # of f64
+
+
+def fn_tolerances(li) -> dict:
+    """{returnflag: {column: rtol}} for F4's bivariate and moment
+    columns, from the SF1 lineitem columns: each value is a difference of
+    grouped sums (covar_pop = E[xy] - E[x]E[y], skewness's third central
+    moment from the raw power sums, ...), so two summation orders may
+    part by up to 2 n u (the worst-case error of two n-term sums, u the
+    unit roundoff) times its condition number, the summed magnitude of
+    its terms over its own; the bound where it passes QUERY_RTOL."""
+    import numpy as np
+
+    flags = np.asarray(li["l_returnflag"]).astype(str)
+    out = {}
+    for flag in sorted(set(flags.tolist())):
+        m = flags == flag
+        n = float(m.sum())
+        y = np.asarray(li["l_extendedprice"], np.float64)[m]
+        x = np.asarray(li["l_quantity"], np.float64)[m]
+        ex, ey = x.mean(), y.mean()
+        exy, exx, eyy = (x * y).mean(), (x * x).mean(), (y * y).mean()
+        covp, varx, vary = exy - ex * ey, exx - ex * ex, eyy - ey * ey
+        k_cov = (abs(exy) + abs(ex * ey)) / abs(covp)
+        k_vx, k_vy = (exx + ex * ex) / varx, (eyy + ey * ey) / vary
+        slope = covp / varx
+        k_slope = k_cov + k_vx
+        icept = ey - slope * ex
+        k_icept = (abs(ey) + abs(slope * ex) * (1 + k_slope)) / abs(icept)
+
+        def moments(col):
+            v = np.asarray(li[col], np.float64)[m]
+            mu = v.mean()
+            e2, e3, e4 = (v * v).mean(), (v ** 3).mean(), (v ** 4).mean()
+            m2 = e2 - mu * mu
+            m3 = e3 - 3 * mu * e2 + 2 * mu ** 3
+            m4 = e4 - 4 * mu * e3 + 6 * mu * mu * e2 - 3 * mu ** 4
+            k_m2 = (e2 + mu * mu) / m2
+            k_m3 = (abs(e3) + 3 * abs(mu) * e2 + 2 * abs(mu) ** 3) / abs(m3)
+            k_m4 = (e4 + 4 * abs(mu) * abs(e3) + 6 * mu * mu * e2
+                    + 3 * mu ** 4) / abs(m4)
+            return m2, m4, k_m2, k_m3, k_m4
+
+        _, _, k_m2d, k_m3d, _ = moments("l_discount")
+        m2t, m4t, k_m2t, _, k_m4t = moments("l_tax")
+        # kurtosis = A - B, A = n(n+1)/((n-1)(n-2)(n-3)) * M4 / sd2^2
+        a = n * (n + 1) / ((n - 1) * (n - 2) * (n - 3)) \
+            * (n * m4t) / (n * m2t / (n - 1)) ** 2
+        b = 3.0 * (n - 1) ** 2 / ((n - 2) * (n - 3))
+        k_kurt = abs(a) * (k_m4t + 2 * k_m2t) / abs(a - b)
+
+        def rtol(k):
+            return max(QUERY_RTOL, 2 * n * UNIT_ROUNDOFF * k)
+
+        out[flag] = {1: rtol(k_cov + 0.5 * (k_vx + k_vy)), 2: rtol(k_cov),
+                     3: rtol(k_cov), 4: rtol(k_slope), 5: rtol(k_icept),
+                     6: rtol(k_m3d + 1.5 * k_m2d), 7: rtol(k_kurt)}
+    return out
+
+
+def assert_fn_rows(what, name, actual, expected, tolerances=None,
+                   skip=()):
+    """Rows of a function query in order, value by value: the columns
+    of EXACT_FLOAT_COLUMNS and every non-float exactly, other floats
+    within QUERY_RTOL or the row's bound in `tolerances` ({first column:
+    {column: rtol}}); columns in `skip` are not compared."""
+    from presto_tpu_torch.function_queries import EXACT_FLOAT_COLUMNS
+
+    exact = EXACT_FLOAT_COLUMNS.get(name, ())
+    if len(actual) != len(expected):
+        raise AssertionError(f"{what}: {len(actual)} rows, expected "
+                             f"{len(expected)}")
+    for k, (ra, re_) in enumerate(zip(actual, expected)):
+        tol = (tolerances or {}).get(re_[0], {})
+        for i, (a, b) in enumerate(zip(ra, re_)):
+            if i in skip:
+                continue
+            if isinstance(a, float) and isinstance(b, float) \
+                    and i not in exact:
+                ok = a == b or (math.isnan(a) and math.isnan(b)) \
+                    or math.isclose(a, b, rel_tol=tol.get(i, QUERY_RTOL),
+                                    abs_tol=0.0)
+            else:
+                ok = type(a) is type(b) and a == b
+            if not ok:
+                raise AssertionError(f"{what}: row {k} column {i}: {a!r}, "
+                                     f"expected {b!r} ({list(ra)} vs "
+                                     f"{list(re_)})")
+
+
+def fn_reference_rows(name, mode) -> list:
+    """presto_tpu's SF1 rows of a function query in a mode ("dynamic" or
+    "compiled"; FN_REFERENCE_SF1 keeps compiled rows only where they
+    differ from the dynamic ones)."""
+    ref = FN_REFERENCE_SF1[name]
+    return ref[mode].get("rows", ref["dynamic"]["rows"])
+
+
+def fn_mode_exempt(name) -> tuple:
+    """The columns where presto_tpu's own two modes give different rows
+    at SF1 (approx_distinct's register count follows the static
+    capacity, not the live group count): compiled rows on the card need
+    not equal the dynamic ones there.  None for a query whose compiled
+    rows are held to presto_tpu's dynamic ones (FN_COMPILED_AS_DYNAMIC)."""
+    if name in FN_COMPILED_AS_DYNAMIC:
+        return ()
+    cols = set()
+    for rd, rc in zip(fn_reference_rows(name, "dynamic"),
+                      fn_reference_rows(name, "compiled")):
+        cols.update(i for i, (a, b) in enumerate(zip(rd, rc))
+                    if not values_agree(a, b))
+    return tuple(sorted(cols))
+
+
+def functions_row(name, sql, sessions, out, seconds):
+    """The functions phase's line for one corpus query: its card, rows,
+    cold, warm and replay times, device busy and idle shares (a profiled
+    warm dynamic run and the compiled replay's), peak device bytes of
+    the dynamic runs, the graph or "DYNAMIC", counters and memo beside
+    presto_tpu's, launches and kernel shapes."""
+    missing = [k for k in ("warm_ms", "compiled_row", "compiled_counters")
+               if k not in out]
+    if missing:
+        raise AssertionError(f"{name}: no {missing} (a step failed)")
+    comp = out["compiled_row"]
+    prof = profile_run(sessions["dynamic", SF], sql, top=FN_TOP_KERNELS)
+    emit({"phase": "functions", "query": name, "card": card_line(),
+          "sf": SF, "rows": len(out["rows"]),
+          "cold_ms": out["cold_ms"], "dynamic_warm_ms": out["warm_ms"],
+          "compiled_first_run_ms": comp["first_run_ms"],
+          "compiled_replay_ms": out["replay_ms"],
+          "graph": "graph" if comp["graph"] else comp["memo"],
+          "graph_device_ms": comp.get("graph_device_ms"),
+          "pool_bytes": comp.get("pool_bytes"),
+          "peak_device_bytes": out["peak_device_bytes"],
+          "dynamic_profile": prof,
+          "compiled_profile": {k: comp.get(k) for k in (
+              "wall_ms", "device_busy_ms", "device_idle_share",
+              "kernel_launches", "top_kernels")},
+          "counters": {"dynamic": out["dynamic_counters"],
+                       "compiled": out["compiled_counters"]},
+          "reference_counters": REFERENCE_COUNTERS_SF1[name],
+          "memo": comp["memo"], "reference_memo": REFERENCE_MEMO_SF1[name],
+          "exempt_compiled_columns": fn_mode_exempt(name),
+          "launches": {"dynamic": out["launches"],
+                       "compiled": out.get("compiled_launches")},
+          "kernel_shapes": {
+              "dynamic": sorted(set(map(tuple, out.get(
+                  "dynamic_kernel_shapes", [])))),
+              "compiled": sorted(set(map(tuple, comp["kernel_shapes"])))},
+          "seconds": seconds})
+
+
+def phase_functions(sessions, capture, counters, launches, by_query,
+                    tolerances):
+    """The function corpus at SF1 on the card over the TPC-H sessions,
+    each query in the dynamic executor (phase_query, its rows held to
+    presto_tpu's dynamic rows) and in compiled mode (phase_compiled, its
+    rows held to the dynamic run's and to presto_tpu's compiled rows, its
+    execution mode to presto_tpu's), with the counters of both against
+    presto_tpu's (phase_counters), then one `functions` line
+    (functions_row).  Launch counts add into the slice's."""
+    from presto_tpu_torch.function_queries import QUERIES
+
+    if tuple(QUERIES) != FUNCTIONS:
+        raise AssertionError(f"corpus {tuple(QUERIES)} != {FUNCTIONS}")
+    for name in FUNCTIONS:
+        t0 = time.perf_counter()
+        sql, ref = QUERIES[name], FN_REFERENCE_SF1[name]
+        tol = tolerances.get(name)
+        skip = fn_mode_exempt(name)
+
+        def held(mode):
+            def check(what, rows):
+                assert_fn_rows(what, name, rows,
+                               fn_reference_rows(name, mode), tol)
+            return check
+
+        def compiled_vs_dynamic(what, qid, rows, dynamic_rows, abs_tol):
+            assert_fn_rows(what, name, rows, dynamic_rows, skip=skip)
+
+        out = {"reference_rows": held("dynamic"),
+               "compare_compiled": compiled_vs_dynamic}
+        guarded("query", name, phase_query, name, sql, sessions, capture,
+                counters, out)
+        guarded("compiled", name, phase_compiled, name, sql, sessions,
+                capture, counters, out)
+        if "compiled_rows" in out:
+            held_to = "dynamic" if name in FN_COMPILED_AS_DYNAMIC \
+                else "compiled"
+            guarded("functions", name, held(held_to),
+                    f"{name} compiled on cuda vs presto_tpu {held_to}",
+                    out["compiled_rows"])
+            mode = out["compiled_row"]["execution_mode"]
+            if mode != ref["compiled"]["mode"]:
+                fail("functions", name, f"execution mode {mode} on cuda, "
+                     f"{ref['compiled']['mode']} in presto_tpu")
+        guarded("counters", name, phase_counters, name, out)
+        guarded("functions", name, functions_row, name, sql, sessions,
                 out, time.perf_counter() - t0)
         for mode, got in (("dynamic", out.get("launches")),
                           ("compiled", out.get("compiled_launches"))):

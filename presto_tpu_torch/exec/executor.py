@@ -33,12 +33,32 @@ both in sorts_taken, sorts_elided, sort_memo_hits,
 ordering_guard_trips, df_filters_produced, df_filters_applied and
 df_rows_pruned.
 
+Aggregates (`_agg_column`, PORTED_AGGS), each one scalar a group, in
+both executors: count, count_if, sum, avg (over intervals too: an
+interval's average truncates toward zero), min, max, the stddev/variance
+family, approx_distinct (a HyperLogLog register matrix per grouping,
+kernels.hll_registers_and_estimate; string values hashed by XXH64 of
+their dictionary entries; the optional error argument sets m; DISTINCT
+counts exactly), COUNT/SUM ... WITH ERROR (approx_count, approx_sum: a
+1-in-8 value-hash sample scaled by 8), checksum, approx_percentile (one
+constant percentile, no weight: kernels.group_percentile), min_by and
+max_by (two arguments), arbitrary / any_value, geometric_mean, bool_and
+/ every / bool_or, corr, covar_samp, covar_pop, regr_slope,
+regr_intercept, skewness, kurtosis, entropy, bitwise_and_agg and
+bitwise_or_agg.
+
 Not ported yet, and raising NotImplementedError when reached: chunked
 and distributed execution, batched compiled execution and prepared
 statements, float32_compute, every statement other than a query (the
 write nodes TableWriter and TableFinish with them), the plan nodes
-Unnest and SpatialJoin, and the aggregates outside count, count_if, sum,
-avg, min, max and the stddev/variance family. Not ported either, and
+Unnest and SpatialJoin, DECIMAL aggregates, and the aggregates that
+return collections or sketch states or run on the host (array_agg,
+map_agg, multimap_agg, histogram, numeric_histogram, map_union*, set_*,
+approx_most_frequent, reduce_agg, approx_set, merge, qdigest_agg,
+tdigest_agg, min_by / max_by with three arguments, the array and
+weighted approx_percentile, learn_* and classification_*, and the
+$hll_* / $kll_* states of chunked and distributed execution). Not
+ported either, and
 changing no result: sort-order materialization (it serves chunked
 execution), runtime-domain stripe pruning (df_splits_pruned: its tables
 are not ported), the host summaries of the cluster side channel, spill
@@ -47,6 +67,7 @@ degradation and adaptive partial aggregation.
 
 from __future__ import annotations
 
+import math
 import re
 import time
 from typing import Dict, List, Optional
@@ -90,6 +111,20 @@ SORT_STATS_KEYS = ("sorts_taken", "sorts_elided", "sort_memo_hits",
 #: the moment aggregates _agg_column computes from two grouped sums
 _VARIANCE_AGGS = ("stddev", "stddev_samp", "stddev_pop", "variance",
                   "var_samp", "var_pop")
+
+#: the bivariate aggregates, from five grouped co-moment sums; Presto's
+#: argument order is (y, x)
+_BIVARIATE_AGGS = ("corr", "covar_samp", "covar_pop", "regr_slope",
+                   "regr_intercept")
+
+#: every aggregate _agg_column computes (each returns one scalar a group)
+PORTED_AGGS = frozenset((
+    "count", "count_if", "sum", "avg", "min", "max", *_VARIANCE_AGGS,
+    "approx_distinct", "approx_count", "approx_sum", "checksum",
+    "approx_percentile", "min_by", "max_by", "geometric_mean",
+    "arbitrary", "any_value", "bool_and", "every", "bool_or",
+    *_BIVARIATE_AGGS, "skewness", "kurtosis", "entropy",
+    "bitwise_and_agg", "bitwise_or_agg"))
 
 
 def _merge_sort_stats(stats, counts: dict) -> None:
@@ -695,7 +730,11 @@ class Executor:
             pre = self._aggregate(b, node.group_keys + [darg], {})
             aggs2 = {}
             for s, a in by_col[darg].items():
-                if a.fn in ("count", "sum", "avg", "min", "max"):
+                if a.fn in ("count", "approx_distinct"):
+                    # the deduplicated pre-group counts exactly
+                    aggs2[s] = ir.AggCall("count", a.args, a.type, False,
+                                          a.filter)
+                elif a.fn in ("sum", "avg", "min", "max"):
                     # over the deduplicated pre-group these equal their
                     # DISTINCT forms
                     aggs2[s] = ir.AggCall(a.fn, a.args, a.type, False,
@@ -1014,8 +1053,9 @@ class Executor:
             return Column(K.segment_sum(m.to(torch.int32), gid, n_groups,
                                         order).to(torch.int64),
                           None, T.BIGINT)
-        if a.fn not in ("count", "sum", "avg", "min", "max") \
-                and a.fn not in _VARIANCE_AGGS:
+        if a.fn not in PORTED_AGGS or (a.fn in ("min_by", "max_by")
+                                       and len(a.args) != 2):
+            # the collection, sketch-state and host aggregates
             raise NotImplementedError(
                 f"aggregate {a.fn} is not ported to presto_tpu_torch")
         col = to_column(eval_expr(a.args[0], b, self.ctx), b.capacity,
@@ -1026,27 +1066,100 @@ class Executor:
         cnt = K.segment_sum(valid.to(torch.int32), gid, n_groups,
                             order).to(torch.int64)
         nonempty = cnt > 0
+
+        def seg_sum(x):
+            return K.segment_sum(x, gid, n_groups, order)
+
         if a.fn == "count":
             return Column(cnt, None, T.BIGINT)
+        if a.fn == "approx_distinct":
+            est = K.hll_registers_and_estimate(K.hll_hash64(col), valid, gid,
+                                               n_groups, m=_hll_m(a))
+            return Column(est, None, T.BIGINT)
+        if a.fn in ("approx_count", "approx_sum"):
+            # COUNT/SUM ... WITH ERROR: the rows of a deterministic 1-in-8
+            # value-hash sample, scaled by exactly 8
+            keep = valid & K.sketch_sample_mask(K.hll_hash64(col))
+            if a.fn == "approx_count":
+                return Column(seg_sum(keep.to(torch.int32)).to(torch.int64)
+                              * 8, None, T.BIGINT)
+            s = seg_sum(torch.where(keep, col.data,
+                                    torch.zeros_like(col.data)))
+            if a.type.is_integer:
+                s = s.to(torch.int64)
+            return Column(s.to(torch_dtype(a.type)) * 8, nonempty, a.type)
+        if a.fn == "checksum":
+            # a wrapping sum of the rows' 64-bit key hashes (strings hash
+            # their codes)
+            h = K._hash_keys([col], valid)
+            return Column(seg_sum(torch.where(valid, h, 0)), nonempty,
+                          T.BIGINT)
+        if a.fn == "approx_percentile":
+            p = eval_expr(a.args[1], b, self.ctx).data
+            if isinstance(p, torch.Tensor) or len(a.args) > 2 \
+                    or a.type.name == "ARRAY":
+                raise NotImplementedError(
+                    "approx_percentile is ported for one constant "
+                    "percentile without a weight")
+            vals, ok = K.group_percentile(col.data, valid, gid, n_groups,
+                                          float(p), order)
+            return Column(vals.to(col.data.dtype), ok, a.type,
+                          col.dictionary)
+        if a.fn in ("min_by", "max_by"):
+            # ranked by the key's validity alone: a NULL value at the
+            # winning row comes back NULL; ties go to the last row
+            yv = to_column(eval_expr(a.args[1], b, self.ctx), b.capacity,
+                           self.device)
+            yvalid = mask if yv.valid is None else (mask & yv.valid)
+            is_min = a.fn == "min_by"
+            ykey = torch.where(yvalid, K._orderable_int(yv),
+                               K.I64_MAX if is_min else -K.I64_MAX)
+            # the extreme key of each group through its rank in one
+            # sort of the keys (ranks are exact in f64)
+            by_key = K.argsort_stable(ykey)
+            rank = K.unpermute(by_key, torch.arange(b.capacity,
+                                                    device=self.device))
+            best = K.segment_extreme_f64(rank, order, is_min)
+            best = torch.where(torch.isfinite(best), best, 0.0).long()
+            extremum = ykey[by_key[best.clamp(0, max(b.capacity - 1, 0))]]
+            hit = yvalid & (ykey == _at_group(extremum, gid, n_groups))
+            idx, ok = self._last_row(hit, order, b.capacity)
+            val_valid = ok if col.valid is None else (ok & col.valid[idx])
+            return Column(col.data[idx], val_valid, a.type, col.dictionary)
+        if a.fn in ("arbitrary", "any_value"):
+            idx, ok = self._last_row(valid, order, b.capacity)
+            return Column(col.data[idx], nonempty & ok, a.type,
+                          col.dictionary)
+        if a.fn == "geometric_mean":
+            x = torch.where(valid, col.data.to(torch.float64), 1.0)
+            s = seg_sum(torch.log(x.clamp_min(1e-300)))
+            return Column(torch.exp(s / cnt.clamp_min(1)), nonempty,
+                          T.DOUBLE)
         if a.fn == "sum":
             x = torch.where(valid, col.data, torch.zeros_like(col.data))
-            s = K.segment_sum(x, gid, n_groups, order)
+            s = seg_sum(x)
             if a.type.is_integer:
                 s = s.to(torch.int64)
             return Column(s.to(torch_dtype(a.type)), nonempty, a.type)
         if a.fn == "avg":
             if a.type.name.startswith("INTERVAL"):
-                raise NotImplementedError("avg over intervals is not ported")
+                # an interval's average stays an interval: the micros or
+                # months sum divided truncating toward zero
+                s = seg_sum(torch.where(valid, col.data,
+                                        torch.zeros_like(col.data)))
+                s = s.to(torch.int64)
+                d = cnt.clamp_min(1)
+                return Column(torch.sign(s) * (s.abs() // d), nonempty,
+                              a.type)
             x = torch.where(valid, col.data.to(torch.float64), 0.0)
-            s = K.segment_sum(x, gid, n_groups, order)
-            return Column(s / cnt.clamp_min(1), nonempty, T.DOUBLE)
+            return Column(seg_sum(x) / cnt.clamp_min(1), nonempty, T.DOUBLE)
         if a.fn in _VARIANCE_AGGS:
             # the reference's moments: var_pop = E[x^2] - E[x]^2 from two
             # grouped sums in segment_sum's fixed order, the sample
             # variants scaled by n / (n - 1) and NULL below two rows
             x = torch.where(valid, col.data.to(torch.float64), 0.0)
-            s1 = K.segment_sum(x, gid, n_groups, order)
-            s2 = K.segment_sum(x * x, gid, n_groups, order)
+            s1 = seg_sum(x)
+            s2 = seg_sum(x * x)
             nf = cnt.clamp_min(1).to(torch.float64)
             var = (s2 / nf - (s1 / nf) ** 2).clamp_min(0.0)
             if a.fn in ("stddev_pop", "var_pop"):
@@ -1056,12 +1169,75 @@ class Executor:
                 ok = nonempty & (cnt > 1)
             r = torch.sqrt(var) if a.fn.startswith("stddev") else var
             return Column(r, ok, T.DOUBLE)
+        if a.fn in ("bool_and", "every", "bool_or"):
+            x = torch.where(valid, col.data.to(torch.bool),
+                            a.fn != "bool_or")
+            r = K.segment_extreme_f64(x, order, a.fn != "bool_or")
+            return Column(r > 0, nonempty, T.BOOLEAN)
+        if a.fn in _BIVARIATE_AGGS:
+            return self._bivariate(b, a, col, valid, seg_sum)
+        if a.fn in ("skewness", "kurtosis"):
+            return _central_moment(a.fn, col, valid, cnt, seg_sum)
+        if a.fn == "entropy":
+            # log2(S) - sum(c * log2 c) / S over the nonnegative counts
+            c = torch.where(valid, col.data.to(torch.float64), 0.0)
+            c = c.clamp_min(0.0)
+            s = seg_sum(c)
+            clogc = seg_sum(torch.where(
+                c > 0, c * _log2(c.clamp_min(1e-300)), 0.0))
+            sc = s.clamp_min(1e-300)
+            r = torch.where(s > 0, _log2(sc) - clogc / sc, 0.0)
+            return Column(r, nonempty, T.DOUBLE)
+        if a.fn in ("bitwise_and_agg", "bitwise_or_agg"):
+            return _bitwise_agg(a.fn, col, valid, gid, n_groups, nonempty)
         ext = K._reduce_identity(col.data.dtype, a.fn == "min")
         x = torch.where(valid, col.data,
                         torch.full_like(col.data, ext))
         f = K.segment_min if a.fn == "min" else K.segment_max
         return Column(f(x, gid, n_groups).to(col.data.dtype), nonempty,
                       a.type, col.dictionary)
+
+    @staticmethod
+    def _last_row(hit, order: K.GroupOrder, capacity: int):
+        """Each group's last row where `hit` is set: (a row index clipped
+        into the batch, whether there is one)."""
+        rows = torch.arange(capacity, dtype=torch.float64, device=hit.device)
+        idx = K.segment_extreme_f64(torch.where(hit, rows, -1.0), order,
+                                    False)
+        ok = idx >= 0
+        return idx.clamp(0, max(capacity - 1, 0)).long(), ok
+
+    def _bivariate(self, b: Batch, a: ir.AggCall, col: Column, valid,
+                   seg_sum) -> Column:
+        """corr, covar_samp, covar_pop, regr_slope and regr_intercept of
+        (y, x) from the grouped sums n, sx, sy, sxy, sxx and syy over the
+        rows where both are valid."""
+        xv = to_column(eval_expr(a.args[1], b, self.ctx), b.capacity,
+                       self.device)
+        both = valid if xv.valid is None else (valid & xv.valid)
+        y = torch.where(both, col.data.to(torch.float64), 0.0)
+        x = torch.where(both, xv.data.to(torch.float64), 0.0)
+        n = seg_sum(both.to(torch.int32)).to(torch.float64)
+        sx, sy = seg_sum(x), seg_sum(y)
+        sxy, sxx, syy = seg_sum(x * y), seg_sum(x * x), seg_sum(y * y)
+        n1 = n.clamp_min(1.0)
+        covp = sxy / n1 - (sx / n1) * (sy / n1)
+        varx = (sxx / n1 - (sx / n1) ** 2).clamp_min(0.0)
+        vary = (syy / n1 - (sy / n1) ** 2).clamp_min(0.0)
+        if a.fn == "covar_pop":
+            return Column(covp, n > 0, T.DOUBLE)
+        if a.fn == "covar_samp":
+            return Column(covp * n / (n - 1.0).clamp_min(1.0), n > 1,
+                          T.DOUBLE)
+        if a.fn == "corr":
+            denom = torch.sqrt(varx * vary)
+            return Column(covp / denom.clamp_min(1e-300),
+                          (n > 1) & (denom > 0), T.DOUBLE)
+        slope = covp / varx.clamp_min(1e-300)
+        ok = (n > 1) & (varx > 0)
+        if a.fn == "regr_slope":
+            return Column(slope, ok, T.DOUBLE)
+        return Column(sy / n1 - slope * (sx / n1), ok, T.DOUBLE)
 
     def _global_aggregate(self, b: Batch,
                           aggs: Dict[str, ir.AggCall]) -> Batch:
@@ -1569,6 +1745,75 @@ class Executor:
 
     def _exec_output(self, node: P.Output) -> Batch:
         return self.exec_node(node.source).select(list(node.symbols))
+
+
+def _hll_m(a: ir.AggCall) -> int:
+    """Register count for an approx_distinct call: its optional second
+    argument is a literal maximum standard error."""
+    if len(a.args) >= 2 and isinstance(a.args[1], ir.Lit) \
+            and a.args[1].value is not None:
+        return K.hll_m_for_error(float(a.args[1].value))
+    return 1024
+
+
+def _log2(x: torch.Tensor) -> torch.Tensor:
+    """log2 as jnp.log2 computes it, ln(x) / ln(2): entropy of one value
+    cancels to exactly 0 this way, where torch.log2's rounding leaves an
+    ulp."""
+    return torch.log(x) / math.log(2.0)
+
+
+def _at_group(values: torch.Tensor, gid: torch.Tensor,
+              n_groups: int) -> torch.Tensor:
+    """values[gid] for per-group values, a masked row's gid (n_groups)
+    clipped onto the last group (its results are masked anyway)."""
+    if n_groups == 0:
+        return torch.zeros(gid.shape, dtype=values.dtype,
+                           device=values.device)
+    return values[gid.clamp(0, n_groups - 1).long()]
+
+
+def _central_moment(fn: str, col: Column, valid, cnt, seg_sum) -> Column:
+    """skewness and kurtosis from the raw power sums (the sample
+    estimators; NULL below 3 and 4 rows or without spread).  Powers are
+    products in the order XLA's integer_pow multiplies them."""
+    x = torch.where(valid, col.data.to(torch.float64), 0.0)
+    n = cnt.clamp_min(1).to(torch.float64)
+    x2 = x * x
+    s1, s2, s3 = seg_sum(x), seg_sum(x2), seg_sum(x * x2)
+    mu = s1 / n
+    mu2 = mu * mu
+    m2 = (s2 - n * mu * mu).clamp_min(0.0)
+    sd2 = m2 / (n - 1.0).clamp_min(1.0)
+    if fn == "skewness":
+        m3 = s3 - 3 * mu * s2 + 2 * n * (mu * mu2)
+        r = n / ((n - 1) * (n - 2)).clamp_min(1.0) \
+            * m3 / (sd2 ** 1.5).clamp_min(1e-300)
+        return Column(r, (cnt > 2) & (m2 > 0), T.DOUBLE)
+    s4 = seg_sum(x2 * x2)
+    m4 = s4 - 4 * mu * s3 + 6 * mu * mu * s2 - 3 * n * (mu2 * mu2)
+    d = ((n - 1) * (n - 2) * (n - 3)).clamp_min(1.0)
+    r = n * (n + 1) / d * m4 / (sd2 * sd2).clamp_min(1e-300) \
+        - 3.0 * ((n - 1) * (n - 1)) / ((n - 2) * (n - 3)).clamp_min(1.0)
+    return Column(r, (cnt > 3) & (m2 > 0), T.DOUBLE)
+
+
+def _bitwise_agg(fn: str, col: Column, valid, gid, n_groups: int,
+                 nonempty) -> Column:
+    """bitwise_and_agg / bitwise_or_agg: a per-bit grouped min or max
+    over the (rows, 64) bit plane, the bits then summed back into one
+    int64 (bit 63 wraps into the sign)."""
+    shifts = torch.arange(64, dtype=torch.int64, device=col.data.device)
+    bits = ((col.data.to(torch.int64)[:, None] >> shifts[None, :]) & 1) \
+        .to(torch.int32)
+    is_and = fn == "bitwise_and_agg"
+    bits = torch.where(valid[:, None], bits, int(is_and))
+    red = torch.full((n_groups + 1, 64), int(is_and), dtype=torch.int32,
+                     device=bits.device)
+    red.scatter_reduce_(0, gid.long()[:, None].expand(-1, 64), bits,
+                        "amin" if is_and else "amax")
+    r = (red[:n_groups].to(torch.int64) << shifts[None, :]).sum(dim=1)
+    return Column(r, nonempty, T.BIGINT)
 
 
 def _leaf_views(b: Batch) -> Batch:

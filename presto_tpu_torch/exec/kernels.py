@@ -490,6 +490,31 @@ def segment_sum(x: torch.Tensor, gid: torch.Tensor, n_groups: int,
                                 initial=0.0).to(_out_dtype(x))
 
 
+def segment_extreme_f64(x: torch.Tensor, order: "GroupOrder",
+                        for_min: bool) -> torch.Tensor:
+    """Per-group min or max of float64 values (integers below 2^53, such
+    as row numbers and ranks, are exact in them) in GroupOrder's fixed
+    order: two segment reductions and no atomics.  segment_min/max
+    scatter with atomics, which contend when millions of rows fall into
+    a few groups; an empty group gives +inf (min) or -inf (max)."""
+    ident = float("inf") if for_min else float("-inf")
+    xf = x.to(torch.float64)
+    G = order.n_groups
+    if G == 1:
+        if xf.shape[0] == 0:
+            return torch.full((1,), ident, dtype=torch.float64,
+                              device=x.device)
+        return (xf.min() if for_min else xf.max())[None]
+    if G == 0:
+        return torch.zeros((0,), dtype=torch.float64, device=x.device)
+    perm, _, _, level1, level2 = order.plan()
+    how = "min" if for_min else "max"
+    chunks = torch.segment_reduce(xf[perm], how, offsets=level1,
+                                  unsafe=True, initial=ident)
+    return torch.segment_reduce(chunks, how, offsets=level2, unsafe=True,
+                                initial=ident)
+
+
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return x.dtype if x.is_floating_point() else torch.int64
 
@@ -1061,6 +1086,151 @@ def rf_domain(col: Column, live: torch.Tensor):
                 torch.tensor(I64_MIN, device=d.device))
     return (torch.where(live, d, I64_MAX).min(),
             torch.where(live, d, I64_MIN).max())
+
+
+# ---------------------------------------------------------------------------
+# sketches: approx_distinct as a vectorized HyperLogLog over one register
+# matrix, the value-hash sample of COUNT/SUM ... WITH ERROR, and the
+# grouped percentile of approx_percentile.  The reference's uint64 values
+# run as int64 bit patterns (masks and `_lsr` for the unsigned shifts),
+# and nothing reads a tensor back to the host.
+# ---------------------------------------------------------------------------
+
+HLL_MAX_REGISTERS = 1 << 23  # cells of the register matrix, all groups
+
+
+def dictionary_value_hashes(dic: Dictionary) -> np.ndarray:
+    """XXH64 of each dictionary entry's UTF-8 bytes, as int64 bits, kept
+    beside the dictionary (computed once per dictionary)."""
+    from presto_tpu_torch.exec.xxh64 import xxh64_values
+
+    return dic.derived("xxh64", lambda: xxh64_values(dic.values).view(
+        np.int64))
+
+
+def hll_hash64(col: Column) -> torch.Tensor:
+    """The value hash of approx_distinct, as int64 bits: string columns
+    hash their values (XXH64 of each dictionary entry, so dictionaries
+    with other code assignments agree), numeric columns splitmix their
+    orderable integers (`_rf_mix64` is the same mix)."""
+    dic = col.dictionary
+    if dic is not None:
+        if len(dic) == 0:
+            return torch.zeros(col.data.shape, dtype=torch.int64,
+                               device=col.data.device)
+        hv = upload(dictionary_value_hashes(dic), col.data.device)
+        return hv[col.data.clamp(0, len(dic) - 1).long()]
+    return _rf_mix64(_orderable_int(col))
+
+
+def hll_register_count(n_groups: int, m: int = 1024) -> int:
+    """The registers a group gets: m, halved (not below 64) until the
+    matrix holds at most HLL_MAX_REGISTERS cells."""
+    while m > 64 and n_groups * m > HLL_MAX_REGISTERS:
+        m //= 2
+    return m
+
+
+def _bit_length32(w: torch.Tensor) -> torch.Tensor:
+    """Bits needed for each w in [0, 2^32) (0 for 0), by binary search
+    in integers: the reference's rho, 32 - floor(log2(w)) in f64 (33 for
+    0), is 33 minus this on every device."""
+    n = torch.zeros_like(w)
+    for s in (16, 8, 4, 2, 1):
+        hi = w >= (1 << s)
+        n = n + torch.where(hi, s, 0)
+        w = torch.where(hi, w >> s, w)
+    return n + (w > 0).to(w.dtype)
+
+
+def hll_registers_and_estimate(h: torch.Tensor, valid: torch.Tensor,
+                               gid: torch.Tensor, n_groups: int,
+                               m: int = 1024) -> torch.Tensor:
+    """HyperLogLog per group: the low log2(m) bits of the hash pick a
+    register, the next 32 bits give rho (the position of their leading
+    one, 33 for none), one scatter-max fills the (n_groups, m) matrix,
+    and hll_estimate reads it.  m shrinks with many groups
+    (hll_register_count)."""
+    m = hll_register_count(n_groups, m)
+    log2m = m.bit_length() - 1
+    reg = h & (m - 1)
+    w = _lsr(h, log2m) & 0xFFFFFFFF
+    rho = 33 - _bit_length32(w)
+    dead = n_groups * m
+    seg = torch.where(valid, gid.to(torch.int64) * m + reg, dead)
+    M = torch.zeros((dead + 1,), dtype=torch.int64, device=h.device)
+    M.scatter_reduce_(0, seg.clamp(0, dead), torch.where(valid, rho, 0),
+                      "amax")
+    return hll_estimate(M[:dead].reshape(n_groups, m))
+
+
+def hll_m_for_error(e: float) -> int:
+    """Register count for a standard error e: the power of two with
+    1.04 / sqrt(m) <= e, in [64, 65536]."""
+    m = 64
+    while m < 65536 and 1.04 / np.sqrt(m) > e:
+        m *= 2
+    return m
+
+
+_NEG_POW2: Dict[str, torch.Tensor] = {}  # 2^-k, k = 0..64, per device
+
+
+def hll_estimate(M: torch.Tensor) -> torch.Tensor:
+    """Bias-corrected HLL estimate with small-range linear counting from
+    an (n_groups, m) integer register matrix; int64, rounded half to
+    even.  The sum of 2^-M is exact in f64 (powers of two from a table,
+    at most 49 significant bits), so its order does not matter."""
+    m = M.shape[1]
+    key = str(M.device)
+    pow2 = _NEG_POW2.get(key)
+    if pow2 is None:
+        pow2 = _NEG_POW2[key] = upload(
+            np.asarray([2.0 ** -k for k in range(65)]), M.device)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    E = alpha * m * m / pow2[M.clamp(0, 64)].sum(dim=1)
+    zeros = (M == 0).sum(dim=1)
+    linear = m * torch.log(m / zeros.clamp_min(1).to(torch.float64))
+    est = torch.where((E <= 2.5 * m) & (zeros > 0), linear, E)
+    return torch.round(est).to(torch.int64)
+
+
+def sketch_sample_mask(h: torch.Tensor) -> torch.Tensor:
+    """The deterministic 1-in-8 value sample of COUNT/SUM ... WITH
+    ERROR: rows whose value hash is 0 modulo 8."""
+    return (h & 7) == 0
+
+
+def _f64_sort_key(x: torch.Tensor) -> torch.Tensor:
+    """An int64 key ordering doubles as jnp.lexsort does on every
+    device: -0.0 equal to 0.0, every NaN last."""
+    b = x.view(torch.int64)
+    key = torch.where(b < 0, b ^ I64_MAX, b)
+    key = torch.where(x == 0, 0, key)
+    return torch.where(torch.isnan(x), I64_MAX, key)
+
+
+def group_percentile(x: torch.Tensor, valid: torch.Tensor,
+                     gid: torch.Tensor, n_groups: int, p: float,
+                     order: Optional["GroupOrder"] = None):
+    """Each group's p-th value by one global sort by (group, value): the
+    value at rank floor(p * (count - 1)) of the group's valid rows, and
+    whether the group has any.  Ties keep row order (stable sorts, minor
+    key first), and the value comes back as the input held it."""
+    cnt = segment_sum(valid.to(torch.int64), gid, n_groups, order)
+    xf = torch.where(valid, x.to(torch.float64), float("inf"))
+    g = torch.where(valid, gid.to(torch.int64), n_groups)
+    perm = argsort_stable(_f64_sort_key(xf))
+    perm = perm[argsort_stable(g[perm])]
+    starts = torch.cumsum(cnt, 0) - cnt
+    last = (cnt - 1).clamp_min(0)
+    k = torch.minimum(torch.floor(p * last.to(torch.float64))
+                      .to(torch.int64).clamp_min(0), last)
+    pos = (starts + k).clamp(0, max(x.shape[0] - 1, 0))
+    if x.shape[0] == 0:
+        return torch.zeros((n_groups,), dtype=x.dtype,
+                           device=x.device), cnt > 0
+    return x[perm[pos]], cnt > 0
 
 
 # ---------------------------------------------------------------------------

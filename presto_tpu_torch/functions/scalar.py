@@ -1,30 +1,57 @@
 """Scalar function registry: SQL-level signature resolution + torch emission.
 
-Reference: presto_tpu/functions/scalar.py (and the integer `mod` of
-presto_tpu/functions/scalar_ext.py, which overrides it there). Ported so
-far, the functions the 22 TPC-H and 99 TPC-DS queries reach: arithmetic
-(add, sub, mul, div, mod, neg) over the non-decimal numeric types, ABS
-and ROUND, DATE +- INTERVAL, the six comparisons (numeric and temporal;
-strings against a literal, within one dictionary or across two, whose
-dictionaries then merge), the three-valued AND / OR / NOT, numeric
-CASTs, IS NULL, COALESCE, NULLIF, IF, CASE, LIKE, SUBSTRING / SUBSTR,
-UPPER, CONCAT and `||` over strings, and the EXTRACT family (year,
-month, day, quarter, day of week, day of year, week). The planner
-resolves only registered names, so any other function raises
-NotImplementedError with its name (plan/planner.py `_call`).
+Reference: presto_tpu/functions/scalar.py (with the overrides of its
+other modules that change what these names compute: the integer `mod` of
+scalar_ext.py; day_of_week, day_of_year and week_of_year of
+scalar_ext.py and from_unixtime and to_unixtime of datetime_tz.py agree
+with scalar.py's for the types ported).  Ported, 103 names:
+- arithmetic (add, sub, mul, div, mod, neg) over the non-decimal numeric
+  types, DATE +- INTERVAL, the six comparisons (numeric and temporal;
+  strings against a literal, within one dictionary or across two, whose
+  dictionaries then merge), three-valued AND / OR / NOT, numeric CASTs,
+  IS NULL, COALESCE, NULLIF, IF, CASE, LIKE;
+- strings: SUBSTRING / SUBSTR, UPPER, LOWER, TRIM, LTRIM, RTRIM,
+  REVERSE, REPLACE, LENGTH, STRPOS, POSITION, STARTS_WITH, ENDS_WITH,
+  CONTAINS_STR, LPAD, RPAD, REPEAT, SPLIT_PART, CODEPOINT, CHR (of a
+  constant), CONCAT and `||`; REGEXP_LIKE, REGEXP_EXTRACT and
+  REGEXP_REPLACE (Python's re; `$n` group references);
+- math: ABS, ROUND, TRUNCATE, FLOOR, CEIL / CEILING, SIGN, SQRT, EXP,
+  LN, LOG10, LOG(base, x), POWER / POW, ATAN2, PI, E, WIDTH_BUCKET,
+  GREATEST, LEAST; bitwise AND, OR, XOR, NOT and the shifts;
+- dates: the EXTRACT family (year, month, day, quarter, day of week,
+  day of year, week), DATE(text), DATE_ADD, DATE_DIFF, DATE_TRUNC,
+  LAST_DAY_OF_MONTH, DAY_OF_WEEK / DOW, DAY_OF_YEAR / DOY, WEEK_OF_YEAR
+  / WEEK, FROM_UNIXTIME (one argument), TO_UNIXTIME;
+- JSON over VARCHAR or JSON dictionaries: JSON_EXTRACT,
+  JSON_EXTRACT_SCALAR, JSON_FORMAT, JSON_PARSE, JSON_ARRAY_LENGTH,
+  JSON_SIZE, IS_JSON_SCALAR.
+Not ported: the names of scalar.py that build or read ARRAY, MAP or ROW
+values or T-digest and HLL sketches, the $hll_reg and $hll_rho of
+distributed approx_distinct, its trigonometric family (sin .. exp2,
+which scalar_ext.py registers again), DECIMAL arithmetic, and the
+modules scalar_ext.py, scalar_ext2.py, datetime_tz.py, geospatial.py
+and ml.py.  The planner resolves only registered names, so any other
+function raises NotImplementedError with its name (plan/planner.py
+`_call`).
 
 String functions are host transforms over the dictionary (one Python
-call per dictionary entry, never per row) followed by one code lookup
-on the device, as in the reference.
+call per dictionary entry, never per row), kept beside the dictionary
+(`Dictionary.derived`), followed by one lookup on the device through
+`batch.upload`: a string result is a new sorted dictionary and a code
+table, a BOOLEAN one a predicate table, a numeric one a value table.
 
 Null semantics as in the reference: strict null propagation, except
 AND/OR/IS NULL/COALESCE/NULLIF/IF/CASE, which implement SQL
 three-valued logic, and integer `mod`, whose result is NULL for a zero
-divisor.
+divisor.  Where torch and XLA differ, the reference's values are kept:
+shift counts outside [0, 63] give 0, float -> int conversions give 0
+for NaN and saturate, sign keeps -0.0 and NaN, log10 is ln(x) / ln(10).
 """
 
 from __future__ import annotations
 
+import json
+import math
 import operator
 import re
 from typing import Callable, Dict, Optional
@@ -669,23 +696,49 @@ def _transform_lut(dictionary: Dictionary, fn, extra: tuple):
     return dictionary.derived((fn, extra), compute)
 
 
-def _str_transform(name, fn):
-    """A VARCHAR -> VARCHAR function of constant extra arguments, run
-    once per dictionary entry on the host."""
+def _value_lut(dictionary: Dictionary, fn, extra: tuple,
+               out: T.Type) -> np.ndarray:
+    """fn over every entry of a dictionary as a BOOLEAN predicate table
+    or a numeric value table in out's dtype, kept beside the
+    dictionary."""
+    def compute():
+        if out.name == "BOOLEAN":
+            return np.fromiter((bool(fn(v, *extra))
+                                for v in dictionary.values), bool,
+                               len(dictionary))
+        return np.asarray([fn(v, *extra) for v in dictionary.values],
+                          dtype=out.numpy_dtype())
+
+    return dictionary.derived(("value", fn, extra, out.name), compute)
+
+
+def _constant(name: str, v: ColVal):
+    """The python value of a constant argument."""
+    if _is_tensor(v.data) and v.data.ndim > 0:
+        raise NotImplementedError(
+            f"{name} with non-constant arguments is not ported")
+    return v.data.item() if _is_tensor(v.data) else v.data
+
+
+def _str_transform(name, fn, out: T.Type = T.VARCHAR):
+    """A function of a string and constant extra arguments, run once per
+    dictionary entry on the host (reference: _str_transform): a VARCHAR
+    or JSON result is a new dictionary and a code lookup, a BOOLEAN one
+    a predicate table, a numeric one a value table, each gathered
+    through the codes on the device."""
     def emit(args):
         col = args[0]
-        extra = []
-        for a in args[1:]:
-            if _is_tensor(a.data) and a.data.ndim > 0:
-                raise NotImplementedError(
-                    f"{name} with non-constant arguments is not ported")
-            extra.append(a.data.item() if _is_tensor(a.data) else a.data)
+        extra = tuple(_constant(name, a) for a in args[1:])
         if isinstance(col.data, str):
-            return ColVal(fn(col.data, *extra), col.valid, T.VARCHAR)
-        lut, out = _transform_lut(col.dictionary, fn, tuple(extra))
-        return ColVal(_gather_lut(col, lut), col.valid, T.VARCHAR, out)
+            return ColVal(fn(col.data, *extra), col.valid, out)
+        if out.is_string:
+            lut, d = _transform_lut(col.dictionary, fn, extra)
+            return ColVal(_gather_lut(col, lut), col.valid, out, d)
+        return ColVal(_gather_lut(col, _value_lut(col.dictionary, fn,
+                                                  extra, out)),
+                      col.valid, out)
 
-    return (lambda args: T.VARCHAR if args[0].is_string else None), emit
+    return (lambda args: out if args[0].is_string else None), emit
 
 
 def _substr(v, start, length=None):
@@ -777,13 +830,18 @@ register("concat",
 # ---- EXTRACT and its shorthands --------------------------------------------
 
 
+def _days_of(v: ColVal):
+    """Days since the epoch of a DATE or TIMESTAMP value, as int64."""
+    d = v.data
+    if v.type.name == "TIMESTAMP":
+        d = d // _US_PER_DAY
+    return d.to(torch.int64) if _is_tensor(d) else int(d)
+
+
 def _extract_emit(field):
     def emit(args):
         v = args[0]
-        days = v.data
-        if v.type.name == "TIMESTAMP":
-            days = days // _US_PER_DAY
-        days = days.to(torch.int64) if _is_tensor(days) else int(days)
+        days = _days_of(v)
         y, m, d = civil_from_days(days)
         if field == "YEAR":
             r = y
@@ -850,6 +908,649 @@ register("abs",
          lambda args: _resolve_numeric1(args) if len(args) == 1 else None,
          _emit_abs)
 register("round", _resolve_numeric1, _emit_round)
+
+
+# ---- more string functions (host transforms over the dictionary) ----------
+
+
+def _pad(v, n, p, left):
+    n = int(n)
+    if n < 0:
+        raise ValueError(f"pad target length must be >= 0 (got {n})")
+    p = str(p) or " "
+    if len(v) >= n:
+        return v[:n]
+    fill = (p * ((n - len(v)) // len(p) + 1))[:n - len(v)]
+    return fill + v if left else v + fill
+
+
+def _lpad(v, n, p=" "):
+    return _pad(v, n, p, True)
+
+
+def _rpad(v, n, p=" "):
+    return _pad(v, n, p, False)
+
+
+def _split_part(v, delim, idx):
+    parts = v.split(str(delim))
+    i = int(idx)
+    return parts[i - 1] if 1 <= i <= len(parts) else ""
+
+
+def _find(v, sub):
+    """1-based character position of sub in v, 0 when absent."""
+    return v.find(str(sub)) + 1
+
+
+for _n, _f, _t in (
+        ("lower", lambda v: v.lower(), T.VARCHAR),
+        ("trim", lambda v: v.strip(), T.VARCHAR),
+        ("ltrim", lambda v: v.lstrip(), T.VARCHAR),
+        ("rtrim", lambda v: v.rstrip(), T.VARCHAR),
+        ("reverse", lambda v: v[::-1], T.VARCHAR),
+        ("replace", lambda v, old, new="": v.replace(str(old), str(new)),
+         T.VARCHAR),
+        ("length", len, T.BIGINT),
+        ("strpos", _find, T.BIGINT),
+        ("position", _find, T.BIGINT),
+        ("starts_with", lambda v, p: v.startswith(str(p)), T.BOOLEAN),
+        ("ends_with", lambda v, p: v.endswith(str(p)), T.BOOLEAN),
+        ("contains_str", lambda v, sub: str(sub) in v, T.BOOLEAN),
+        ("lpad", _lpad, T.VARCHAR),
+        ("rpad", _rpad, T.VARCHAR),
+        ("repeat", lambda v, n: v * int(n), T.VARCHAR),
+        ("split_part", _split_part, T.VARCHAR),
+        ("codepoint", lambda v: ord(v[0]) if v else 0, T.BIGINT)):
+    register(_n, *_str_transform(_n, _f, _t))
+
+
+def _emit_chr(args):
+    a = args[0]
+    if _is_tensor(a.data) and a.data.ndim > 0:
+        raise NotImplementedError("chr of non-constant")
+    return ColVal(chr(int(_constant("chr", a))), a.valid, T.VARCHAR)
+
+
+register("chr", lambda args: T.VARCHAR if args[0].is_integer else None,
+         _emit_chr)
+
+
+# ---- regular expressions (Python's re over the dictionary entries) --------
+
+
+def _regexp_like(v, pattern):
+    return re.search(str(pattern), v) is not None
+
+
+def _regexp_extract(v, pattern, group=0):
+    m = re.search(str(pattern), v)
+    if m is None:
+        return ""
+    return m.group(int(group))
+
+
+def _regexp_replace(v, pattern, repl=""):
+    # $0..$9 are group references and every other character is literal:
+    # backslashes are escaped first so that none forms a re escape
+    py_repl = str(repl).replace("\\", "\\\\")
+    py_repl = re.sub(r"\$(\d+)", r"\\g<\1>", py_repl)
+    return re.sub(str(pattern), py_repl, v)
+
+
+register("regexp_like",
+         *_str_transform("regexp_like", _regexp_like, T.BOOLEAN))
+register("regexp_extract",
+         *_str_transform("regexp_extract", _regexp_extract))
+register("regexp_replace",
+         *_str_transform("regexp_replace", _regexp_replace))
+
+
+# ---- JSON (JSON values ride VARCHAR or JSON dictionaries; path lookups are
+# host transforms like the string functions) ----------------------------------
+
+
+def _json_path_get(v, path):
+    """The JsonPath subset $.a.b[0] of the reference (None where the
+    document or the path does not parse, or nothing is there)."""
+    try:
+        doc = json.loads(v)
+    except (ValueError, TypeError):
+        return None
+    p = str(path)
+    if not p.startswith("$"):
+        return None
+    i = 1
+    cur = doc
+    while i < len(p) and cur is not None:
+        if p[i] == ".":
+            j = i + 1
+            while j < len(p) and p[j] not in ".[":
+                j += 1
+            key = p[i + 1:j]
+            cur = cur.get(key) if isinstance(cur, dict) else None
+            i = j
+        elif p[i] == "[":
+            j = p.find("]", i)
+            if j < 0:
+                return None
+            token = p[i + 1:j].strip("\"'")
+            if isinstance(cur, list):
+                try:
+                    cur = cur[int(token)]
+                except (ValueError, IndexError):
+                    cur = None
+            elif isinstance(cur, dict):
+                cur = cur.get(token)
+            else:
+                cur = None
+            i = j + 1
+        else:
+            return None
+    return cur
+
+
+def _json_compact(doc) -> str:
+    return json.dumps(doc, separators=(",", ":"))
+
+
+def _json_extract(v, path):
+    r = _json_path_get(v, path)
+    return "" if r is None else _json_compact(r)
+
+
+def _json_extract_scalar(v, path):
+    r = _json_path_get(v, path)
+    if r is None or isinstance(r, (dict, list)):
+        return ""
+    if isinstance(r, bool):
+        return "true" if r else "false"
+    if isinstance(r, float) and math.isfinite(r) and r == int(r):
+        return str(int(r))
+    return str(r)
+
+
+def _json_array_length(v):
+    try:
+        doc = json.loads(v)
+    except (ValueError, TypeError):
+        return 0
+    return len(doc) if isinstance(doc, list) else 0
+
+
+def _json_size(v, path):
+    r = _json_path_get(v, path)
+    return len(r) if isinstance(r, (dict, list)) else 0
+
+
+def _is_json_scalar(v):
+    try:
+        doc = json.loads(v)
+    except (ValueError, TypeError):
+        return False
+    return not isinstance(doc, (dict, list))  # JSON null is a scalar
+
+
+def _json_canonical(v):
+    """The document in compact form; text that is not JSON raises."""
+    return _json_compact(json.loads(v))
+
+
+for _n, _f, _t in (
+        ("json_extract", _json_extract, T.VARCHAR),
+        ("json_extract_scalar", _json_extract_scalar, T.VARCHAR),
+        ("json_format", _json_canonical, T.VARCHAR),
+        ("json_parse", _json_canonical, T.JSON),
+        ("json_array_length", _json_array_length, T.BIGINT),
+        ("json_size", _json_size, T.BIGINT),
+        ("is_json_scalar", _is_json_scalar, T.BOOLEAN)):
+    register(_n, *_str_transform(_n, _f, _t))
+
+
+# ---- math -------------------------------------------------------------------
+
+
+def _f64(x):
+    """A value as float64: a tensor converted, a python number as
+    np.float64 (whose math gives NaN and inf where python's raises)."""
+    return x.to(torch.float64) if _is_tensor(x) else np.float64(x)
+
+
+def _scalar(x):
+    """A numpy scalar result back as a python number."""
+    return x.item() if isinstance(x, np.generic) else x
+
+
+def _f64_to_i64(x):
+    """float64 -> int64 as XLA converts: truncating, NaN to 0, out of
+    range saturating (torch leaves these undefined)."""
+    if not _is_tensor(x):
+        x = float(x)
+        if math.isnan(x):
+            return 0
+        if x >= 2.0 ** 63:
+            return I64_MAX
+        return max(int(x), I64_MIN)
+    big = x >= 2.0 ** 63
+    safe = torch.where(torch.isnan(x) | big, 0.0, x.clamp_min(-2.0 ** 63))
+    return torch.where(big, I64_MAX, safe.to(torch.int64))
+
+
+I64_MAX = (1 << 63) - 1
+I64_MIN = -(1 << 63)
+
+
+def _double1(tfn, nfn):
+    """numeric -> DOUBLE, elementwise."""
+    def emit(args):
+        x = _f64(args[0].data)
+        if _is_tensor(x):
+            return ColVal(tfn(x), args[0].valid, T.DOUBLE)
+        with np.errstate(all="ignore"):
+            return ColVal(float(nfn(x)), args[0].valid, T.DOUBLE)
+
+    return (lambda args: T.DOUBLE if args[0].is_numeric else None), emit
+
+
+register("sqrt", *_double1(torch.sqrt, np.sqrt))
+register("exp", *_double1(torch.exp, np.exp))
+register("ln", *_double1(torch.log, np.log))
+# ln(x) / ln(10), as jnp.log10 computes it
+register("log10", *_double1(lambda x: torch.log(x) / math.log(10.0),
+                            lambda x: np.log(x) / math.log(10.0)))
+
+
+def _same_type1(tfn, nfn):
+    """numeric -> its own type; an integer argument comes back as it is
+    (as jnp.floor and jnp.ceil leave integers)."""
+    def emit(args):
+        a = args[0]
+        if a.type.is_integer:
+            return a
+        if _is_tensor(a.data):
+            return ColVal(tfn(a.data), a.valid, a.type)
+        with np.errstate(all="ignore"):
+            return ColVal(float(nfn(np.float64(a.data))), a.valid, a.type)
+
+    return (lambda args: args[0] if len(args) == 1 and args[0].is_numeric
+            and not args[0].is_decimal else None), emit
+
+
+register("floor", *_same_type1(torch.floor, np.floor))
+register("ceil", *_same_type1(torch.ceil, np.ceil))
+register("ceiling", *_same_type1(torch.ceil, np.ceil))
+
+
+def _emit_sign(args):
+    """sign as XLA computes it: -1, 0 or 1 for integers; a float's sign
+    as -1.0 or 1.0, a zero and NaN returned as they are (-0.0 stays)."""
+    a = args[0]
+    x = a.data
+    if a.type.is_integer:
+        r = torch.sign(x) if _is_tensor(x) else (x > 0) - (x < 0)
+    elif _is_tensor(x):
+        r = torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, x)).to(x.dtype)
+    else:
+        x = float(x)
+        r = x if x == 0 or x != x else (1.0 if x > 0 else -1.0)
+    return ColVal(r, a.valid, a.type)
+
+
+register("sign",
+         lambda args: args[0] if len(args) == 1 and args[0].is_numeric
+         and not args[0].is_decimal else None,
+         _emit_sign)
+
+
+def _double2(tfn, nfn):
+    """(numeric, numeric) -> DOUBLE, NULL where either is."""
+    def emit(args):
+        x, y = (_f64(a.data) for a in args)
+        if _is_tensor(x) or _is_tensor(y):
+            dev = (x if _is_tensor(x) else y).device
+            x, y = (v if _is_tensor(v) else torch.full(
+                (), float(v), dtype=torch.float64, device=dev) for v in (x, y))
+            r = tfn(x, y)
+        else:
+            with np.errstate(all="ignore"):
+                r = float(nfn(x, y))
+        return ColVal(r, all_valid(*args), T.DOUBLE)
+
+    return (lambda args: T.DOUBLE if len(args) == 2 else None), emit
+
+
+register("power", *_double2(torch.pow, np.power))
+register("pow", *_double2(torch.pow, np.power))
+register("atan2", *_double2(torch.atan2, np.arctan2))
+# log(base, value) = ln(value) / ln(base)
+register("log", *_double2(lambda b, x: torch.log(x) / torch.log(b),
+                          lambda b, x: np.log(x) / np.log(b)))
+register("pi", lambda args: T.DOUBLE if not args else None,
+         lambda args: ColVal(float(np.pi), None, T.DOUBLE))
+register("e", lambda args: T.DOUBLE if not args else None,
+         lambda args: ColVal(float(np.e), None, T.DOUBLE))
+
+
+def _emit_truncate(args):
+    """truncate(x[, d]): toward zero at d decimal digits; an integer
+    argument comes back as it is."""
+    a = args[0]
+    if a.type.is_integer:
+        return a
+    d = int(_constant("truncate", args[1])) if len(args) > 1 else 0
+    scale = 10.0 ** d
+    if _is_tensor(a.data):
+        return ColVal(torch.trunc(a.data * scale) / scale, a.valid, a.type)
+    return ColVal(float(np.trunc(float(a.data) * scale) / scale), a.valid,
+                  a.type)
+
+
+register("truncate", _resolve_numeric1, _emit_truncate)
+
+
+def _emit_width_bucket(args):
+    """width_bucket(x, lo, hi, n): floor((x - lo) / (hi - lo) * n) + 1
+    clipped into [0, n + 1], NaN in bucket 0 (XLA's conversion)."""
+    x = _f64(args[0].data)
+    lo, hi, n = (a.data for a in args[1:])
+    raw = (x - lo) / (hi - lo) * n
+    if _is_tensor(raw):
+        r = (torch.floor(raw) + 1).clamp_min(0.0)
+        r = torch.minimum(r, n.to(torch.float64) + 1) if _is_tensor(n) \
+            else r.clamp_max(float(n) + 1)
+    else:
+        with np.errstate(all="ignore"):
+            r = float(np.clip(np.floor(raw) + 1, 0.0, float(n) + 1))
+    return ColVal(_f64_to_i64(r), all_valid(*args), T.BIGINT)
+
+
+register("width_bucket", lambda args: T.BIGINT if len(args) == 4 else None,
+         _emit_width_bucket)
+
+
+def _fold(tfn, nfn):
+    """greatest / least: the pairwise maximum or minimum, NaN winning,
+    NULL where any argument is; typed as the first argument."""
+    def emit(args):
+        acc = args[0].data
+        for a in args[1:]:
+            x = a.data
+            if _is_tensor(acc) or _is_tensor(x):
+                dev = (acc if _is_tensor(acc) else x).device
+                acc, x = (v if _is_tensor(v) else torch.full(
+                    (), v, dtype=torch.float64 if isinstance(v, float)
+                    else torch.int64, device=dev) for v in (acc, x))
+                acc = tfn(acc, x)
+            else:
+                acc = _scalar(nfn(acc, x))
+        return ColVal(acc, all_valid(*args), args[0].type)
+
+    return emit
+
+
+register("greatest", _resolve_coalesce, _fold(torch.maximum, np.maximum))
+register("least", _resolve_coalesce, _fold(torch.minimum, np.minimum))
+
+
+# ---- bitwise (BIGINT two's complement) --------------------------------------
+
+
+def _i64(x):
+    """An integer value as int64: a tensor converted, a python int
+    wrapped into the signed 64-bit range."""
+    if _is_tensor(x):
+        return x.to(torch.int64)
+    x = int(x) & ((1 << 64) - 1)
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def _int_tensors(x, y):
+    """Two int64 operands as tensors on one device (a python one as a
+    0-d tensor), when either is a tensor."""
+    ref = x if _is_tensor(x) else y
+    return tuple(v if _is_tensor(v) else torch.full(
+        (), v, dtype=torch.int64, device=ref.device) for v in (x, y))
+
+
+def _shift_left(x, s):
+    """x << s as XLA shifts: 0 for a count outside [0, 63] (torch leaves
+    such counts undefined)."""
+    if not (_is_tensor(x) or _is_tensor(s)):
+        return _i64(x << s) if 0 <= s < 64 else 0
+    x, s = _int_tensors(x, s)
+    return torch.where((s >= 0) & (s < 64), x << s.clamp(0, 63), 0)
+
+
+def _shift_right_logical(x, s):
+    """x >> s on the uint64 bits (Presto's bitwise_right_shift): 0 for a
+    count outside [0, 63], a negative count being a huge unsigned one.
+    torch's >> on int64 is arithmetic, so the copied sign bits are
+    masked off."""
+    if not (_is_tensor(x) or _is_tensor(s)):
+        return _i64((x & ((1 << 64) - 1)) >> s) if 0 <= s < 64 else 0
+    x, s = _int_tensors(x, s)
+    sc = s.clamp(1, 63)
+    r = torch.where(s == 0, x, (x >> sc) & ~(-1 << (64 - sc)))
+    return torch.where((s >= 0) & (s < 64), r, 0)
+
+
+def _bitwise2(fn):
+    def emit(args):
+        x, y = (_i64(a.data) for a in args)
+        return ColVal(fn(x, y), all_valid(*args), T.BIGINT)
+
+    return (lambda args: T.BIGINT if len(args) == 2
+            and all(a.is_integer for a in args) else None), emit
+
+
+def _wrap(op):
+    def run(x, y):
+        r = op(x, y)
+        return r if _is_tensor(r) else _i64(r)
+
+    return run
+
+
+register("bitwise_and", *_bitwise2(_wrap(operator.and_)))
+register("bitwise_or", *_bitwise2(_wrap(operator.or_)))
+register("bitwise_xor", *_bitwise2(_wrap(operator.xor)))
+register("bitwise_left_shift", *_bitwise2(_shift_left))
+register("bitwise_right_shift", *_bitwise2(_shift_right_logical))
+register("bitwise_not",
+         lambda args: T.BIGINT if len(args) == 1 and args[0].is_integer
+         else None,
+         lambda args: ColVal(~_i64(args[0].data), args[0].valid, T.BIGINT))
+
+
+# ---- dates ------------------------------------------------------------------
+
+
+def _as_date(r):
+    return r.to(torch.int32) if _is_tensor(r) else int(r)
+
+
+def _to_days(s) -> int:
+    return int((np.datetime64(str(s).strip(), "D")
+                - np.datetime64("1970-01-01", "D")) / np.timedelta64(1, "D"))
+
+
+register("date", *_str_transform("date", _to_days, T.DATE))
+
+
+def _emit_date_add(args):
+    """date_add(unit, n, date) for day, week, month and year."""
+    unit = args[0].data if isinstance(args[0].data, str) else None
+    n, d = args[1].data, args[2]
+    x = _days_of(d)
+    if _is_tensor(n) and not _is_tensor(x):
+        x = torch.full_like(n, x, dtype=torch.int64)
+    if unit in ("day", "DAY"):
+        return ColVal(_as_date(x + n), d.valid, T.DATE)
+    if unit in ("week", "WEEK"):
+        return ColVal(_as_date(x + 7 * n), d.valid, T.DATE)
+    if unit in ("month", "MONTH"):
+        return ColVal(add_months(x, n), d.valid, T.DATE)
+    if unit in ("year", "YEAR"):
+        return ColVal(add_months(x, 12 * n), d.valid, T.DATE)
+    raise NotImplementedError(f"date_add unit {unit}")
+
+
+register("date_add",
+         lambda args: T.DATE if len(args) == 3 and args[2].name == "DATE"
+         else None,
+         _emit_date_add)
+
+
+def _sign(x):
+    return torch.sign(x) if _is_tensor(x) else (x > 0) - (x < 0)
+
+
+def _next_month_start(y, m):
+    """Days since the epoch of the first day of the month after (y, m)."""
+    return days_from_civil(_where(m == 12, y + 1, y),
+                           _where(m == 12, 1, m + 1), 1)
+
+
+def _month_length(y, m):
+    return _next_month_start(y, m) - days_from_civil(y, m, 1)
+
+
+def _minimum(a, b):
+    if _is_tensor(a) or _is_tensor(b):
+        return torch.minimum(torch.as_tensor(a), torch.as_tensor(b))
+    return min(a, b)
+
+
+def _emit_date_diff(args):
+    """date_diff(unit, a, b): whole units from a to b; months, quarters
+    and years count complete months only (the start day clamped to the
+    end month's length)."""
+    unit = args[0].data if isinstance(args[0].data, str) else None
+    if unit is None:
+        raise NotImplementedError("date_diff with non-constant unit")
+    unit = unit.lower()
+    a, b = args[1], args[2]
+    da, db = _days_of(a), _days_of(b)
+    if unit == "day":
+        r = db - da
+    elif unit == "week":
+        r = (db - da) // 7
+    elif unit in ("month", "quarter", "year"):
+        ya, ma, dda = civil_from_days(da)
+        yb, mb, ddb = civil_from_days(db)
+        months = (yb - ya) * 12 + (mb - ma)
+        fwd = ddb < _minimum(dda, _month_length(yb, mb))
+        bwd = dda < _minimum(ddb, _month_length(ya, ma))
+        months = months - ((months > 0) & fwd) * 1 + ((months < 0) & bwd) * 1
+        k = {"month": 1, "quarter": 3, "year": 12}[unit]
+        r = _sign(months) * (abs(months) // k)
+    elif unit in ("hour", "minute", "second", "millisecond") and \
+            a.type.name == "TIMESTAMP" and b.type.name == "TIMESTAMP":
+        step = {"hour": 3_600_000_000, "minute": 60_000_000,
+                "second": 1_000_000, "millisecond": 1_000}[unit]
+        r = (b.data - a.data) // step
+    else:
+        raise NotImplementedError(f"date_diff({unit})")
+    return ColVal(r.to(torch.int64) if _is_tensor(r) else int(r),
+                  all_valid(a, b), T.BIGINT)
+
+
+register("date_diff", lambda args: T.BIGINT if len(args) == 3 else None,
+         _emit_date_diff)
+
+
+def _emit_date_trunc(args):
+    unit = args[0].data if isinstance(args[0].data, str) else None
+    if unit is None:
+        raise NotImplementedError("date_trunc with non-constant unit")
+    unit = unit.lower()
+    v = args[1]
+    is_ts = v.type.name == "TIMESTAMP"
+    days = _days_of(v)
+    y, m, _ = civil_from_days(days)
+    if unit == "day":
+        r = days
+    elif unit == "week":  # ISO weeks start on Monday
+        r = days - (days + 3) % 7
+    elif unit == "month":
+        r = days_from_civil(y, m, 1)
+    elif unit == "quarter":
+        r = days_from_civil(y, ((m - 1) // 3) * 3 + 1, 1)
+    elif unit == "year":
+        r = days_from_civil(y, 1, 1)
+    elif unit in ("hour", "minute", "second") and is_ts:
+        step = {"hour": 3_600_000_000, "minute": 60_000_000,
+                "second": 1_000_000}[unit]
+        return ColVal(v.data // step * step, v.valid, v.type)
+    else:
+        raise NotImplementedError(f"date_trunc({unit}, {v.type})")
+    if is_ts:
+        return ColVal(r * _US_PER_DAY, v.valid, v.type)
+    return ColVal(_as_date(r), v.valid, T.DATE)
+
+
+register("date_trunc",
+         lambda args: args[1] if len(args) == 2 and args[1].is_temporal
+         else None,
+         _emit_date_trunc)
+
+
+def _emit_last_day_of_month(args):
+    v = args[0]
+    y, m, _ = civil_from_days(_days_of(v))
+    return ColVal(_as_date(_next_month_start(y, m) - 1), v.valid, T.DATE)
+
+
+register("last_day_of_month",
+         lambda args: T.DATE if args[0].is_temporal else None,
+         _emit_last_day_of_month)
+
+
+def _iso_week(days):
+    """ISO-8601 week number: the week holding this date's Thursday,
+    counted within the Thursday's year."""
+    thursday = days - (days + 3) % 7 + 3
+    ty, _, _ = civil_from_days(thursday)
+    return (thursday - days_from_civil(ty, 1, 1)) // 7 + 1
+
+
+def _date_field(fn):
+    return (lambda args: T.BIGINT if args and args[0].is_temporal else None,
+            lambda args: ColVal(fn(_days_of(args[0])), args[0].valid,
+                                T.BIGINT))
+
+
+def _day_of_week(days):
+    return (days + 3) % 7 + 1  # ISO: Monday 1 .. Sunday 7
+
+
+def _day_of_year(days):
+    return days - days_from_civil(civil_from_days(days)[0], 1, 1) + 1
+
+
+for _names, _f in ((("day_of_week", "dow"), _day_of_week),
+                   (("day_of_year", "doy"), _day_of_year),
+                   (("week_of_year", "week"), _iso_week)):
+    for _n in _names:
+        register(_n, *_date_field(_f))
+
+
+def _resolve_from_unixtime(args):
+    if len(args) > 1:
+        raise NotImplementedError(
+            "from_unixtime with a time zone is not ported to "
+            "presto_tpu_torch")
+    return T.TIMESTAMP if args[0].is_numeric else None
+
+
+register("from_unixtime", _resolve_from_unixtime,
+         lambda args: ColVal(_f64_to_i64(_f64(args[0].data) * 1e6),
+                             args[0].valid, T.TIMESTAMP))
+register("to_unixtime",
+         lambda args: T.DOUBLE if args and args[0].name in (
+             "TIMESTAMP", "TIMESTAMP_TZ") else None,
+         lambda args: ColVal(_scalar(_f64(args[0].data) / 1e6),
+                             args[0].valid, T.DOUBLE))
 
 
 # ---- casts ----------------------------------------------------------------
