@@ -54,8 +54,8 @@ relational_queries.py (window functions, UNION ALL, ROLLUP, EXCEPT,
 INTERSECT, FULL and CROSS joins) at SF1 the same way in both executors,
 with the same checks (rows against the port's CPU run at SF1, or at
 SF0.1 on both for W1 and W2; W3's running sums, prefix-sum differences
-that torch.cumsum adds on the card in an order that may vary, within a
-tolerance from the magnitude of the prefix, FLOAT_PREFIX_QUERIES), its
+whose rounding follows the order of the adds, within a tolerance from
+the magnitude of the prefix, FLOAT_PREFIX_QUERIES), its
 counters and memo entries against presto_tpu's SF1 values, and prints
 one `relational` line a query: warm and replay times, device busy and
 idle shares, the top device operations for W1, J1 and S2, and the
@@ -93,6 +93,17 @@ compiled rows against the dynamic ones (columns where presto_tpu's own
 two modes differ exempt, FN_MODE_EXEMPT).  One `functions` line a
 query: cold, warm and replay times, device busy and idle shares, peak
 device bytes, the graph or "DYNAMIC", launches and kernel shapes.
+The collections phase runs C1 to C9 of presto_tpu_torch/
+collection_queries.py (ARRAY, MAP and ROW values, lambdas, UNNEST over
+30,003,005 and 18,001,803 expanded rows, the collection aggregates) on
+the same sessions in both executors, a cold and a warm dynamic run and
+a build and one replay each: rows (floats within QUERY_RTOL, inside
+collection values too), counters, execution mode and memo entry against
+presto_tpu's SF1 values (COLL_REFERENCE_SF1); one `collections` line a
+query adds the take_rows route of each UNNEST expansion
+(unnest_routes), and a `collections_kernels` line must show
+fused_group_sums launched on a grouped expansion and block_gather at an
+expansion's shape (or the expansion sent flat by take_rows' rules).
 segment_sum is held to bit identity in ten calls and to the correctly
 rounded sums on the inputs of Q15 and Q3; the integer
 division fault C1, a SELECT without FROM and a DISTINCT aggregate run on
@@ -181,6 +192,21 @@ RELATIONAL = ("W1", "W2", "W3", "W4", "W5", "W6", "S1", "S2", "S3", "S4",
 FUNCTIONS = tuple(f"F{i}" for i in range(1, 12))
 # device operations each function query's profiles list
 FN_TOP_KERNELS = 5
+# the collection corpus (presto_tpu_torch/collection_queries.py)
+COLLECTIONS = tuple(f"C{i}" for i in range(1, 10))
+# the collection queries that UNNEST, each with its expanded row count
+# read from its own rows (a count(*) over the expansion)
+COLL_EXPANSIONS = {"C1": lambda rows: sum(r[1] for r in rows),
+                   "C2": lambda rows: sum(r[1] for r in rows),
+                   "C3": lambda rows: rows[0][0]}
+# the collection queries that group an UNNEST expansion, one of which
+# must launch fused_group_sums
+COLL_GROUPED_EXPANSIONS = ("C1", "C2")
+# runs of each collection query: a cold and a warm one in the dynamic
+# executor, a build and one replay in compiled mode (their host work,
+# per dictionary entry, is most of a run where they run dynamic)
+COLL_DYNAMIC_RUNS = 2
+COLL_REPLAYS = 1
 # function queries whose compiled rows are held to presto_tpu's dynamic
 # rows: presto_tpu's compiled program reassociates width_bucket's
 # (x - lo) / (hi - lo) * n into (x - lo) * (n / (hi - lo)) (XLA's
@@ -195,11 +221,12 @@ CPU_CHECK_SF = {**{q: SF if q in (1, 2, 6, 11, 16, 22) else 0.1
                    for q in SLICE_QUERIES},
                 **{n: 0.1 if n in ("W1", "W2") else SF for n in RELATIONAL}}
 # queries whose float sums are prefix-sum differences (a window's running
-# sum): torch.cumsum on the card adds in an order that may vary from run
-# to run, so their rows need not be identical, and they agree with the
-# CPU within PREFIX_ULPS_PER_SQRT_ROW * sqrt(n) ulps of the largest
-# prefix (a running sum's rounding error grows as a random walk over the
-# n rows it adds), computed from the column in the phase
+# sum): the card adds them in another order than the CPU (exec/window.py
+# fixed_order_cumsum: one fixed order on each, so the card's rows are
+# identical from run to run), so they agree with the CPU within
+# PREFIX_ULPS_PER_SQRT_ROW * sqrt(n) ulps of the largest prefix (a
+# running sum's rounding error grows as a random walk over the n rows it
+# adds), computed from the column in the phase
 FLOAT_PREFIX_QUERIES = {"W3": ("orders", "o_totalprice")}
 PREFIX_ULPS_PER_SQRT_ROW = 1.0
 # the relational queries whose profile lists the top device operations
@@ -1268,6 +1295,238 @@ REFERENCE_COUNTERS_SF1.update({
     for name, v in FN_REFERENCE_SF1.items()})
 REFERENCE_MEMO_SF1.update({name: v["compiled"]["memo"]
                            for name, v in FN_REFERENCE_SF1.items()})
+# presto_tpu's values of the collection corpus at SF1 in each executor
+# (`python -m tests.test_torch_collections_corpus 1 NAME`, one query a
+# process): rows in order, collection values as lists (the compiled rows
+# only where they differ from the dynamic ones), the counters in
+# SORT_STATS_KEYS order, the execution mode and memo entry
+COLL_REFERENCE_SF1 = {
+    "C1": {
+        "dynamic": {"counters": [2, 1, 0, 0, 1, 1, 0], "rows":
+            [['almond', 322503, 8209284.0], ['antique', 332153, 8471104.0],
+             ['aquamarine', 325488, 8297128.0], ['azure', 327026, 8338183.0],
+             ['beige', 326198, 8305426.0], ['bisque', 327734, 8351765.0],
+             ['black', 322103, 8205791.0], ['blanched', 328466, 8372952.0],
+             ['blue', 325283, 8299708.0], ['blush', 323723, 8251163.0],
+             ['brown', 323377, 8251588.0], ['burlywood', 326992, 8337622.0],
+             ['burnished', 326578, 8328536.0],
+             ['chartreuse', 327816, 8355684.0],
+             ['chiffon', 332344, 8471503.0], ['chocolate', 321992, 8220348.0],
+             ['coral', 325932, 8311661.0], ['cornflower', 324566, 8276552.0],
+             ['cornsilk', 325598, 8298956.0], ['cream', 327561, 8339897.0],
+             ['cyan', 322597, 8213639.0], ['dark', 332014, 8459610.0],
+             ['deep', 327722, 8329501.0], ['dim', 326373, 8319628.0],
+             ['dodger', 315641, 8037722.0], ['drab', 327632, 8348719.0],
+             ['firebrick', 320740, 8178965.0], ['floral', 326949, 8323696.0],
+             ['forest', 329092, 8378173.0], ['frosted', 328455, 8377060.0],
+             ['gainsboro', 327855, 8364192.0], ['ghost', 327489, 8342406.0],
+             ['goldenrod', 323463, 8250769.0], ['green', 327763, 8354765.0],
+             ['grey', 329077, 8404087.0], ['honeydew', 323733, 8246450.0],
+             ['hot', 323288, 8247152.0], ['indian', 324528, 8274541.0],
+             ['ivory', 332160, 8484857.0], ['khaki', 329035, 8393831.0],
+             ['lace', 329647, 8421573.0], ['lavender', 328478, 8372194.0],
+             ['lawn', 330653, 8421333.0], ['lemon', 329470, 8396849.0],
+             ['light', 323045, 8236125.0], ['lime', 325605, 8293514.0],
+             ['linen', 325630, 8297299.0], ['magenta', 325201, 8281344.0],
+             ['maroon', 325207, 8294402.0], ['medium', 329707, 8411896.0],
+             ['metallic', 320369, 8157868.0], ['midnight', 330907, 8430928.0],
+             ['mint', 324755, 8286763.0], ['misty', 329737, 8415593.0],
+             ['moccasin', 329447, 8395296.0], ['navajo', 326339, 8318419.0],
+             ['navy', 319752, 8155492.0], ['olive', 320309, 8166038.0],
+             ['orange', 326216, 8332015.0], ['orchid', 323878, 8261813.0],
+             ['pale', 329643, 8402612.0], ['papaya', 329625, 8393837.0],
+             ['peach', 328950, 8384593.0], ['peru', 328486, 8371139.0],
+             ['pink', 323777, 8264980.0], ['plum', 319025, 8123022.0],
+             ['powder', 329661, 8414018.0], ['puff', 328496, 8381664.0],
+             ['purple', 326124, 8317807.0], ['red', 324846, 8277873.0],
+             ['rose', 326125, 8314995.0], ['rosy', 327876, 8364747.0],
+             ['royal', 327991, 8352925.0], ['saddle', 328353, 8376492.0],
+             ['salmon', 325569, 8295067.0], ['sandy', 324529, 8253080.0],
+             ['seashell', 322406, 8229425.0], ['sienna', 325972, 8296178.0],
+             ['sky', 325907, 8299963.0], ['slate', 325335, 8286409.0],
+             ['smoke', 326429, 8325130.0], ['snow', 321747, 8204922.0],
+             ['spring', 322734, 8234301.0], ['steel', 323808, 8254869.0],
+             ['tan', 327097, 8347886.0], ['thistle', 326698, 8338330.0],
+             ['tomato', 325501, 8281651.0], ['turquoise', 319783, 8144264.0],
+             ['violet', 326413, 8324310.0], ['wheat', 322981, 8220050.0],
+             ['white', 331566, 8453750.0], ['yellow', 326161, 8312353.0]]},
+        "compiled": {"mode": "compiled", "memo": 'executable',
+                     "counters": [1, 0, 0, 0, 1, 1, 0]}},
+    "C2": {
+        "dynamic": {"counters": [2, 1, 0, 0, 0, 0, 0], "rows":
+            [[1, 6000601, 229385261723.15964],
+             [2, 6000601, 458770523446.3194], [3, 6000601, 688155785169.481]]},
+        "compiled": {"mode": "compiled", "memo": 'executable',
+                     "counters": [3, 0, 0, 0, 0, 0, 0],
+                     "rows":
+            [[1, 6000601, 229385261723.17267],
+             [2, 6000601, 458770523446.34534],
+             [3, 6000601, 688155785169.4708]]}},
+    "C3": {
+        "dynamic": {"counters": [2, 0, 0, 0, 0, 0, 0], "rows":
+            [[1500000, 54437983918423, 44]]},
+        "compiled": {"mode": "dynamic", "memo": None,
+                     "counters": [2, 0, 0, 0, 0, 0, 0]}},
+    "C4": {
+        "dynamic": {"counters": [2, 0, 0, 0, 0, 0, 0], "rows":
+            [[99997, 1500000, 50900944163.899994, 4192729071.49,
+              27515693734.15, 299369, 99596, 251423, 209967, 1422929]]},
+        "compiled": {"mode": "dynamic", "memo": None,
+                     "counters": [2, 0, 0, 0, 0, 0, 0]}},
+    "C5": {
+        "dynamic": {"counters": [2, 1, 0, 0, 0, 0, 0], "rows":
+            [['A',
+              [['AIR', 214399], ['FOB', 214093], ['MAIL', 214097],
+               ['RAIL', 213061], ['REG AIR', 214013], ['SHIP', 213760],
+               ['TRUCK', 213692]],
+              [['F', 4]],
+              [[0.00913000729402398, 374279.0],
+               [0.03642977564864716, 374279.0],
+               [0.06362806890047265, 374279.0],
+               [0.09091691202795786, 374278.0]]],
+             ['N',
+              [['AIR', 429324], ['FOB', 428894], ['MAIL', 430436],
+               ['RAIL', 429170], ['REG AIR', 429213], ['SHIP', 429529],
+               ['TRUCK', 429342]],
+              [['F', 2], ['O', 1]],
+              [[0.009107624052366214, 751477.0],
+               [0.036394633501757194, 751477.0],
+               [0.06365509523245559, 751477.0],
+               [0.09092061367147615, 751477.0]]],
+             ['R',
+              [['AIR', 214162], ['FOB', 214497], ['MAIL', 214241],
+               ['RAIL', 213914], ['REG AIR', 213080], ['SHIP', 214512],
+               ['TRUCK', 213172]],
+              [['F', 1]],
+              [[0.009106879098278557, 374395.0],
+               [0.03633523417780689, 374395.0],
+               [0.06360609411475612, 374394.0],
+               [0.09088764777213312, 374394.0]]]]},
+        "compiled": {"mode": "dynamic", "memo": None,
+                     "counters": [2, 1, 0, 0, 0, 0, 0]}},
+    "C6": {
+        "dynamic": {"counters": [2, 0, 0, 0, 0, 0, 0], "rows":
+            [[['AIR', 'FOB', 'MAIL', 'RAIL', 'REG AIR', 'SHIP', 'TRUCK'],
+              [214399, 214093, 214097, 213061, 214013, 213760, 213692],
+              214097, 7,
+              [['AIR', 428798], ['FOB', 428186], ['MAIL', 428194],
+               ['RAIL', 426122], ['REG AIR', 428026], ['SHIP', 427520],
+               ['TRUCK', 427384]],
+              [['AIR', 214399], ['FOB', 214093], ['MAIL', 214097],
+               ['RAIL', 213061], ['REG AIR', 214013], ['SHIP', 213760],
+               ['TRUCK', 213692]]]]},
+        "compiled": {"mode": "dynamic", "memo": None,
+                     "counters": [2, 0, 0, 0, 0, 0, 0]}},
+    "C7": {
+        "dynamic": {"counters": [6, 0, 0, 0, 0, 0, 0], "rows":
+            [[['1-URGENT', '5-LOW', '2-HIGH', '3-MEDIUM', '4-NOT SPECIFIED'],
+              5, 15, 1]]},
+        "compiled": {"mode": "dynamic", "memo": None,
+                     "counters": [6, 0, 0, 0, 0, 0, 0]}},
+    "C8": {
+        "dynamic": {"counters": [2, 1, 0, 0, 0, 0, 0], "rows":
+            [['Brand#11', 7784, 3414, 7784, 7377, 224012, 3854,
+              'STEEL,THISTLE,TOMATO,WHITE,YELLOW', 60210, 1282, 36858, 1225,
+              58353, 'yellowstandard turquoiseanodized steelsteel'],
+             ['Brand#12', 7903, 3447, 7903, 7508, 226839, 3825,
+              'SALMON,SEASHELL,TAN,TURQUOISE,YELLOW', 61068, 1242, 37359,
+              1194, 59465, 'yellowstandard smokeplated royalbrass'],
+             ['Brand#13', 8132, 3520, 8132, 7704, 233896, 4022,
+              'SMOKE,SMOKE,WHITE,WHITE,YELLOW', 62900, 1289, 38504, 1245,
+              61132, 'yellowstandard turquoiseanodized gainsborotin'],
+             ['Brand#14', 7956, 3440, 7956, 7559, 228849, 3813,
+              'SADDLE,SALMON,SPRING,TAN,WHITE', 61547, 1243, 37679, 1186,
+              59690, 'yellowstandard thistlebrushed siennabrass'],
+             ['Brand#15', 7994, 3466, 7994, 7570, 229922, 3871,
+              'SALMON,SIENNA,SKY,SMOKE,TURQUOISE', 61783, 1257, 37801, 1205,
+              60053, 'yellowstandard yellowplated gainsborocopper'],
+             ['Brand#21', 7985, 3456, 7985, 7545, 229120, 3902,
+              'ROYAL,ROYAL,SKY,THISTLE,TURQUOISE', 61669, 1349, 37714, 1287,
+              59812, 'yellowstandard wheatanodized springnickel'],
+             ['Brand#22', 7902, 3405, 7902, 7527, 226805, 3916,
+              'THISTLE,THISTLE,TOMATO,VIOLET,WHEAT', 61151, 1211, 37445, 1159,
+              59308, 'yellowstandard violetpolished magentanickel'],
+             ['Brand#23', 7897, 3410, 7897, 7464, 226899, 3858,
+              'SMOKE,STEEL,TAN,TOMATO,TOMATO', 61049, 1238, 37358, 1181,
+              59194, 'yellowstandard violetbrushed lemonbrass'],
+             ['Brand#24', 8087, 3525, 8087, 7638, 232138, 3987,
+              'SIENNA,SLATE,TAN,TOMATO,WHEAT', 62556, 1300, 38295, 1232,
+              60838, 'yellowstandard whiteplated browncopper'],
+             ['Brand#25', 7901, 3414, 7901, 7471, 227117, 3858,
+              'SEASHELL,SLATE,WHITE,WHITE,YELLOW', 61071, 1302, 37368, 1237,
+              59194, 'yellowstandard roseburnished skybrass'],
+             ['Brand#31', 7997, 3535, 7997, 7566, 230177, 3983,
+              'SANDY,SANDY,SNOW,SNOW,WHEAT', 61841, 1248, 37850, 1189, 60036,
+              'yellowstandard springburnished siennanickel'],
+             ['Brand#32', 8077, 3528, 8077, 7667, 231831, 4001,
+              'SMOKE,SPRING,STEEL,WHEAT,YELLOW', 62486, 1291, 38255, 1221,
+              60606, 'yellowstandard wheatanodized greennickel'],
+             ['Brand#33', 7983, 3487, 7983, 7574, 229705, 3959,
+              'SKY,SPRING,SPRING,STEEL,TOMATO', 61713, 1261, 37764, 1219,
+              60010, 'yellowstandard whitepolished ghostcopper'],
+             ['Brand#34', 8173, 3542, 8173, 7721, 235004, 3918,
+              'SEASHELL,SEASHELL,SIENNA,VIOLET,WHEAT', 63206, 1309, 38687,
+              1248, 61289, 'yellowstandard violetplated mediumnickel'],
+             ['Brand#35', 8105, 3524, 8105, 7658, 232851, 3902,
+              'SALMON,SLATE,SNOW,WHITE,WHITE', 62679, 1278, 38364, 1224,
+              60650, 'yellowstandard smokebrushed cornsilkcopper'],
+             ['Brand#41', 8134, 3602, 8134, 7717, 234078, 4092,
+              'SADDLE,SALMON,TAN,WHEAT,YELLOW', 62944, 1247, 38542, 1191,
+              60918, 'yellowstandard violetanodized snowbrass'],
+             ['Brand#42', 8263, 3668, 8263, 7823, 237869, 4009,
+              'SKY,STEEL,VIOLET,WHEAT,WHITE', 63905, 1327, 39116, 1275, 62050,
+              'yellowstandard whiteburnished sandysteel'],
+             ['Brand#43', 8016, 3500, 8016, 7578, 230210, 3871,
+              'SIENNA,TURQUOISE,TURQUOISE,WHEAT,WHITE', 61966, 1311, 37918,
+              1254, 60077, 'yellowstandard wheatbrushed dodgercopper'],
+             ['Brand#44', 7875, 3392, 7875, 7478, 226362, 3785,
+              'SLATE,SNOW,STEEL,VIOLET,YELLOW', 60941, 1221, 37316, 1177,
+              59229, 'yellowstandard redplated skynickel'],
+             ['Brand#45', 7939, 3528, 7939, 7525, 228929, 3830,
+              'SLATE,SMOKE,TOMATO,TOMATO,YELLOW', 61482, 1188, 37665, 1142,
+              59594, 'yellowstandard wheatplated siennanickel'],
+             ['Brand#51', 8076, 3544, 8076, 7629, 232343, 3891,
+              'SKY,SNOW,TOMATO,WHITE,WHITE', 62444, 1303, 38216, 1249, 60487,
+              'yellowstandard yellowanodized navycopper'],
+             ['Brand#52', 7916, 3416, 7916, 7481, 227365, 3898,
+              'SANDY,SLATE,TOMATO,VIOLET,WHITE', 61159, 1334, 37411, 1283,
+              59139, 'yellowstandard tomatopolished dodgernickel'],
+             ['Brand#53', 7959, 3458, 7959, 7522, 228613, 3859,
+              'SIENNA,THISTLE,TOMATO,TOMATO,WHEAT', 61442, 1308, 37565, 1247,
+              59803, 'yellowstandard whiteplated creamtin'],
+             ['Brand#54', 7947, 3407, 7947, 7532, 228261, 3864,
+              'TAN,TAN,THISTLE,TOMATO,WHITE', 61442, 1278, 37601, 1216, 59475,
+              'yellowstandard turquoiseplated limesteel'],
+             ['Brand#55', 7999, 3404, 7999, 7531, 229328, 3877,
+              'TURQUOISE,TURQUOISE,VIOLET,VIOLET,YELLOW', 61751, 1376, 37754,
+              1310, 59944, 'yellowstandard whiteplated siennanickel']]},
+        "compiled": {"mode": "dynamic", "memo": None,
+                     "counters": [2, 1, 0, 0, 0, 0, 0]}},
+    "C9": {
+        "dynamic": {"counters": [1, 0, 0, 0, 0, 0, 0], "rows":
+            [['ALGERIA', 'carefully', 2, [['x', 1], ['y', 2]],
+              [[10, 'u'], [20, 'v']], [1.0, 2.0], [1, 'z'], None, 'even',
+              'z'],
+             ['ARGENTINA', 'after', 2, [['x', 1], ['y', 2]],
+              [[10, 'u'], [20, 'v']], [1.0, 2.0], [1, 'z'], None, 'bold',
+              'z'],
+             ['BRAZIL', 'at', 2, [['x', 1], ['y', 2]], [[10, 'u'], [20, 'v']],
+              [1.0, 2.0], [1, 'z'], None, 'theodolites', 'z'],
+             ['CANADA', 'unusual', 2, [['x', 1], ['y', 2]],
+              [[10, 'u'], [20, 'v']], [1.0, 2.0], [1, 'z'], None, 'against',
+              'z'],
+             ['CHINA', 'before', 2, [['x', 1], ['y', 2]],
+              [[10, 'u'], [20, 'v']], [1.0, 2.0], [1, 'z'], None, 'quickly',
+              'z']]},
+        "compiled": {"mode": "dynamic", "memo": None,
+                     "counters": [1, 0, 0, 0, 0, 0, 0]}},
+}
+
+REFERENCE_COUNTERS_SF1.update({
+    name: {mode: v[mode]["counters"] for mode in ("dynamic", "compiled")}
+    for name, v in COLL_REFERENCE_SF1.items()})
+REFERENCE_MEMO_SF1.update({name: v["compiled"]["memo"]
+                           for name, v in COLL_REFERENCE_SF1.items()})
 # presto_tpu's counters and memo entry of each query at each scale
 # factor the card holds it there, {sf: {name: ...}}; the TPC-DS queries
 # keyed "ds<Q>"
@@ -2114,14 +2373,16 @@ class Capture:
         self.pending = {}
 
 
-def phase_query(qid, sql, sessions, capture, counters, out):
-    """One query in the dynamic executor: DYNAMIC_RUNS runs on the card
-    with every kernel's launch count set to 0 just before and read just
-    after, one captured run (each kernel at each new shape, see
-    Capture), then its rows: identical in every run where the query's
-    f64 sums are deterministic by design, and agreeing with the port's
-    CPU run (and, for Q1, Q3, Q6 and Q18, with numpy) under the
-    tie-aware comparison."""
+def phase_query(qid, sql, sessions, capture, counters, out,
+                n_runs=DYNAMIC_RUNS):
+    """One query in the dynamic executor: n_runs runs on the card with
+    every kernel's launch count set to 0 just before and read just
+    after, one captured run (each kernel at each new shape, see Capture)
+    where a kernel launched or the query's segment_sum input is checked
+    (SEGMENT_SUM_QUERIES), then its rows: identical in every run where
+    the query's f64 sums are deterministic by design, and agreeing with
+    the port's CPU run (and, for Q1, Q3, Q6 and Q18, with numpy) under
+    the tie-aware comparison."""
     import torch
 
     run_sf = out.get("sf", SF)
@@ -2131,7 +2392,7 @@ def phase_query(qid, sql, sessions, capture, counters, out):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     runs, times, sorts = [], [], []
-    for _ in range(DYNAMIC_RUNS):
+    for _ in range(n_runs):
         t = time.perf_counter()
         result = gpu.sql(sql)
         torch.cuda.synchronize()
@@ -2145,28 +2406,30 @@ def phase_query(qid, sql, sessions, capture, counters, out):
     if any(c != sorts[0] for c in sorts[1:]):
         raise AssertionError(f"{label(qid)}: counters differ between runs: "
                              f"{sorts}")
-    capture.run(gpu, qid, sql, "dynamic")
-    out["dynamic_kernel_shapes"] = capture.shapes
-    capture.check()
-    out["fgs_paths"] = sorted(capture.paths)
-    if capture.seg is not None:
-        out["segment_sum_input"] = capture.seg
+    if any(launches.values()) or qid in SEGMENT_SUM_QUERIES:
+        capture.run(gpu, qid, sql, "dynamic")
+        out["dynamic_kernel_shapes"] = capture.shapes
+        capture.check()
+        out["fgs_paths"] = sorted(capture.paths)
+        if capture.seg is not None:
+            out["segment_sum_input"] = capture.seg
+    else:  # no kernel launched: the captured run would find no shape
+        out["dynamic_kernel_shapes"], out["fgs_paths"] = [], []
     rows = runs[0]
     out["rows"], out["warm_ms"], out["cold_ms"] = rows, times[1:], times[0]
     out["dynamic_rows"] = rows
     identical = all(r == rows for r in runs[1:])
-    # the register path of fused_group_sums and segment_sum add in a
-    # fixed order; the shared-table path adds with atomics, and a float
-    # prefix sum (torch.cumsum on the card) in an order that may vary
-    by_design = "shared_table" not in capture.paths \
-        and qid not in FLOAT_PREFIX_QUERIES
+    # the register path of fused_group_sums, segment_sum and a window's
+    # prefix sums add in a fixed order; the shared-table path adds with
+    # atomics
+    by_design = "shared_table" not in out["fgs_paths"]
     row = {"phase": "query", "query": label(qid), "sf": run_sf,
            "rows": len(rows),
            "cold_ms": times[0], "warm_ms": times[1:],
-           f"launches_in_{DYNAMIC_RUNS}_runs": launches,
+           f"launches_in_{n_runs}_runs": launches,
            "fgs_paths": out["fgs_paths"],
            "peak_device_bytes": peak,
-           f"runs_identical_of_{DYNAMIC_RUNS}": identical,
+           f"runs_identical_of_{n_runs}": identical,
            "identical_by_design": by_design}
     if by_design and not identical:
         raise AssertionError(
@@ -2297,14 +2560,15 @@ def memo_entry(session, sql):
     return "executable"
 
 
-def phase_compiled(qid, sql, sessions, capture, counters, out):
+def phase_compiled(qid, sql, sessions, capture, counters, out,
+                   n_replays=COMPILED_REPLAYS):
     """One query in compiled mode (the default) on the card: the first
     run builds it (compile_cache.build_graph: one eager static pass
     under torch's sync debug mode "error", then the capture of one CUDA
     graph, then a replay), with the kernels' launch counts set to 0 just
     before and read just after, each kernel held against its plain
     version at every shape not seen before (Capture, after the run);
-    then COMPILED_REPLAYS replays, bit-identical wherever no captured
+    then n_replays replays, bit-identical wherever no captured
     launch took fused_group_sums' shared-table path, and equal to the
     card's dynamic run under the tie-aware comparison; the execution
     mode must be the port's CPU run's.  One more replay is profiled,
@@ -2350,7 +2614,7 @@ def phase_compiled(qid, sql, sessions, capture, counters, out):
                                      for name, n in launches.items()}
     runs, times = [first.rows], []
     sorts = [sort_counters(first.stats)]
-    for _ in range(COMPILED_REPLAYS):
+    for _ in range(n_replays):
         t = time.perf_counter()
         result = gpu.sql(sql)
         torch.cuda.synchronize()
@@ -2382,9 +2646,8 @@ def phase_compiled(qid, sql, sessions, capture, counters, out):
         row["graph_device_ms"] = start.elapsed_time(end)
     row.update(profile_run(gpu, sql))
     identical = all(r == runs[0] for r in runs[1:])
-    by_design = "shared_table" not in paths \
-        and qid not in FLOAT_PREFIX_QUERIES
-    row.update({f"replays_identical_of_{COMPILED_REPLAYS + 1}": identical,
+    by_design = "shared_table" not in paths
+    row.update({f"replays_identical_of_{n_replays + 1}": identical,
                 "identical_by_design": by_design})
     if by_design and not identical:
         raise AssertionError(f"{label(qid)}: compiled replays differ")
@@ -2645,6 +2908,11 @@ def phase_slice(capture):
             counters, launches, by_query, fn_tol)
     emit({"phase": "functions_total", "queries": len(FUNCTIONS),
           "tolerances": fn_tol, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    guarded("collections", None, phase_collections, sessions, capture,
+            counters, launches, by_query)
+    emit({"phase": "collections_total", "queries": len(COLLECTIONS),
+          "seconds": time.perf_counter() - t0})
     torch.cuda.synchronize()
     emit({"phase": "slice", "launches": launches,
           "launches_by_query": by_query})
@@ -2974,6 +3242,189 @@ def phase_functions(sessions, capture, counters, launches, by_query,
                 by_query.setdefault(name, {})[mode] = got
                 for kernel in counters:
                     launches[mode][kernel] += got[kernel]
+
+
+def tuplify(v):
+    """A JSON value with every list made a tuple (collection values)."""
+    if isinstance(v, list):
+        return tuple(tuplify(x) for x in v)
+    return v
+
+
+def coll_reference_rows(name, mode) -> list:
+    """presto_tpu's SF1 rows of a collection query in a mode ("dynamic"
+    or "compiled"; COLL_REFERENCE_SF1 keeps compiled rows only where they
+    differ from the dynamic ones), collection values as tuples."""
+    ref = COLL_REFERENCE_SF1[name]
+    rows = ref[mode].get("rows", ref["dynamic"]["rows"])
+    return [tuple(tuplify(v) for v in r) for r in rows]
+
+
+def assert_coll_rows(what, name, actual, expected):
+    """Rows of a collection query in order: ints, strings and booleans
+    exactly, floats within QUERY_RTOL, inside collection values too (C5's
+    numeric_histogram means are np.mean on the host, whose last bits
+    follow numpy's build)."""
+    if len(actual) != len(expected):
+        raise AssertionError(f"{what}: {len(actual)} rows, expected "
+                             f"{len(expected)}")
+    def agree(a, b):
+        if isinstance(a, float) and isinstance(b, float):
+            return a == b or math.isclose(a, b, rel_tol=QUERY_RTOL,
+                                          abs_tol=0.0)
+        if isinstance(a, tuple) and isinstance(b, tuple):
+            return len(a) == len(b) and all(map(agree, a, b))
+        return type(a) is type(b) and a == b
+
+    for k, (ra, re_) in enumerate(zip(actual, expected)):
+        for i, (a, b) in enumerate(zip(ra, re_)):
+            if not agree(a, b):
+                raise AssertionError(f"{what}: row {k} column {i}: "
+                                     f"{a!r:.200}, expected {b!r:.200}")
+
+
+def unnest_routes(name, out) -> list:
+    """The take_rows route (exec/gather.py gather_route, of UNNEST's
+    presorted gather) of a corpus query's UNNEST expansion in each mode:
+    [mode, source rows, indices, words, route] for each block_gather
+    shape the run captured at the expansion's index count (its expanded
+    rows; the static executor's n x maxlen slots equal them where every
+    array has one length, as in C1 and C2).  A mode that captured no
+    such shape sent the expansion flat: every staged gather launches
+    block_gather, which Capture sees."""
+    import torch
+
+    from presto_tpu_torch.exec import gather as G
+
+    m = COLL_EXPANSIONS[name](out["rows"])
+    dev = torch.device("cuda")
+    got = []
+    for mode, shapes in (
+            ("dynamic", out.get("dynamic_kernel_shapes", [])),
+            ("compiled", out.get("compiled_row", {}).get("kernel_shapes",
+                                                          []))):
+        hits = sorted({tuple(key) for kernel, key in shapes
+                       if kernel == "block_gather" and key[2] == m})
+        got += [[mode, n, m, w, G.gather_route(n, m, w, True, dev)]
+                for n, w, _ in hits] or [[mode, None, m, None, "flat"]]
+    return got
+
+
+def collections_row(name, sql, sessions, out, routes, seconds):
+    """The collections phase's line for one corpus query: its card,
+    rows, cold, warm and replay times, device busy and idle shares (a
+    profiled warm dynamic run and the compiled replay's), peak device
+    bytes, the graph or "DYNAMIC", counters and memo beside presto_tpu's,
+    launches, kernel shapes and the take_rows route of each UNNEST
+    expansion."""
+    missing = [k for k in ("warm_ms", "compiled_row", "compiled_counters")
+               if k not in out]
+    if missing:
+        raise AssertionError(f"{name}: no {missing} (a step failed)")
+    comp = out["compiled_row"]
+    # where compiled mode runs dynamic, its profiled run is a dynamic one
+    prof = profile_run(sessions["dynamic", SF], sql, top=FN_TOP_KERNELS) \
+        if comp["graph"] else "the compiled profile (a dynamic run)"
+    emit({"phase": "collections", "query": name, "card": card_line(),
+          "sf": SF, "rows": len(out["rows"]),
+          "cold_ms": out["cold_ms"], "dynamic_warm_ms": out["warm_ms"],
+          "compiled_first_run_ms": comp["first_run_ms"],
+          "compiled_replay_ms": out["replay_ms"],
+          "graph": "graph" if comp["graph"] else comp["memo"],
+          "graph_device_ms": comp.get("graph_device_ms"),
+          "pool_bytes": comp.get("pool_bytes"),
+          "peak_device_bytes": out["peak_device_bytes"],
+          "dynamic_profile": prof,
+          "compiled_profile": {k: comp.get(k) for k in (
+              "wall_ms", "device_busy_ms", "device_idle_share",
+              "kernel_launches", "top_kernels")},
+          "counters": {"dynamic": out["dynamic_counters"],
+                       "compiled": out["compiled_counters"]},
+          "reference_counters": REFERENCE_COUNTERS_SF1[name],
+          "memo": comp["memo"], "reference_memo": REFERENCE_MEMO_SF1[name],
+          "launches": {"dynamic": out["launches"],
+                       "compiled": out.get("compiled_launches")},
+          "kernel_shapes": {
+              "dynamic": sorted(set(map(tuple, out.get(
+                  "dynamic_kernel_shapes", [])))),
+              "compiled": sorted(set(map(tuple, comp["kernel_shapes"])))},
+          # [mode, source rows, indices, words, route]
+          "unnest_routes": routes,
+          "seconds": seconds})
+
+
+def phase_collections(sessions, capture, counters, launches, by_query):
+    """The collection corpus at SF1 on the card over the TPC-H sessions,
+    each query in the dynamic executor (phase_query, its rows held to
+    presto_tpu's dynamic rows) and in compiled mode (phase_compiled: its
+    rows held to the dynamic run's and to presto_tpu's compiled rows, its
+    execution mode and memo entry to presto_tpu's), the counters of both
+    against presto_tpu's (phase_counters), then one `collections` line
+    (collections_row).  C1 or C2 must launch fused_group_sums on the
+    grouped expansion, and C1 or C2 must launch block_gather at the
+    expansion's shape or show that take_rows' rules sent it flat.
+    Launch counts add into the slice's."""
+    from presto_tpu_torch.collection_queries import QUERIES
+
+    if tuple(QUERIES) != COLLECTIONS:
+        raise AssertionError(f"corpus {tuple(QUERIES)} != {COLLECTIONS}")
+    expansions = {}
+    for name in COLLECTIONS:
+        t0 = time.perf_counter()
+        sql, ref = QUERIES[name], COLL_REFERENCE_SF1[name]
+
+        def held(mode, _name=name):
+            def check(what, rows):
+                assert_coll_rows(what, _name, rows,
+                                 coll_reference_rows(_name, mode))
+            return check
+
+        def compiled_vs_dynamic(what, qid, rows, dynamic_rows, abs_tol):
+            assert_coll_rows(what, qid, rows, dynamic_rows)
+
+        out = {"reference_rows": held("dynamic"),
+               "compare_compiled": compiled_vs_dynamic}
+        guarded("query", name, phase_query, name, sql, sessions, capture,
+                counters, out, COLL_DYNAMIC_RUNS)
+        guarded("compiled", name, phase_compiled, name, sql, sessions,
+                capture, counters, out, COLL_REPLAYS)
+        seen = unnest_routes(name, out) \
+            if name in COLL_EXPANSIONS and "rows" in out else []
+        if "compiled_rows" in out:
+            guarded("collections", name, held("compiled"),
+                    f"{name} compiled on cuda vs presto_tpu compiled",
+                    out["compiled_rows"])
+            mode = out["compiled_row"]["execution_mode"]
+            if mode != ref["compiled"]["mode"]:
+                fail("collections", name, f"execution mode {mode} on cuda, "
+                     f"{ref['compiled']['mode']} in presto_tpu")
+        guarded("counters", name, phase_counters, name, out)
+        guarded("collections", name, collections_row, name, sql, sessions,
+                out, seen, time.perf_counter() - t0)
+        for mode, got in (("dynamic", out.get("launches")),
+                          ("compiled", out.get("compiled_launches"))):
+            if got is not None:
+                by_query.setdefault(name, {})[mode] = got
+                for kernel in counters:
+                    launches[mode][kernel] += got[kernel]
+        if name in COLL_GROUPED_EXPANSIONS:
+            expansions[name] = (out, seen)
+    fgs = [n for n, (o, _) in expansions.items()
+           if any(o.get(k, {}).get("fused_group_sums")
+                  for k in ("launches", "compiled_launches"))]
+    # a staged route is one block_gather launch at the expansion's shape
+    bg = [n for n, (_, seen) in expansions.items()
+          if any(r[-1] == "staged" for r in seen)]
+    flat = [n for n, (_, seen) in expansions.items()
+            if seen and all(r[-1] == "flat" for r in seen)]
+    emit({"phase": "collections_kernels", "fused_group_sums_in": fgs,
+          "block_gather_in": bg, "flat_expansions_in": flat})
+    if not fgs:
+        raise AssertionError("no grouped UNNEST expansion launched "
+                             "fused_group_sums")
+    if not bg and not flat:
+        raise AssertionError("no UNNEST expansion launched block_gather "
+                             "or went flat by take_rows' rules")
 
 
 def exact_group_sums(vals, gid, G):
@@ -3318,7 +3769,8 @@ def main() -> int:
     # each kernel at its main path's shape: the input Q1's compiled run
     # gives fused_group_sums, Q3's orders-at-lineitem gather for
     # block_gather; launches: the compiled runs of the 22 TPC-H queries,
-    # the relational corpus and the 99 TPC-DS queries
+    # the relational, function and collection corpora and the 99 TPC-DS
+    # queries
     for name, src, replaces, row in (
             ("fused_group_sums", "fused_group_sums.cu",
              "presto_tpu/exec/kernels.py:1484", q1_rows[0]),

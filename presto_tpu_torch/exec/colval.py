@@ -5,11 +5,18 @@ dictionary):
 - data: a torch tensor (codes for strings), or a python scalar for
   literals not yet broadcast;
 - valid: None (all valid), a bool tensor, or a python bool;
-- dictionary: the host-side sorted Dictionary of a string value.
+- dictionary: the host-side Dictionary of a string value (sorted) or of
+  an ARRAY, MAP or ROW value (Python tuples in the canonical order of
+  functions/scalar.py's _tuple_dict_normalize).
+
+A LambdaVal is a lambda argument of a higher-order function, evaluated
+over the elements of a collection's dictionary entries.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Optional
 
@@ -19,12 +26,84 @@ from presto_tpu_torch.batch import Dictionary
 from presto_tpu_torch.types import Type
 
 
+class StaticFallback(Exception):
+    """Raised when a plan cannot run in the static executor (an
+    unbounded join fanout, a static expansion too large, a host read of
+    device values); "auto" mode then runs the dynamic executor."""
+
+
+_STATIC_PASS = contextvars.ContextVar("presto_tpu_torch_static_pass",
+                                      default=False)
+
+
+@contextlib.contextmanager
+def static_pass():
+    """Mark the block as the static executor's pass (what compiled mode
+    captures on a card)."""
+    token = _STATIC_PASS.set(True)
+    try:
+        yield
+    finally:
+        _STATIC_PASS.reset(token)
+
+
+def in_static_pass() -> bool:
+    return _STATIC_PASS.get()
+
+
+def refuse_host_read(what: str) -> None:
+    """The places where the reference's static program reads a traced
+    array on the host (its jit trace raises there, and "auto" falls back
+    to the dynamic executor) raise StaticFallback in the static pass, so
+    that both packages pick the same execution mode: the port's static
+    pass does not trace, and such a read would synchronize a capture."""
+    if _STATIC_PASS.get():
+        raise StaticFallback(f"{what} reads device values on the host")
+
+
 @dataclasses.dataclass
 class ColVal:
     data: object  # torch.Tensor | python scalar
     valid: object  # None | bool tensor | python bool
     type: Type
     dictionary: Optional[Dictionary] = None
+
+
+@dataclasses.dataclass
+class LambdaVal:
+    """An unevaluated lambda argument to a higher-order function
+    (reference: presto_tpu/exec/colval.py LambdaVal).  `apply` evaluates
+    the body over a batch whose columns are the parameter bindings: the
+    lambda runs vectorized over collection elements, once per distinct
+    dictionary entry, never per row."""
+
+    params: tuple
+    param_types: tuple
+    body: object  # ir.RowExpr
+    ctx: object  # EvalContext
+    type: Type  # FUNCTION(ret)
+
+    @property
+    def ret_type(self) -> Type:
+        return self.type.params[0]
+
+    def free_refs(self) -> set:
+        return self.body.refs() - set(self.params)
+
+    def apply(self, cols: dict) -> ColVal:
+        import torch
+
+        from presto_tpu_torch.batch import Batch
+        from presto_tpu_torch.exec import compiler
+
+        n, device = 1, torch.device("cpu")
+        for v in cols.values():
+            if isinstance(v.data, torch.Tensor) and v.data.ndim > 0:
+                n, device = max(n, int(v.data.shape[0])), v.data.device
+        batch = Batch({s: compiler.to_column(v, n, device)
+                       for s, v in cols.items()},
+                      torch.ones((n,), dtype=torch.bool, device=device))
+        return compiler.eval_expr(self.body, batch, self.ctx)
 
 
 def and_valid(a, b):

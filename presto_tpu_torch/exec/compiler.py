@@ -12,7 +12,7 @@ from typing import Dict
 import torch
 
 from presto_tpu_torch.batch import Batch, Column, Dictionary
-from presto_tpu_torch.exec.colval import ColVal
+from presto_tpu_torch.exec.colval import ColVal, LambdaVal
 from presto_tpu_torch.functions import scalar as scalar_fns
 from presto_tpu_torch.plan import ir
 
@@ -39,10 +39,9 @@ def eval_expr(expr: ir.RowExpr, batch: Batch, ctx: EvalContext) -> ColVal:
         return scalar_fns.emit_cast(eval_expr(expr.arg, batch, ctx),
                                     expr.type, expr.safe)
     if isinstance(expr, ir.Call):
-        if any(isinstance(a, ir.LambdaExpr) for a in expr.args):
-            raise NotImplementedError(
-                f"lambda arguments ({expr.fn}) are not ported")
-        args = [eval_expr(a, batch, ctx) for a in expr.args]
+        args = [LambdaVal(a.params, a.param_types, a.body, ctx, a.type)
+                if isinstance(a, ir.LambdaExpr)
+                else eval_expr(a, batch, ctx) for a in expr.args]
         return scalar_fns.lookup(expr.fn).emit(args)
     raise NotImplementedError(
         f"cannot evaluate {type(expr).__name__} in presto_tpu_torch")

@@ -45,20 +45,30 @@ constant percentile, no weight: kernels.group_percentile), min_by and
 max_by (two arguments), arbitrary / any_value, geometric_mean, bool_and
 / every / bool_or, corr, covar_samp, covar_pop, regr_slope,
 regr_intercept, skewness, kurtosis, entropy, bitwise_and_agg and
-bitwise_or_agg.
+bitwise_or_agg; and the eight that return a collection a group
+(COLLECTION_AGGS: array_agg, DISTINCT too, map_agg, multimap_agg,
+histogram, numeric_histogram, map_union, set_agg, set_union), built on
+the host from the rows (exec/collections.py) in the dynamic executor
+alone: the static one raises StaticFallback, as the reference's does.
+
+ARRAY, MAP and ROW values are int32 codes into host dictionaries of
+tuples (functions/scalar.py); VALUES folds their constructors, UNION
+ALL merges their dictionaries, and UNNEST (`_exec_unnest`,
+`_unnest_static`, WITH ORDINALITY) expands rows on the device in both
+executors: the static one over the (entries x longest array) element
+matrix of the dictionary, up to STATIC_UNNEST_MAX expanded rows.
 
 Not ported yet, and raising NotImplementedError when reached: chunked
 and distributed execution, batched compiled execution and prepared
 statements, float32_compute, every statement other than a query (the
-write nodes TableWriter and TableFinish with them), the plan nodes
-Unnest and SpatialJoin, DECIMAL aggregates, and the aggregates that
-return collections or sketch states or run on the host (array_agg,
-map_agg, multimap_agg, histogram, numeric_histogram, map_union*, set_*,
-approx_most_frequent, reduce_agg, approx_set, merge, qdigest_agg,
-tdigest_agg, min_by / max_by with three arguments, the array and
-weighted approx_percentile, learn_* and classification_*, and the
-$hll_* / $kll_* states of chunked and distributed execution). Not
-ported either, and
+write nodes TableWriter and TableFinish with them), the plan node
+SpatialJoin, DECIMAL aggregates, and the aggregates that return sketch
+states or other host-built values (map_union_sum, approx_most_frequent,
+reduce_agg, approx_set, merge, qdigest_agg, tdigest_agg, min_by /
+max_by with three arguments, the array and weighted
+approx_percentile, learn_* and classification_*, and the $hll_* /
+$kll_* states of chunked and distributed execution). Not ported
+either, and
 changing no result: sort-order materialization (it serves chunked
 execution), runtime-domain stripe pruning (df_splits_pruned: its tables
 are not ported), the host summaries of the cluster side channel, spill
@@ -80,13 +90,16 @@ from presto_tpu_torch import types as T
 from presto_tpu_torch.batch import (Batch, Column, Dictionary,
                                     batch_from_numpy, column_from_numpy,
                                     decode_host_column, to_numpy, upload)
+from presto_tpu_torch.exec import collections as CL
 from presto_tpu_torch.exec import compile_cache as CC
 from presto_tpu_torch.exec import kernels as K
-from presto_tpu_torch.exec.colval import translate_codes
+from presto_tpu_torch.exec.colval import (StaticFallback, static_pass,
+                                          translate_codes)
 from presto_tpu_torch.exec.compiler import (EvalContext, eval_expr,
                                             eval_predicate, to_column)
 from presto_tpu_torch.exec.window import execute_window
-from presto_tpu_torch.functions.scalar import torch_dtype
+from presto_tpu_torch.functions.scalar import (_colval_from_pylist,
+                                               torch_dtype)
 from presto_tpu_torch.plan import ir
 from presto_tpu_torch.plan import nodes as P
 from presto_tpu_torch.plan import runtime_filters as RF
@@ -117,14 +130,21 @@ _VARIANCE_AGGS = ("stddev", "stddev_samp", "stddev_pop", "variance",
 _BIVARIATE_AGGS = ("corr", "covar_samp", "covar_pop", "regr_slope",
                    "regr_intercept")
 
-#: every aggregate _agg_column computes (each returns one scalar a group)
+#: the aggregates that return an ARRAY or a MAP a group, built on the
+#: host from the rows (exec/collections.py) in the dynamic executor
+#: alone: the static one raises StaticFallback, as the reference does
+COLLECTION_AGGS = frozenset((
+    "array_agg", "map_agg", "multimap_agg", "histogram",
+    "numeric_histogram", "map_union", "set_agg", "set_union"))
+
+#: every aggregate _agg_column computes
 PORTED_AGGS = frozenset((
     "count", "count_if", "sum", "avg", "min", "max", *_VARIANCE_AGGS,
     "approx_distinct", "approx_count", "approx_sum", "checksum",
     "approx_percentile", "min_by", "max_by", "geometric_mean",
     "arbitrary", "any_value", "bool_and", "every", "bool_or",
     *_BIVARIATE_AGGS, "skewness", "kurtosis", "entropy",
-    "bitwise_and_agg", "bitwise_or_agg"))
+    "bitwise_and_agg", "bitwise_or_agg", *COLLECTION_AGGS))
 
 
 def _merge_sort_stats(stats, counts: dict) -> None:
@@ -132,12 +152,6 @@ def _merge_sort_stats(stats, counts: dict) -> None:
     QueryStats."""
     for k in SORT_STATS_KEYS:
         setattr(stats, k, getattr(stats, k, 0) + int(counts.get(k, 0)))
-
-
-class StaticFallback(Exception):
-    """Raised when a plan cannot run in the static executor (an
-    unbounded join fanout, a static expansion too large); "auto" mode
-    then runs the dynamic executor."""
 
 
 def execute_query(session, text: str) -> QueryResult:
@@ -303,7 +317,8 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
                                        in zip(scan_nodes, batches)},
                           sort_stats=counts)
             ex.ctx.scalar_results = scalar_results
-            out = ex.exec_node(plan.root)
+            with static_pass():
+                out = ex.exec_node(plan.root)
             if bound is not None and out.capacity > 4 * bound:
                 out = _compact_batch(out, bound)
             guard = torch.stack([g.reshape(()) for g in ex.guards]).any() \
@@ -638,11 +653,15 @@ class Executor:
         """Literal rows (a SELECT without FROM, VALUES lists) as a batch
         on the session's device (reference: _exec_values)."""
         arrays, valids, types = {}, {}, {}
+        collection_cols = {}
+        n = len(node.rows)
         for j, (sym, t) in enumerate(zip(node.symbols, node.types_)):
-            if t.name in ("ARRAY", "MAP", "ROW"):
-                raise NotImplementedError(
-                    f"{t.name} values are not ported to presto_tpu_torch")
             vals = [r[j] for r in node.rows]
+            if t.name in ("ARRAY", "MAP", "ROW"):
+                # folded constructors: a tuple dictionary like any column
+                collection_cols[sym] = to_column(
+                    _colval_from_pylist(vals, t), n, self.device)
+                continue
             mask = np.asarray([v is not None for v in vals], dtype=bool)
             if t.is_string:
                 arr = np.asarray([v if v is not None else "" for v in vals],
@@ -653,10 +672,12 @@ class Executor:
             arrays[sym], types[sym] = arr, t
             if not mask.all():
                 valids[sym] = mask
-        if not arrays:
-            return Batch({}, torch.ones((len(node.rows),), dtype=torch.bool,
-                                        device=self.device))
-        return batch_from_numpy(arrays, types, self.device, valids)
+        b = batch_from_numpy(arrays, types, self.device, valids) if arrays \
+            else Batch({}, torch.ones((n,), dtype=torch.bool,
+                                      device=self.device))
+        if collection_cols:
+            b = Batch({**b.columns, **collection_cols}, b.sel)
+        return b
 
     # ---- row-wise ----------------------------------------------------
     def _exec_filter(self, node: P.Filter) -> Batch:
@@ -734,9 +755,10 @@ class Executor:
                     # the deduplicated pre-group counts exactly
                     aggs2[s] = ir.AggCall("count", a.args, a.type, False,
                                           a.filter)
-                elif a.fn in ("sum", "avg", "min", "max"):
+                elif a.fn in ("sum", "avg", "array_agg", "min", "max"):
                     # over the deduplicated pre-group these equal their
-                    # DISTINCT forms
+                    # DISTINCT forms (array_agg's elements in the
+                    # pre-group's ascending key order)
                     aggs2[s] = ir.AggCall(a.fn, a.args, a.type, False,
                                           a.filter)
                 else:
@@ -1070,6 +1092,11 @@ class Executor:
         def seg_sum(x):
             return K.segment_sum(x, gid, n_groups, order)
 
+        if a.fn in COLLECTION_AGGS:
+            if self.static:
+                raise StaticFallback(f"{a.fn} is dynamic-mode only")
+            return self._collection_agg(b, a, order, col, mask, valid,
+                                        nonempty)
         if a.fn == "count":
             return Column(cnt, None, T.BIGINT)
         if a.fn == "approx_distinct":
@@ -1196,6 +1223,47 @@ class Executor:
         f = K.segment_min if a.fn == "min" else K.segment_max
         return Column(f(x, gid, n_groups).to(col.data.dtype), nonempty,
                       a.type, col.dictionary)
+
+    def _collection_agg(self, b: Batch, a: ir.AggCall, order: K.GroupOrder,
+                        col: Column, mask, valid, nonempty) -> Column:
+        """The aggregates that return a collection, from the rows read
+        back to the host (reference: the array_agg, map_agg, histogram
+        and set_* branches of _agg_column and _agg_column_host)."""
+        n_groups = order.n_groups
+        gid = order.gid.cpu().numpy()
+        data = col.data.cpu().numpy()
+        vh = valid.cpu().numpy()
+        if a.fn == "array_agg":
+            # a NULL input stays, as a NULL element
+            tuples = CL.array_agg(gid, mask.cpu().numpy(), vh, data,
+                                  col.dictionary, n_groups)
+        elif a.fn in ("map_agg", "multimap_agg"):
+            vcol = to_column(eval_expr(a.args[1], b, self.ctx), b.capacity,
+                             self.device)
+            vvalid = np.ones(b.capacity, bool) if vcol.valid is None \
+                else vcol.valid.cpu().numpy()
+            tuples = CL.map_agg(gid, vh, data, col.dictionary,
+                                vcol.data.cpu().numpy(), vcol.dictionary,
+                                vvalid, n_groups, a.fn == "multimap_agg")
+        elif a.fn == "numeric_histogram":
+            # numeric_histogram(buckets, value): the first argument is
+            # the bucket count
+            nb = eval_expr(a.args[0], b, self.ctx).data
+            if isinstance(nb, torch.Tensor):  # a constant column
+                nb = nb.reshape(-1)[0]
+            nb = int(nb)
+            vcol = to_column(eval_expr(a.args[1], b, self.ctx), b.capacity,
+                             self.device)
+            vvh = mask if vcol.valid is None else (mask & vcol.valid)
+            tuples = CL.numeric_histogram(
+                gid, vvh.cpu().numpy(),
+                vcol.data.cpu().numpy().astype(np.float64), nb, n_groups)
+        else:
+            build = {"histogram": CL.histogram, "map_union": CL.map_union,
+                     "set_agg": CL.set_agg, "set_union": CL.set_union}[a.fn]
+            tuples = build(gid, vh, data, col.dictionary, n_groups)
+        return CL.tuples_to_dict_column(tuples, nonempty, a.type,
+                                        self.device)
 
     @staticmethod
     def _last_row(hit, order: K.GroupOrder, capacity: int):
@@ -1734,6 +1802,137 @@ class Executor:
     # ---- window and set operations -----------------------------------
     def _exec_window(self, node: P.Window) -> Batch:
         return execute_window(self, node)
+
+    # ---- UNNEST ------------------------------------------------------
+    #: the most rows a static UNNEST expands to (capacity x the longest
+    #: array), the reference's bound
+    STATIC_UNNEST_MAX = 50_000_000
+
+    def _exec_unnest(self, node: P.Unnest) -> Batch:
+        """Lateral explode (reference: _exec_unnest): each live row with
+        a non-NULL array fans out to one row per element, in row order.
+        The per-entry tables come from the array's dictionary on the
+        host (exec/collections.py); the expansion and the gathers run
+        on the device, with one read of the expanded size."""
+        if self.static:
+            return self._unnest_static(node)
+        b = self.exec_node(node.source)
+        col = to_column(eval_expr(node.array_expr, b, self.ctx), b.capacity,
+                        self.device)
+        elem_t = node.elem_type
+        # a typed NULL without a dictionary expands to nothing
+        tabs = CL.unnest_tables(col.dictionary or Dictionary(
+            np.empty(0, dtype=object)), elem_t)
+        live = b.sel if col.valid is None else (b.sel & col.valid)
+        codes = col.data.clamp(0, max(len(tabs.lens) - 1, 0)).long()
+        if len(tabs.lens):
+            counts = torch.where(live, upload(tabs.lens, self.device)[codes],
+                                 0)
+        else:
+            counts = torch.zeros((b.capacity,), dtype=torch.int64,
+                                 device=self.device)
+        total = int(counts.sum())
+        rows = torch.arange(b.capacity, device=self.device)
+        idx = torch.repeat_interleave(rows, counts, output_size=total)
+        k = torch.arange(total, device=self.device) \
+            - (torch.cumsum(counts, 0) - counts)[idx]
+        pos = (upload(tabs.starts, self.device)[codes[idx]] + k) \
+            if total else k
+        out = K.gather_batch(b, idx, presorted=True)
+        cols = dict(out.columns)
+        cols[node.out_sym] = self._unnest_elements(tabs, elem_t, pos)
+        if node.ordinality_sym:
+            cols[node.ordinality_sym] = Column(k + 1, None, T.BIGINT)
+        return Batch(cols, torch.ones((total,), dtype=torch.bool,
+                                      device=self.device))
+
+    def _unnest_elements(self, tabs, elem_t: T.Type, pos) -> Column:
+        """The dynamic element column at flat positions `pos`, as the
+        reference builds it from the live elements (see
+        collections.UnnestTables)."""
+        if pos.shape[0] == 0:
+            dt = torch.int32 if tabs.coded else torch_dtype(elem_t)
+            return Column(torch.zeros((0,), dtype=dt, device=self.device),
+                          None, elem_t, Dictionary(np.empty(0, dtype=str))
+                          if elem_t.is_string else tabs.edict)
+        if elem_t.is_string:
+            # the dictionary of the texts present (reference:
+            # column_from_numpy), a NULL element as the text 'None'
+            ecode = upload(tabs.text_codes, self.device)[pos].long()
+            used = torch.zeros((len(tabs.texts),), dtype=torch.bool,
+                               device=self.device)
+            used[ecode] = torch.ones_like(ecode, dtype=torch.bool)
+            remap = torch.cumsum(used.to(torch.int32), 0) - 1
+            present = used.cpu().numpy()
+            return Column(remap[ecode].to(torch.int32), None, elem_t,
+                          Dictionary(tabs.texts[present]))
+        vals = upload(tabs.values, self.device)[pos]
+        if tabs.coded:  # nested elements: the static path's dictionary
+            ok = upload(tabs.present, self.device)[pos]
+            return Column(vals, ok, elem_t, tabs.edict)
+        if not tabs.present.all():
+            missing = ~upload(tabs.present, self.device)[pos]
+            if tabs.dynamic_null is None:
+                if bool(missing.any()):
+                    raise TypeError(
+                        "int() argument must be a string, a bytes-like "
+                        "object or a real number, not 'NoneType'")
+            else:
+                vals = torch.where(missing, tabs.dynamic_null, vals)
+        return Column(vals, None, elem_t)
+
+    def _unnest_static(self, node: P.Unnest) -> Batch:
+        """Static UNNEST (reference: _unnest_static): the dictionary is
+        fixed before the program runs, so its (entries x maxlen) element
+        matrix and lengths come from the host, and the program is two
+        gathers under a slot-liveness mask at capacity x maxlen rows."""
+        b = self.exec_node(node.source)
+        col = to_column(eval_expr(node.array_expr, b, self.ctx), b.capacity,
+                        self.device)
+        if col.dictionary is None:
+            raise StaticFallback("UNNEST over a non-dictionary array")
+        elem_t = node.elem_type
+        tabs = CL.unnest_tables(col.dictionary, elem_t)
+        maxlen = tabs.maxlen
+        n = b.capacity
+        if n * max(maxlen, 1) > self.STATIC_UNNEST_MAX:
+            raise StaticFallback(
+                f"static UNNEST expansion too large: {n} x {maxlen}")
+        dt = torch.int32 if tabs.coded else torch_dtype(elem_t)
+        if maxlen == 0:
+            out = K.gather_batch(b, torch.zeros((0,), dtype=torch.int32,
+                                                device=self.device))
+            cols = dict(out.columns)
+            cols[node.out_sym] = Column(
+                torch.zeros((0,), dtype=dt, device=self.device), None,
+                elem_t, tabs.edict)
+            if node.ordinality_sym:
+                cols[node.ordinality_sym] = Column(
+                    torch.zeros((0,), dtype=torch.int64, device=self.device),
+                    None, T.BIGINT)
+            return Batch(cols, torch.zeros((0,), dtype=torch.bool,
+                                           device=self.device))
+        mat, mat_ok = tabs.matrix()
+        dsize = max(len(tabs.lens), 1)
+        codes = col.data.clamp(0, dsize - 1).long()
+        live = b.sel if col.valid is None else (b.sel & col.valid)
+        lidx = torch.repeat_interleave(
+            torch.arange(n, dtype=torch.int32, device=self.device), maxlen,
+            output_size=n * maxlen)
+        k = torch.arange(maxlen, device=self.device).repeat(n)
+        code_l = codes[lidx.long()]
+        lens = upload(tabs.lens if len(tabs.lens)
+                      else np.zeros(1, np.int64), self.device)
+        slot_live = live[lidx.long()] & (k < lens[code_l])
+        cell = code_l * maxlen + k
+        elem_data = upload(mat, self.device)[cell]
+        elem_valid = slot_live & upload(mat_ok, self.device)[cell]
+        out = K.gather_batch(b, lidx, idx_valid=slot_live, presorted=True)
+        cols = dict(out.columns)
+        cols[node.out_sym] = Column(elem_data, elem_valid, elem_t, tabs.edict)
+        if node.ordinality_sym:
+            cols[node.ordinality_sym] = Column(k + 1, None, T.BIGINT)
+        return Batch(cols, out.sel)
 
     def _exec_union(self, node: P.Union) -> Batch:
         parts = []

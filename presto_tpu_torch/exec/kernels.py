@@ -783,10 +783,12 @@ def compact(batch: Batch) -> Batch:
 def concat_batches(batches: List[Batch]) -> Batch:
     """Concatenate same-schema batches.  String columns whose branches
     hold different dictionaries are recoded into one merged on the host
-    (np.unique: code order stays lexicographic order); a branch without
-    a dictionary is typed-NULL padding (a grouping set's, say), whose
-    dead codes become 0.  The recode tables reach the device through
-    `upload`, so a compiled query's capture reads them from its log."""
+    (np.unique: code order stays lexicographic order), the tuple
+    dictionaries of ARRAY, MAP and ROW columns into one ordered by repr,
+    as the reference merges them; a branch without a dictionary is
+    typed-NULL padding (a grouping set's, say), whose dead codes become
+    0.  The recode tables reach the device through `upload`, so a
+    compiled query's capture reads them from its log."""
     names = list(batches[0].columns)
     cols: Dict[str, Column] = {}
     for name in names:
@@ -795,11 +797,23 @@ def concat_batches(batches: List[Batch]) -> Batch:
         with_dict = [d for d in dicts if d is not None]
         if with_dict and (len({id(d) for d in with_dict}) > 1
                           or len(with_dict) < len(parts)):
-            # (the reference also merges the tuple dictionaries of ARRAY
-            # columns, which the port does not hold)
-            merged = Dictionary(np.unique(np.concatenate(
-                [d.values for d in with_dict])))
-            luts = {id(d): translate_codes(d, merged) for d in with_dict}
+            if parts[0].type.name not in ("ARRAY", "MAP", "ROW"):
+                merged = Dictionary(np.unique(np.concatenate(
+                    [d.values for d in with_dict])))
+                luts = {id(d): translate_codes(d, merged)
+                        for d in with_dict}
+            else:
+                from presto_tpu_torch.functions.scalar import repr_order
+
+                all_vals = [v for d in with_dict for v in d.values.tolist()]
+                uniq = repr_order(list(set(all_vals)))
+                cmap = {v: i for i, v in enumerate(uniq)}
+                u = np.empty(len(uniq), dtype=object)
+                u[:] = uniq
+                merged = Dictionary(u)
+                luts = {id(d): np.asarray([cmap[v] for v in d.values.tolist()],
+                                          dtype=np.int32)
+                        for d in with_dict}
             datas = []
             for p in parts:
                 if p.dictionary is None:

@@ -7,7 +7,9 @@ the partition and peer bounds, lag/lead and the value functions as
 gathers, count/sum/avg and the variance family as prefix-sum
 differences over per-row [frame start, frame end] bounds, min/max as
 segmented scans or, for bounded ROWS frames, a sparse table.  The frame
-shape is decided from the spec, never from the data.
+shape is decided from the spec, never from the data.  Float prefix
+sums add in a fixed order (`fixed_order_cumsum`), so a frame sum has the
+same bits in every run on the card.
 
 Masked rows sort last and form their own partition runs (liveness is
 the leading partition key), so the static executor needs no compaction:
@@ -344,6 +346,29 @@ def _value_fn(ctx, b, call):
 
 # ---- aggregates over frames -------------------------------------------------
 
+_PREFIX_ROW = 1024  # values one row of fixed_order_cumsum's matrix adds
+
+
+def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """The inclusive prefix sum of the 1-D tensor x, added in an order
+    that depends on its length alone: rows of _PREFIX_ROW values scanned
+    along the last dimension of a matrix of two or more rows, then the
+    rows' totals scanned the same way and added back into each row.
+    torch.cumsum of a whole vector on the card is one device-wide scan
+    whose float partial sums may associate differently from run to run;
+    a scan along a matrix's rows adds each row in one fixed order.  No
+    host sync; the shapes follow from x's length."""
+    n = x.shape[0]
+    rows = max(2, -(-n // _PREFIX_ROW))
+    pad = x.new_zeros(rows * _PREFIX_ROW - n)
+    scan = torch.cumsum(torch.cat([x, pad]).view(rows, _PREFIX_ROW), 1)
+    if n > _PREFIX_ROW:
+        before = fixed_order_cumsum(scan[:, -1])
+        carry = torch.cat([before.new_zeros(1), before[:-1]])
+        scan = scan + carry[:, None]
+    return scan.reshape(-1)[:n]
+
+
 def _prefix_at(csum, idx):
     """The sum of x[0..idx] from the inclusive prefix csum; idx may be
     -1."""
@@ -372,24 +397,25 @@ def _frame_aggregate(ctx, b, call):
               "variance", "var_samp", "var_pop"):
         if src.type.is_string:
             raise WindowError(f"{fn} over strings")
-        acc = torch.float32 if d.dtype == torch.float32 else torch.float64
-        x = torch.where(notnull, d, torch.zeros((), dtype=d.dtype,
-                                                device=d.device)).to(acc)
-        s = torch.cumsum(x, 0)
-        tot = _prefix_at(s, fe) - _prefix_at(s, fs - 1)
         valid = nonempty & (cnt > 0)
+        zero = torch.zeros((), dtype=d.dtype, device=d.device)
+        if fn == "sum" and (call.type.is_integer
+                            or call.type.name == "DECIMAL"):
+            # exact in int64, in any order
+            si = torch.cumsum(torch.where(notnull, d, zero).to(torch.int64),
+                              0)
+            tot = _prefix_at(si, fe) - _prefix_at(si, fs - 1)
+            return Column(tot, valid, call.type, None)
+        acc = torch.float32 if d.dtype == torch.float32 else torch.float64
+        x = torch.where(notnull, d, zero).to(acc)
+        s = fixed_order_cumsum(x)
+        tot = _prefix_at(s, fe) - _prefix_at(s, fs - 1)
         if fn == "sum":
-            if call.type.is_integer or call.type.name == "DECIMAL":
-                si = torch.cumsum(torch.where(
-                    notnull, d, torch.zeros((), dtype=d.dtype,
-                                            device=d.device)
-                ).to(torch.int64), 0)
-                tot = _prefix_at(si, fe) - _prefix_at(si, fs - 1)
             return Column(tot, valid, call.type, None)
         mean = tot / torch.clamp(cnt, min=1)
         if fn == "avg":
             return Column(mean.to(torch.float64), valid, call.type, None)
-        s2 = torch.cumsum(x * x, 0)
+        s2 = fixed_order_cumsum(x * x)
         tot2 = _prefix_at(s2, fe) - _prefix_at(s2, fs - 1)
         m2 = tot2 - tot * tot / torch.clamp(cnt, min=1)
         if fn in ("stddev", "stddev_samp", "variance", "var_samp"):

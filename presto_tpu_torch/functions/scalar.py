@@ -2,9 +2,10 @@
 
 Reference: presto_tpu/functions/scalar.py (with the overrides of its
 other modules that change what these names compute: the integer `mod` of
-scalar_ext.py; day_of_week, day_of_year and week_of_year of
-scalar_ext.py and from_unixtime and to_unixtime of datetime_tz.py agree
-with scalar.py's for the types ported).  Ported, 103 names:
+scalar_ext.py; array_sort and array_join of scalar_ext2.py; day_of_week,
+day_of_year and week_of_year of scalar_ext.py and from_unixtime and
+to_unixtime of datetime_tz.py agree with scalar.py's for the types
+ported).  Ported, 141 names:
 - arithmetic (add, sub, mul, div, mod, neg) over the non-decimal numeric
   types, DATE +- INTERVAL, the six comparisons (numeric and temporal;
   strings against a literal, within one dictionary or across two, whose
@@ -25,20 +26,41 @@ with scalar.py's for the types ported).  Ported, 103 names:
 - JSON over VARCHAR or JSON dictionaries: JSON_EXTRACT,
   JSON_EXTRACT_SCALAR, JSON_FORMAT, JSON_PARSE, JSON_ARRAY_LENGTH,
   JSON_SIZE, IS_JSON_SCALAR.
-Not ported: the names of scalar.py that build or read ARRAY, MAP or ROW
-values or T-digest and HLL sketches, the $hll_reg and $hll_rho of
-distributed approx_distinct, its trigonometric family (sin .. exp2,
-which scalar_ext.py registers again), DECIMAL arithmetic, and the
-modules scalar_ext.py, scalar_ext2.py, datetime_tz.py, geospatial.py
-and ml.py.  The planner resolves only registered names, so any other
-function raises NotImplementedError with its name (plan/planner.py
-`_call`).
+- collections, 38 names: ARRAY constructor, ELEMENT_AT, subscript,
+  CARDINALITY, CONTAINS, ARRAY_MIN, ARRAY_MAX, ARRAY_POSITION,
+  ARRAY_DISTINCT, SLICE, FLATTEN, ARRAY_REMOVE, ARRAY_UNION,
+  ARRAY_INTERSECT, ARRAY_EXCEPT, ARRAYS_OVERLAP, SEQUENCE, SPLIT,
+  ARRAY_SORT (NULLs last, and with a comparator lambda) and ARRAY_JOIN
+  (with a NULL replacement) as scalar_ext2.py registers them last; the
+  lambdas TRANSFORM, FILTER, ANY_MATCH, ALL_MATCH, NONE_MATCH,
+  ZIP_WITH, REDUCE; MAP, MAP_KEYS, MAP_VALUES, MAP_ENTRIES, MAP_CONCAT,
+  MAP_FROM_ENTRIES, MAP_FILTER, TRANSFORM_VALUES, TRANSFORM_KEYS; ROW
+  and ROW_FIELD (field access by name on a CAST ROW); ARRAY || ARRAY;
+  CASTs between two ARRAY, MAP or ROW types of one kind and CAST(NULL
+  AS a collection).
+Not ported: the T-digest and HLL sketch names (CARDINALITY of a
+sketch raises), the $hll_reg and $hll_rho of distributed
+approx_distinct, its trigonometric family (sin .. exp2, which
+scalar_ext.py registers again), DECIMAL arithmetic, and the modules
+scalar_ext.py, the rest of scalar_ext2.py, datetime_tz.py,
+geospatial.py and ml.py.  The planner resolves only registered names,
+so any other function raises NotImplementedError with its name
+(plan/planner.py `_call`).
 
-String functions are host transforms over the dictionary (one Python
-call per dictionary entry, never per row), kept beside the dictionary
-(`Dictionary.derived`), followed by one lookup on the device through
-`batch.upload`: a string result is a new sorted dictionary and a code
-table, a BOOLEAN one a predicate table, a numeric one a value table.
+String and collection functions are host transforms over the dictionary
+(one Python call per dictionary entry, never per row), kept beside the
+dictionary (`Dictionary.derived`), followed by one lookup on the device
+through `batch.upload`: a string result is a new sorted dictionary and
+a code table, a collection one a tuple dictionary in the reference's
+canonical order (`_tuple_dict_normalize`) and a code table, a BOOLEAN
+one a predicate table, a numeric one a value table.  A lambda's body
+runs once over the flattened elements of every dictionary entry
+(`LambdaVal.apply`).  Where the reference's static program reads device
+values on the host (a lambda's results, the codes that `map`,
+`map_concat`, `zip_with` and ARRAY || ARRAY pair row by row, a
+constant computed on the device), its trace fails and "auto" falls
+back; the port's static pass raises StaticFallback at the same places
+(`colval.refuse_host_read`).
 
 Null semantics as in the reference: strict null propagation, except
 AND/OR/IS NULL/COALESCE/NULLIF/IF/CASE, which implement SQL
@@ -50,6 +72,9 @@ for NaN and saturate, sign keeps -0.0 and NaN, log10 is ln(x) / ln(10).
 
 from __future__ import annotations
 
+import datetime
+import functools
+import itertools
 import json
 import math
 import operator
@@ -59,9 +84,12 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from presto_tpu_torch import session_ctx
 from presto_tpu_torch import types as T
 from presto_tpu_torch.batch import Dictionary, upload
-from presto_tpu_torch.exec.colval import ColVal, all_valid, translate_codes
+from presto_tpu_torch.exec.colval import (ColVal, LambdaVal, all_valid,
+                                          in_static_pass, refuse_host_read,
+                                          translate_codes)
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -590,6 +618,8 @@ def _emit_if(args):
     cond = c.data if c.valid is None else (c.data & c.valid)
     if a.type.is_string or b.type.is_string:
         a, b = _unify_dictionaries(a, b)
+    elif _is_collection(a.type) or _is_collection(b.type):
+        a, b = _unify_tuple_dictionaries(a, b)
     t = a.type if a.type.name != "UNKNOWN" else b.type
     return ColVal(_select(cond, a.data, b.data, t), _merge_valid(cond, a, b),
                   t, a.dictionary)
@@ -815,16 +845,28 @@ def _concat_pair(a: ColVal, b: ColVal) -> ColVal:
     return ColVal(codes, valid, T.VARCHAR, out)
 
 
+def _resolve_concat(args):
+    if all(a.is_string for a in args):
+        return T.VARCHAR
+    if args and all(a.name == "ARRAY" for a in args):
+        ct = args[0].params[0]
+        for a in args[1:]:
+            ct2 = T.common_super_type(ct, a.params[0])
+            ct = ct2 if ct2 is not None else ct
+        return T.array_of(ct)
+    return None
+
+
 def _emit_concat(args):
+    if args and args[0].type.name == "ARRAY":
+        return _emit_concat_arrays(args)
     out = args[0]
     for nxt in args[1:]:
         out = _concat_pair(out, nxt)
     return out
 
 
-register("concat",
-         lambda args: T.VARCHAR if all(a.is_string for a in args) else None,
-         _emit_concat)
+register("concat", _resolve_concat, _emit_concat)
 
 
 # ---- EXTRACT and its shorthands --------------------------------------------
@@ -1553,6 +1595,1488 @@ register("to_unixtime",
                              args[0].valid, T.DOUBLE))
 
 
+# ---- ARRAY, MAP and ROW values ---------------------------------------------
+#
+# Reference: presto_tpu/functions/scalar.py's ARRAY, lambda, MAP and ROW
+# sections, with array_sort and array_join in the form
+# presto_tpu/functions/scalar_ext2.py registers last.  A collection column
+# is int32 codes into a host Dictionary of Python tuples (ARRAY: the
+# elements; MAP: (key, value) pairs ordered by repr(key); ROW: the
+# fields), in the canonical order of _tuple_dict_normalize.  Every
+# function works once per dictionary entry on the host; its result
+# reaches the device as one table looked up through the codes
+# (`upload`).  A constant collection is code 0 (a Python int) of a
+# one-entry dictionary.
+
+
+def _is_array(t: T.Type) -> bool:
+    return t.name == "ARRAY"
+
+
+def _is_map(t: T.Type) -> bool:
+    return t.name == "MAP"
+
+
+def _is_collection(t: T.Type) -> bool:
+    return t.name in ("ARRAY", "MAP", "ROW")
+
+
+def _elem_type(t: T.Type) -> T.Type:
+    return t.params[0] if t.params else T.UNKNOWN
+
+
+def _is_function(t) -> bool:
+    return t is not None and getattr(t, "name", None) == "FUNCTION"
+
+
+def _fn_ret(t: T.Type) -> T.Type:
+    return t.params[0]
+
+
+def _host(v):
+    """A Python value of an element: numpy scalars leave no trace in a
+    tuple dictionary, whose canonical order reads repr()."""
+    if isinstance(v, np.str_):
+        return str(v)
+    if isinstance(v, np.generic):
+        return v.item()
+    return v
+
+
+def _lookup(codes, table: np.ndarray):
+    """table[code]: one lookup on the device through `upload` for a code
+    tensor, a host one (a Python value) for a constant code."""
+    if len(table) == 0:  # an empty dictionary: every row is dead
+        return torch.zeros_like(codes, dtype=torch.from_numpy(
+            table).dtype) if _is_tensor(codes) else table.dtype.type(0).item()
+    hi = len(table) - 1
+    if _is_tensor(codes):
+        return upload(table, codes.device)[codes.clamp(0, hi).long()]
+    return table[min(max(int(codes), 0), hi)].item()
+
+
+def _clip_codes(codes, n: int):
+    hi = max(n - 1, 0)
+    if _is_tensor(codes):
+        return codes.clamp(0, hi)
+    return min(max(int(codes), 0), hi)
+
+
+def _and_not(valid, bad):
+    """valid AND NOT bad, for tensors and Python bools alike."""
+    ok = ~bad if _is_tensor(bad) else (not bad)
+    if valid is None:
+        return ok
+    return valid & ok
+
+
+def _tuple_cmp(a, b) -> int:
+    """The reference's total order over dictionary tuples: elementwise
+    lexicographic with prefix ordering, NULL elements last, nested tuples
+    recursive, incomparable types by repr.  Code order is then semantic
+    order, so ORDER BY, min and max read the codes."""
+    for x, y in zip(a, b):
+        if x is None and y is None:
+            continue
+        if x is None:
+            return 1
+        if y is None:
+            return -1
+        if isinstance(x, tuple) and isinstance(y, tuple):
+            c = _tuple_cmp(x, y)
+            if c:
+                return c
+            continue
+        try:
+            if x < y:
+                return -1
+            if y < x:
+                return 1
+        except TypeError:
+            rx, ry = repr(x), repr(y)
+            if rx != ry:
+                return -1 if rx < ry else 1
+    return (len(a) > len(b)) - (len(a) < len(b))
+
+
+#: leaf types for which Python's own tuple order is _tuple_cmp's
+#: (floats without NaN)
+_NATIVE_ORDER = (str, int, float, bool)
+
+
+def _natively_ordered(uniq: list) -> bool:
+    """Whether Python's tuple order is _tuple_cmp's over these distinct
+    tuples: at each nesting depth the elements are all tuples or all
+    leaves of one type among _NATIVE_ORDER (no NULL, no NaN).  Then
+    every comparison pairs two tuples or two leaves of one type, which
+    both orders compare alike, and no two distinct entries compare
+    equal."""
+    level = uniq
+    while True:
+        flat = list(itertools.chain.from_iterable(level))
+        kinds = set(map(type, flat))
+        if len(kinds) != 1:
+            return not kinds
+        kind = kinds.pop()
+        if kind is not tuple:
+            return kind in _NATIVE_ORDER and not (
+                kind is float and np.isnan(np.asarray(flat)).any())
+        level = flat
+
+
+def _canonical_order(uniq: list) -> list:
+    """The reference's canonical order: a repr pre-sort (equal-comparing
+    entries such as (1,) and (1.0,) in a fixed order), then a stable
+    sort by _tuple_cmp.  Tuples that _natively_ordered admits sort the
+    same under Python's own order, without a Python comparison per pair
+    (split over p_name has 200,000 entries at SF1)."""
+    if _natively_ordered(uniq):
+        return sorted(uniq)
+    return sorted(sorted(uniq, key=repr),
+                  key=functools.cmp_to_key(_tuple_cmp))
+
+
+def repr_order(uniq: list) -> list:
+    """sorted(uniq, key=repr), the order of the reference's repr-keyed
+    dictionaries (_tuples_to_dict_column, branch and union merges),
+    without the repr of every whole tuple: the tuples sort first by the
+    repr of their first element with the character that follows it in
+    the tuple's repr (",", or ")" for the empty tuple), and only tuples
+    that tie there by the whole repr.  Where one such key is a proper
+    prefix of another, the whole repr decides everything."""
+    def head(t):
+        if not isinstance(t, tuple):
+            return repr(t)
+        return repr(t[0]) + "," if t else ")"
+
+    keyed = sorted((head(t), i) for i, t in enumerate(uniq))
+    heads = [k for k, _ in keyed]
+    if any(b != a and b.startswith(a) for a, b in zip(heads, heads[1:])):
+        return sorted(uniq, key=repr)
+    out, lo = [], 0
+    while lo < len(keyed):
+        hi = lo + 1
+        while hi < len(keyed) and heads[hi] == heads[lo]:
+            hi += 1
+        group = [uniq[i] for _, i in keyed[lo:hi]]
+        out.extend(group if hi - lo == 1 else sorted(group, key=repr))
+        lo = hi
+    return out
+
+
+def _tuple_dictionary(values) -> tuple:
+    """(inverse codes, Dictionary) of host tuples in canonical order."""
+    values = list(values)
+    uniq = _canonical_order(list(set(values)))
+    code_map = {v: i for i, v in enumerate(uniq)}
+    inverse = np.fromiter((code_map[v] for v in values), np.int32,
+                          len(values))
+    u = np.empty(len(uniq), dtype=object)
+    u[:] = uniq
+    return inverse, Dictionary(u)
+
+
+def _tuple_dict_normalize(values: np.ndarray, codes: ColVal,
+                          out_type: T.Type) -> ColVal:
+    """normalize_dictionary for tuple dictionaries (reference:
+    _tuple_dict_normalize): the result of entry i is values[i]."""
+    inverse, d = _tuple_dictionary(values.tolist())
+    return ColVal(_lookup(codes.data, inverse), codes.valid, out_type, d)
+
+
+def _string_dictionary(values: list) -> tuple:
+    """(codes, Dictionary) of host strings: the sorted distinct values,
+    as np.unique(np.asarray(values, dtype=object).astype(str)) gives
+    them (numpy drops trailing NUL characters), through a Python dict
+    rather than a sort of every value."""
+    texts = [v.rstrip("\0") if v.endswith("\0") else v for v in
+             (str(v) for v in values)]
+    uniq = sorted(set(texts))
+    index = {v: i for i, v in enumerate(uniq)}
+    codes = np.fromiter((index[v] for v in texts), np.int32, len(texts))
+    return codes, Dictionary(np.asarray(uniq, dtype=str)
+                             if uniq else np.empty(0, dtype=str))
+
+
+def _normalize_strings(values, codes: ColVal) -> ColVal:
+    """normalize_dictionary for string results (reference:
+    colval.normalize_dictionary): sorted unique values, codes through a
+    table."""
+    inverse, d = _string_dictionary(list(values))
+    return ColVal(_lookup(codes.data, inverse), codes.valid, T.VARCHAR, d)
+
+
+def _unify_tuple_dictionaries(a: ColVal, b: ColVal):
+    """Two collection values over one dictionary (reference:
+    _unify_tuple_dictionaries): a NULL arm takes the other arm's; two
+    dictionaries merge into one ordered by repr, with code tables
+    through `upload`."""
+    if a.dictionary is None and b.dictionary is None:
+        return a, b
+    if a.dictionary is None:
+        return ColVal(0, a.valid, b.type, b.dictionary), b
+    if b.dictionary is None:
+        return a, ColVal(0, b.valid, a.type, a.dictionary)
+    if a.dictionary is b.dictionary:
+        return a, b
+    av, bv = a.dictionary.values.tolist(), b.dictionary.values.tolist()
+    uniq = repr_order(list(set(av) | set(bv)))
+    cmap = {v: i for i, v in enumerate(uniq)}
+    u = np.empty(len(uniq), dtype=object)
+    u[:] = uniq
+    merged = Dictionary(u)
+    la = np.fromiter((cmap[v] for v in av), np.int32, len(av))
+    lb = np.fromiter((cmap[v] for v in bv), np.int32, len(bv))
+    return (ColVal(_lookup(a.data, la), a.valid, a.type, merged),
+            ColVal(_lookup(b.data, lb), b.valid, b.type, merged))
+
+
+def _arr_entries(col: ColVal) -> np.ndarray:
+    return col.dictionary.values if col.dictionary is not None \
+        else np.empty(0, dtype=object)
+
+
+def _const_arg(name: str, a: ColVal):
+    """A constant extra argument as a Python value (a collection or
+    string constant decoded from its dictionary)."""
+    v = a.data
+    if _is_tensor(v) and v.ndim > 0:
+        raise NotImplementedError(f"{name} with non-constant arguments")
+    if a.dictionary is not None:
+        # the reference reads the code of a device-built constant
+        refuse_host_read(name)
+        return _host(a.dictionary.values[int(v)])
+    if _is_tensor(v):
+        refuse_host_read(name)
+        return v.item()
+    return _host(v)
+
+
+_NULL_PLACEHOLDER = {"ARRAY": (), "VARCHAR": "", "BOOLEAN": False,
+                     "BIGINT": 0, "INTEGER": 0, "DOUBLE": 0.0}
+
+
+def _flat_elements(d: Dictionary):
+    """(lengths, flat elements as a numpy array, element type) of a tuple
+    dictionary whose elements are all ints, all floats (no NaN, no
+    negative zero) or all strings, with no NULL and nothing nested; None
+    for any other.  Kept beside the dictionary."""
+    def compute():
+        lens = np.fromiter(map(len, d.values), np.int64, len(d))
+        flat = list(itertools.chain.from_iterable(d.values))
+        kinds = set(map(type, flat))
+        if len(kinds) != 1:
+            return None
+        kind = kinds.pop()
+        if kind is str:
+            return lens, np.asarray(flat, dtype=object), kind
+        if kind not in (int, float):
+            return None
+        arr = np.asarray(flat, dtype=np.int64 if kind is int else np.float64)
+        if kind is float and (np.isnan(arr).any()
+                              or (np.signbit(arr) & (arr == 0)).any()):
+            return None
+        return lens, arr, kind
+
+    return d.derived(("flat_elements",), compute)
+
+
+def _numeric_flat(d: Dictionary, *constants):
+    """_flat_elements of ints or floats, where every constant is a
+    number too (their comparisons then agree with Python's)."""
+    got = _flat_elements(d)
+    if got is None or got[2] is str or not all(
+            type(c) in (int, float) for c in constants):
+        return None
+    return got
+
+
+def _per_entry(lens: np.ndarray, values: np.ndarray,
+               ok: np.ndarray) -> list:
+    """One Python value an entry from `values` where `ok`, else None."""
+    out = np.full(len(lens), None, dtype=object)
+    out[ok] = values[ok].tolist() if len(values) == len(lens) \
+        else values.tolist()
+    return out.tolist()
+
+
+def _vector_extreme(ufunc):
+    """array_min / array_max over numeric entries: one reduceat."""
+    def fast(d):
+        got = _numeric_flat(d)
+        if got is None:
+            return None
+        lens, arr, _ = got
+        ok = lens > 0
+        starts = np.cumsum(lens) - lens
+        red = ufunc.reduceat(arr, starts[ok]) if ok.any() else arr[:0]
+        return _per_entry(lens, red, ok)
+
+    return fast
+
+
+def _vector_element_at(d, i):
+    """element_at(a, i) for a constant integer i: one gather."""
+    got = _flat_elements(d)
+    if got is None or type(i) is not int:
+        return None
+    lens, arr, _ = got
+    if i == 0:  # an error in every entry: NULL in every entry
+        return [None] * len(lens)
+    starts = np.cumsum(lens) - lens
+    ok = lens >= abs(i)
+    pos = np.where(ok, starts + (i - 1 if i > 0 else lens + i), 0)
+    return _per_entry(lens, arr[pos] if len(arr) else arr, ok)
+
+
+def _vector_matches(d, x):
+    """(lengths, each flat element equal to x) where both sides are
+    numbers or both strings, else None."""
+    got = _flat_elements(d)
+    if got is None or (got[2] is str) != (type(x) is str) or (
+            type(x) not in (int, float, str)):
+        return None
+    lens, arr, _ = got
+    return lens, arr == x
+
+
+def _vector_contains(d, x):
+    got = _vector_matches(d, x)
+    if got is None:
+        return None
+    lens, hit = got
+    ends = np.cumsum(lens)
+    c = np.concatenate([[0], np.cumsum(hit, dtype=np.int64)])
+    return ((c[ends] - c[ends - lens]) > 0).tolist()
+
+
+def _vector_position(d, x):
+    got = _vector_matches(d, x)
+    if got is None:
+        return None
+    lens, hit = got
+    starts = np.cumsum(lens) - lens
+    owner = np.repeat(np.arange(len(lens)), lens)
+    first = np.full(len(lens), -1, dtype=np.int64)
+    pos = np.flatnonzero(hit)
+    first[owner[pos[::-1]]] = pos[::-1]  # reversed: the first match wins
+    return np.where(first >= 0, first - starts + 1, 0).tolist()
+
+
+def _array_transform(name, fn, out_type=None):
+    """A function of an array and constant arguments, once per entry (an
+    entry whose call raises gives NULL, as in the reference).  out_type:
+    None -> the array's own type (fn returns tuples); a Type -> that
+    type; "elem" -> the element type.  The results, their dictionary and
+    code table are kept beside the array's dictionary."""
+
+    def resolve(args):
+        if not _is_array(args[0]):
+            return None
+        if out_type is None:
+            return args[0]
+        if out_type == "elem":
+            return _elem_type(args[0])
+        return out_type
+
+    def results(col: ColVal, extra: tuple) -> list:
+        fast = _VECTORIZED.get(fn)
+        got = fast(col.dictionary, *extra) if fast is not None \
+            and col.dictionary is not None else None
+        if got is not None:
+            return got
+        got = []
+        for v in _arr_entries(col):
+            try:
+                got.append(fn(tuple(v), *extra))
+            except (ValueError, IndexError, TypeError):
+                got.append(None)
+        return got
+
+    def tables(col: ColVal, extra: tuple, rt: T.Type):
+        got = results(col, extra)
+        null = np.fromiter((r is None for r in got), bool, len(got))
+        outs = np.empty(len(got), dtype=object)
+        blank = _NULL_PLACEHOLDER.get(rt.name if rt is not None else "", 0)
+        outs[:] = [blank if r is None else r for r in got]
+        if rt is not None and rt.name == "ARRAY":
+            return (*_tuple_dictionary(outs.tolist()), null)
+        if rt is not None and rt.is_string:
+            return (*_string_dictionary(outs.tolist()), null)
+        return np.asarray(outs.tolist(), dtype=rt.numpy_dtype()), None, null
+
+    def emit(args):
+        col = args[0]
+        extra = tuple(_const_arg(name, a) for a in args[1:])
+        rt = resolve([a.type for a in args])
+        if col.dictionary is None:
+            lut, d, null = tables(col, extra, rt)
+        else:
+            lut, d, null = col.dictionary.derived(
+                ("array_transform", name, extra, rt),
+                lambda: tables(col, extra, rt))
+        valid = col.valid
+        if null.any():
+            valid = _and_not(valid, _lookup(col.data, null))
+        if rt is not None and rt.is_string:
+            rt = T.VARCHAR
+        return ColVal(_lookup(col.data, lut), valid, rt, d)
+
+    return resolve, emit
+
+
+def _resolve_array_ctor(args):
+    if not args:
+        return T.array_of(T.UNKNOWN)
+    ct = args[0]
+    for a in args[1:]:
+        nxt = T.common_super_type(ct, a)
+        if nxt is None:
+            return None
+        ct = nxt
+    return T.array_of(ct)
+
+
+def _scalar_is_null(a: ColVal) -> bool:
+    v = a.valid
+    if v is None:
+        return False
+    if _is_tensor(v):
+        if v.ndim > 0:
+            return False  # vector validity: not a scalar context
+        refuse_host_read("a constructor")
+    return not bool(v)
+
+
+def _constant_element(a: ColVal, what: str):
+    """The Python value of a constant constructor argument (None when
+    NULL)."""
+    if _is_tensor(a.data) and a.data.ndim > 0:
+        raise NotImplementedError(
+            f"{what}(...) over column values is not supported yet")
+    if _scalar_is_null(a):
+        return None
+    v = a.data
+    if _is_tensor(v) or a.dictionary is not None:
+        # a device-built element (a nested array, a computed value): the
+        # reference's static program reads it back
+        refuse_host_read(f"{what}(...) of computed elements")
+    if _is_tensor(v):
+        v = v.item()
+    if a.dictionary is not None:
+        v = a.dictionary.values[int(v)]
+    return _host(v)
+
+
+def _one_entry(value: tuple, valid, t: T.Type) -> ColVal:
+    d = np.empty(1, dtype=object)
+    d[0] = value
+    return ColVal(0, valid, t, Dictionary(d))
+
+
+def _emit_array_ctor(args):
+    vals = tuple(_constant_element(a, "ARRAY") for a in args)
+    return _one_entry(vals, None,
+                      _resolve_array_ctor([a.type for a in args]))
+
+
+register("array_constructor", _resolve_array_ctor, _emit_array_ctor)
+
+
+def _element_at(v, i):
+    i = int(i)
+    if i == 0:
+        raise ValueError("SQL array indices are 1-based")
+    if abs(i) > len(v):
+        return None  # Presto: NULL beyond the array bounds
+    return v[i - 1] if i > 0 else v[i]
+
+
+def _array_sort(v):
+    return tuple(sorted(e for e in v if e is not None)) \
+        + tuple(e for e in v if e is None)  # NULLs last
+
+
+def _fmt_join(e):
+    if isinstance(e, bool):
+        return "true" if e else "false"
+    return str(e)
+
+
+def _array_join(v, d, nr=None):
+    parts = []
+    for e in v:
+        if e is None:
+            if nr is not None:
+                parts.append(str(nr))
+        else:
+            parts.append(_fmt_join(e))
+    return str(d).join(parts)
+
+
+def _contains(v, x):
+    return any(e == x for e in v)
+
+
+def _array_min(v):
+    return min((e for e in v if e is not None), default=None)
+
+
+def _array_max(v):
+    return max((e for e in v if e is not None), default=None)
+
+
+def _array_position(v, x):
+    return next((i + 1 for i, e in enumerate(v) if e == x), 0)
+
+
+def _array_distinct(v):
+    return tuple(dict.fromkeys(v))
+
+
+def _slice(v, start, length):
+    return v[int(start) - 1:int(start) - 1 + int(length)]
+
+
+def _flatten(v):
+    return tuple(e for sub in v for e in (sub if sub is not None else ()))
+
+
+def _array_remove(v, x):
+    return tuple(e for e in v if e is None or e != x)
+
+
+def _array_union(v, w):
+    return tuple(dict.fromkeys(tuple(v) + tuple(w)))
+
+
+def _array_intersect(v, w):
+    return tuple(dict.fromkeys(e for e in v if e in set(w)))
+
+
+def _array_except(v, w):
+    return tuple(dict.fromkeys(e for e in v if e not in set(w)))
+
+
+def _arrays_overlap(v, w):
+    return any(e in set(w) for e in v if e is not None)
+
+
+#: per-entry functions with a vectorized form over _flat_elements, which
+#: gives the same values (None where the entry's result is NULL)
+_VECTORIZED = {
+    _array_min: _vector_extreme(np.minimum),
+    _array_max: _vector_extreme(np.maximum),
+    _element_at: _vector_element_at,
+    _contains: _vector_contains,
+    _array_position: _vector_position,
+}
+
+register("contains", *_array_transform("contains", _contains, T.BOOLEAN))
+register("array_min", *_array_transform("array_min", _array_min, "elem"))
+register("array_max", *_array_transform("array_max", _array_max, "elem"))
+register("array_position",
+         *_array_transform("array_position", _array_position, T.BIGINT))
+register("array_distinct",
+         *_array_transform("array_distinct", _array_distinct))
+register("slice", *_array_transform("slice", _slice))
+register("flatten", *_array_transform("flatten", _flatten, "elem"))
+register("array_remove", *_array_transform("array_remove", _array_remove))
+register("array_union", *_array_transform("array_union", _array_union))
+register("array_intersect",
+         *_array_transform("array_intersect", _array_intersect))
+register("array_except", *_array_transform("array_except", _array_except))
+register("arrays_overlap",
+         *_array_transform("arrays_overlap", _arrays_overlap, T.BOOLEAN))
+register("array_join",
+         lambda args: T.VARCHAR if args and _is_array(args[0])
+         and len(args) in (2, 3) else None,
+         _array_transform("array_join", _array_join, T.VARCHAR)[1])
+
+
+def _resolve_sequence(args):
+    if len(args) in (2, 3) and all(a.is_integer for a in args):
+        return T.array_of(T.BIGINT)
+    return None
+
+
+def _emit_sequence(args):
+    vals = []
+    for a in args:
+        if _is_tensor(a.data):
+            if a.data.ndim > 0:
+                raise NotImplementedError("sequence over column bounds")
+            refuse_host_read("sequence")
+        vals.append(int(a.data))
+    start, stop = vals[0], vals[1]
+    step = vals[2] if len(vals) > 2 else (1 if stop >= start else -1)
+    if step == 0:
+        raise ValueError("sequence step cannot be zero")
+    if (stop - start) * step < 0:
+        raise ValueError(
+            "sequence stop value should be " +
+            ("greater than or equal to" if step > 0
+             else "less than or equal to")
+            + " start value" + (" if step is greater than zero"
+                                if step > 0 else " if step is less than zero"))
+    n = max(0, (stop - start) // step + 1)
+    if n > 10_000_000:
+        raise ValueError("sequence result is too large")
+    return _one_entry(tuple(range(start, start + n * step, step)),
+                      all_valid(*args), T.array_of(T.BIGINT))
+
+
+register("sequence", _resolve_sequence, _emit_sequence)
+
+
+def _resolve_split(args):
+    if len(args) in (2, 3) and args[0].is_string and args[1].is_string:
+        return T.array_of(T.VARCHAR)
+    return None
+
+
+def _emit_split(args):
+    col = _literal_dictionary(args[0])
+    delim = args[1].data if isinstance(args[1].data, str) else None
+    if delim is None:
+        raise NotImplementedError("split with a non-constant delimiter")
+    limit = None
+    if len(args) > 2:
+        limit = int(_const_arg("split", args[2]))
+    rt = T.array_of(T.VARCHAR)
+
+    def compute():
+        vals = col.dictionary.values
+        outs = [()] * max(len(vals), 1)
+        for i, v in enumerate(vals):
+            outs[i] = tuple(str(v).split(delim) if limit is None
+                            else str(v).split(delim, limit - 1))
+        return _tuple_dictionary(outs)
+
+    inverse, d = col.dictionary.derived(("split", delim, limit), compute)
+    return ColVal(_lookup(col.data, inverse), col.valid, rt, d)
+
+
+register("split", _resolve_split, _emit_split)
+
+
+def _emit_concat_arrays(args):
+    """ARRAY || ARRAY, once per distinct combination of codes (reference:
+    _emit_concat_arrays; its static program reads the codes back)."""
+    codes, inv, scalar = _pair_codes(args, "concat", mask_nulls=False)
+    outs = np.empty(len(codes), dtype=object)
+    for k, combo in enumerate(codes):
+        t = ()
+        for a, code in zip(args, combo):
+            dv = _arr_entries(a)
+            t = t + (tuple(dv[int(code)]) if 0 <= int(code) < len(dv)
+                     else ())
+        outs[k] = t
+    rt = _resolve_concat([a.type for a in args])
+    return _tuple_dict_normalize(
+        outs, ColVal(_combo_codes(inv, scalar, args), all_valid(*args), rt),
+        rt)
+
+
+# ---- higher-order (lambda) functions ---------------------------------------
+# Reference: the lambda section of presto_tpu/functions/scalar.py.  The
+# body runs over the flattened elements of the dictionary entries
+# (LambdaVal.apply), so the work is per distinct value, not per row;
+# a capture of an enclosing row column would break that and is refused.
+
+
+def _check_lambda(lam, name):
+    if not isinstance(lam, LambdaVal):
+        raise NotImplementedError(f"{name} expects a lambda argument")
+    if lam.free_refs():
+        raise NotImplementedError(
+            f"{name}: lambda captures of enclosing columns are not supported")
+
+
+def _colval_from_pylist(vals, t: T.Type) -> ColVal:
+    """A column ColVal of host values (None == NULL) on the session's
+    device."""
+    n = len(vals)
+    device = session_ctx.device()
+    valid = np.asarray([v is not None for v in vals], dtype=bool)
+    v_arg = None if valid.all() else upload(valid, device)
+    positions = ColVal(torch.arange(n, dtype=torch.int32, device=device),
+                       v_arg, t)
+    if _is_collection(t):
+        obj = np.empty(n, dtype=object)
+        for i, v in enumerate(vals):
+            obj[i] = tuple(v) if v is not None else ()
+        return _tuple_dict_normalize(obj, positions, t)
+    if t.is_string:
+        return _normalize_strings(
+            ["" if v is None else str(v) for v in vals],
+            ColVal(positions.data, v_arg, T.VARCHAR))
+    if t.name == "UNKNOWN":
+        return ColVal(torch.zeros((n,), dtype=torch.int32, device=device),
+                      torch.zeros((n,), dtype=torch.bool, device=device), t)
+    data = np.asarray([(0 if v is None else v) for v in vals],
+                      dtype=t.numpy_dtype())
+    return ColVal(upload(data, device), v_arg, t)
+
+
+def _pylist_from_colval(cv: ColVal, n: int) -> list:
+    """Host decode of a ColVal to Python values, None == NULL."""
+    data, valid = cv.data, cv.valid
+    if _is_tensor(data) or _is_tensor(valid):
+        refuse_host_read("a lambda's result")
+    if _is_tensor(data) and data.ndim > 0:
+        codes = data.cpu().numpy()
+    else:
+        codes = np.full(n, data.item() if _is_tensor(data) else data)
+    if cv.dictionary is not None:
+        dvals = cv.dictionary.values
+        if len(dvals) == 0:
+            out = [None] * n
+        else:
+            picked = dvals[np.clip(codes, 0, len(dvals) - 1)]
+            out = picked.tolist() if picked.dtype.kind == "U" \
+                else [_host(v) for v in picked]
+    else:
+        out = codes.tolist()
+    if valid is None:
+        return out
+    if _is_tensor(valid) and valid.ndim > 0:
+        valid = valid.cpu().numpy()
+    else:
+        valid = np.full(n, bool(valid))
+    return [v if ok else None for v, ok in zip(out, valid)]
+
+
+def _flat_apply(lam, entries):
+    """A one-parameter lambda over every element of every entry:
+    (lengths of the entries, the flat results)."""
+    lens = [len(t) for t in entries]
+    flat = [e for t in entries for e in t]
+    if not flat:
+        return lens, []
+    elem = _colval_from_pylist(flat, lam.param_types[0])
+    res = lam.apply({lam.params[0]: elem})
+    return lens, _pylist_from_colval(res, len(flat))
+
+
+def _result_tables(vals: list, rt: T.Type) -> tuple:
+    """(table, dictionary, NULL flags) of host results, one per
+    dictionary entry, None for NULL (reference: _dict_lut_result): a
+    collection result is a tuple dictionary and its code table, a string
+    one a sorted dictionary and its code table, any other a value
+    table."""
+    if len(vals) == 0:
+        vals = [None]
+    null = np.asarray([v is None for v in vals], dtype=bool)
+    if _is_collection(rt):
+        inverse, d = _tuple_dictionary([tuple(v) if v is not None else ()
+                                        for v in vals])
+        return inverse, d, null
+    if rt.is_string:
+        return (*_string_dictionary(["" if v is None else v for v in vals]),
+                null)
+    if rt.name in ("HLL", "P4HLL", "QDIGEST", "TDIGEST"):
+        raise NotImplementedError(f"{rt.name} values are not ported")
+    return np.asarray([0 if v is None else v for v in vals],
+                      dtype=rt.numpy_dtype()), None, null
+
+
+def _entries_tables(outs: list) -> tuple:
+    """(code table, dictionary, None) of one result tuple per dictionary
+    entry (at least one entry, as in the reference)."""
+    outs = list(outs) or [()]
+    return (*_tuple_dictionary(outs), None)
+
+
+def _from_tables(col: ColVal, rt: T.Type, tables) -> ColVal:
+    """A per-entry result (_result_tables, _entries_tables) through the
+    codes: one lookup on the device, NULL where the entry's result is."""
+    lut, d, null = tables
+    codes = _clip_codes(col.data, len(lut))
+    valid = col.valid
+    if null is not None and null.any():
+        valid = _and_not(valid, _lookup(codes, null))
+    return ColVal(_lookup(codes, lut), valid,
+                  T.VARCHAR if rt.is_string else rt, d)
+
+
+def _lambda_key(*lams):
+    """What a lambda's results depend on besides the dictionary: its
+    parameters and body (None when the body reads a scalar subquery,
+    whose value lives in the query's context)."""
+    key = tuple((lam.params, lam.param_types, repr(lam.body))
+                for lam in lams)
+    return None if any("ScalarSub(" in k[2] for k in key) else key
+
+
+def _kept(col: ColVal, key, compute):
+    """compute() kept beside col's dictionary under key, so that a
+    lambda runs once per dictionary, not once per query.  The static
+    pass computes afresh: there the reference's program reads the
+    lambda's results on the host and falls back (_pylist_from_colval)."""
+    if col.dictionary is None or None in key or in_static_pass():
+        return compute()
+    return col.dictionary.derived(key, compute)
+
+
+def _split_runs(lens, flat) -> list:
+    out, off = [], 0
+    for n in lens:
+        out.append(flat[off:off + n])
+        off += n
+    return out
+
+
+def _emit_transform(args):
+    col, lam = args
+    _check_lambda(lam, "transform")
+
+    def compute():
+        lens, res = _flat_apply(lam, _arr_entries(col))
+        return _entries_tables(tuple(r) for r in _split_runs(lens, res))
+
+    return _from_tables(col, T.array_of(lam.ret_type), _kept(
+        col, ("transform", _lambda_key(lam)), compute))
+
+
+def _emit_filter(args):
+    col, lam = args
+    _check_lambda(lam, "filter")
+
+    def compute():
+        entries = _arr_entries(col)
+        lens, res = _flat_apply(lam, entries)
+        return _entries_tables(
+            tuple(e for e, k in zip(t, r) if k is not None and bool(k))
+            for t, r in zip(entries, _split_runs(lens, res)))
+
+    return _from_tables(col, col.type, _kept(
+        col, ("filter", _lambda_key(lam)), compute))
+
+
+def _emit_match(name):
+    def emit(args):
+        col, lam = args
+        _check_lambda(lam, name)
+
+        def compute():
+            lens, res = _flat_apply(lam, _arr_entries(col))
+            # per entry: any element true, any false, any NULL
+            null = np.fromiter((v is None for v in res), bool, len(res))
+            true = np.fromiter((v is not None and bool(v) for v in res),
+                               bool, len(res))
+            ends = np.cumsum(lens, dtype=np.int64)
+
+            def per_entry(flags):
+                c = np.concatenate([[0], np.cumsum(flags, dtype=np.int64)])
+                return (c[ends] - c[ends - lens]) > 0
+
+            any_true, any_null = per_entry(true), per_entry(null)
+            any_false = per_entry(~true & ~null)
+            vals = []
+            for t, f, u in zip(any_true.tolist(), any_false.tolist(),
+                               any_null.tolist()):
+                if name == "any_match":
+                    r = True if t else (None if u else False)
+                elif name == "all_match":
+                    r = False if f else (None if u else True)
+                else:  # none_match
+                    r = False if t else (None if u else True)
+                vals.append(r)
+            return _result_tables(vals, T.BOOLEAN)
+
+        return _from_tables(col, T.BOOLEAN, _kept(
+            col, (name, _lambda_key(lam)), compute))
+
+    return emit
+
+
+def _emit_reduce(args):
+    arr, init, merge, out = args
+    _check_lambda(merge, "reduce")
+    _check_lambda(out, "reduce")
+    if _is_tensor(init.data) and init.data.ndim > 0:
+        raise NotImplementedError("reduce with a non-constant initial state")
+    init_null = init.valid is not None and not _is_tensor(init.valid) \
+        and not bool(init.valid)
+    iv = None
+    if not init_null:
+        iv = init.data
+        if _is_tensor(iv):
+            refuse_host_read("reduce")
+            iv = iv.item()
+
+    def compute():
+        entries = _arr_entries(arr)
+        ne = len(entries)
+        states = [iv] * ne
+        maxlen = max((len(t) for t in entries), default=0)
+        # step-synchronous: one vectorized merge over every entry that
+        # still has an element at this position
+        for step in range(maxlen):
+            idxs = [i for i in range(ne) if len(entries[i]) > step]
+            sc = _colval_from_pylist([states[i] for i in idxs],
+                                     merge.param_types[0])
+            ec = _colval_from_pylist([entries[i][step] for i in idxs],
+                                     merge.param_types[1])
+            res = _pylist_from_colval(
+                merge.apply({merge.params[0]: sc, merge.params[1]: ec}),
+                len(idxs))
+            for j, i in enumerate(idxs):
+                states[i] = res[j]
+        finals = []
+        if ne:
+            fc = _colval_from_pylist(states, out.param_types[0])
+            finals = _pylist_from_colval(out.apply({out.params[0]: fc}), ne)
+        return _result_tables(finals, out.ret_type)
+
+    return _from_tables(arr, out.ret_type, _kept(
+        arr, ("reduce", repr(iv), _lambda_key(merge, out)), compute))
+
+
+def _code_array(a: ColVal, mask_nulls: bool) -> np.ndarray:
+    c = a.data.cpu().numpy() if _is_tensor(a.data) else np.asarray(a.data)
+    if mask_nulls and _is_tensor(a.valid) and a.valid.ndim > 0:
+        c = np.where(a.valid.cpu().numpy(), np.atleast_1d(c), -1)
+    return c
+
+
+def _pair_codes(args, name: str, mask_nulls: bool = True):
+    """Row-wise pairing of dictionary-coded arguments (reference:
+    _pair_codes): (the distinct code combinations [k, N], each row's
+    combination, all constant?).  NULL rows pair as code -1 when
+    mask_nulls.  The codes are read on the host, which the reference's
+    static program cannot do."""
+    refuse_host_read(name)
+    codes_list = [_code_array(a, mask_nulls) for a in args]
+    scalar = all(c.ndim == 0 for c in codes_list)
+    n = max((len(c) for c in codes_list if c.ndim > 0), default=1)
+    cols = [np.broadcast_to(np.atleast_1d(c), (n,)) for c in codes_list]
+    uniq, inv = np.unique(np.stack(cols, axis=1), axis=0,
+                          return_inverse=True)
+    return uniq, inv.reshape(-1), scalar
+
+
+def _combo_codes(inv: np.ndarray, scalar: bool, args):
+    if scalar:
+        return int(inv[0])
+    device = next(a.data.device for a in args if _is_tensor(a.data))
+    return upload(inv.astype(np.int32), device)
+
+
+def _emit_zip_with(args):
+    a, b, lam = args
+    _check_lambda(lam, "zip_with")
+    av, bv = _arr_entries(a), _arr_entries(b)
+    refuse_host_read("zip_with")
+    ca, cb = _code_array(a, False), _code_array(b, False)
+    scalar = ca.ndim == 0 and cb.ndim == 0
+    ca1, cb1 = np.atleast_1d(ca), np.atleast_1d(cb)
+    n = max(len(ca1), len(cb1))
+    if len(ca1) == 1:
+        ca1 = np.repeat(ca1, n)
+    if len(cb1) == 1:
+        cb1 = np.repeat(cb1, n)
+    pairs = np.stack([np.clip(ca1, 0, max(len(av) - 1, 0)),
+                      np.clip(cb1, 0, max(len(bv) - 1, 0))], axis=1)
+    uniq, inv = np.unique(pairs, axis=0, return_inverse=True)
+
+    def compute():
+        e1t, e2t = lam.param_types
+        flat1, flat2, lens = [], [], []
+        for i, j in uniq:
+            t1 = av[i] if len(av) else ()
+            t2 = bv[j] if len(bv) else ()
+            n_ = max(len(t1), len(t2))  # the shorter one padded with NULL
+            lens.append(n_)
+            flat1.extend(list(t1) + [None] * (n_ - len(t1)))
+            flat2.extend(list(t2) + [None] * (n_ - len(t2)))
+        res = []
+        if flat1:
+            r = lam.apply({lam.params[0]: _colval_from_pylist(flat1, e1t),
+                           lam.params[1]: _colval_from_pylist(flat2, e2t)})
+            res = _pylist_from_colval(r, len(flat1))
+        return _entries_tables(tuple(t) for t in _split_runs(lens, res))
+
+    lut, d, _ = _kept(a, ("zip_with", b.dictionary, _lambda_key(lam),
+                          uniq.tobytes()), compute)
+    inv = inv.reshape(-1)
+    codes = int(inv[0]) if scalar else _combo_codes(inv, False, (a, b))
+    return ColVal(_lookup(codes, lut), all_valid(a, b),
+                  T.array_of(lam.ret_type), d)
+
+
+_SORT_RESOLVE, _SORT_EMIT = _array_transform("array_sort", _array_sort)
+
+
+def _emit_array_sort(args):
+    """array_sort(a) with NULLs last, or array_sort(a, (x, y) -> cmp),
+    whose comparisons of every pair within an entry run in one lambda
+    application (reference: scalar_ext2.py's wrapper)."""
+    if not (len(args) == 2 and isinstance(args[1], LambdaVal)):
+        return _SORT_EMIT(args)
+    col, lam = args
+    _check_lambda(lam, "array_sort")
+
+    def compute():
+        entries = _arr_entries(col)
+        xs, ys, owners = [], [], []
+        for ei, t in enumerate(entries):
+            for i in range(len(t)):
+                for j in range(i + 1, len(t)):
+                    xs.append(t[i])
+                    ys.append(t[j])
+                    owners.append((ei, i, j))
+        res = []
+        if xs:
+            et = lam.param_types[0]
+            res = _pylist_from_colval(
+                lam.apply({lam.params[0]: _colval_from_pylist(xs, et),
+                           lam.params[1]: _colval_from_pylist(ys, et)}),
+                len(xs))
+        cmps = {o: 0 if r is None else int(r) for o, r in zip(owners, res)}
+        outs = []
+        for ei, t in enumerate(entries):
+            def cmp(i, j, _ei=ei):
+                if i == j:
+                    return 0
+                if i < j:
+                    return cmps.get((_ei, i, j), 0)
+                return -cmps.get((_ei, j, i), 0)
+
+            order = sorted(range(len(t)), key=functools.cmp_to_key(cmp))
+            outs.append(tuple(t[i] for i in order))
+        return _result_tables(outs, col.type)
+
+    return _from_tables(col, col.type, _kept(
+        col, ("array_sort", _lambda_key(lam)), compute))
+
+
+register("array_sort",
+         lambda args: args[0] if len(args) == 2 and _is_array(args[0])
+         and _is_function(args[1]) else _SORT_RESOLVE(args),
+         _emit_array_sort)
+register("transform",
+         lambda args: T.array_of(_fn_ret(args[1])) if len(args) == 2
+         and _is_array(args[0]) and _is_function(args[1]) else None,
+         _emit_transform)
+register("filter",
+         lambda args: args[0] if len(args) == 2 and _is_array(args[0])
+         and _is_function(args[1]) else None,
+         _emit_filter)
+for _m in ("any_match", "all_match", "none_match"):
+    register(_m,
+             lambda args: T.BOOLEAN if len(args) == 2 and _is_array(args[0])
+             and _is_function(args[1]) else None,
+             _emit_match(_m))
+register("zip_with",
+         lambda args: T.array_of(_fn_ret(args[2])) if len(args) == 3
+         and _is_array(args[0]) and _is_array(args[1])
+         and _is_function(args[2]) else None,
+         _emit_zip_with)
+register("reduce",
+         lambda args: _fn_ret(args[3]) if len(args) == 4
+         and _is_array(args[0]) and _is_function(args[2])
+         and _is_function(args[3]) else None,
+         _emit_reduce)
+
+
+# ---- MAP --------------------------------------------------------------------
+
+
+def _map_sort(pairs) -> tuple:
+    return tuple(sorted(pairs, key=lambda p: repr(p[0])))
+
+
+def _map_build(keys, values) -> tuple:
+    keys = list(keys)
+    if any(k is None for k in keys):
+        raise ValueError("map key cannot be null")
+    if len(set(keys)) != len(keys):
+        raise ValueError("duplicate map keys are not allowed")
+    return _map_sort(zip(keys, values))
+
+
+def _resolve_map_ctor(args):
+    if len(args) == 0:
+        return T.map_of(T.UNKNOWN, T.UNKNOWN)
+    if len(args) == 2 and all(a.name == "ARRAY" for a in args):
+        return T.map_of(args[0].params[0], args[1].params[0])
+    return None
+
+
+def _emit_map_ctor(args):
+    rt = _resolve_map_ctor([a.type for a in args])
+    if not args:
+        return _one_entry((), None, rt)
+    ka, va = args
+    uniq, inv, scalar = _pair_codes(args, "map")
+    kd, vd = _arr_entries(ka), _arr_entries(va)
+    outs = np.empty(len(uniq), dtype=object)
+    for i, (ck, cv) in enumerate(uniq):
+        if int(ck) < 0 or int(cv) < 0:  # a NULL row: NULL through valid
+            outs[i] = ()
+            continue
+        keys = kd[int(ck)] if int(ck) < len(kd) else ()
+        vals = vd[int(cv)] if int(cv) < len(vd) else ()
+        if len(keys) != len(vals):
+            raise ValueError("map key and value arrays must match in length")
+        outs[i] = _map_build(keys, vals)
+    return _tuple_dict_normalize(
+        outs, ColVal(_combo_codes(inv, scalar, args), all_valid(*args), rt),
+        rt)
+
+
+register("map", _resolve_map_ctor, _emit_map_ctor)
+
+
+def _map_value_fn(name, fn, rt_fn):
+    """A function of a map and constant arguments, once per entry."""
+
+    def resolve(args):
+        return rt_fn(args) if args and _is_map(args[0]) else None
+
+    def emit(args):
+        col = args[0]
+        extra = tuple(_const_arg(name, a) for a in args[1:])
+        rt = rt_fn([a.type for a in args])
+
+        def compute():
+            vals = []
+            for t in _arr_entries(col):
+                try:
+                    vals.append(fn(t, *extra))
+                except (ValueError, IndexError, TypeError, KeyError):
+                    vals.append(None)
+            return _result_tables(vals, rt)
+
+        return _from_tables(col, rt, _kept(col, (name, fn, extra, rt),
+                                           compute))
+
+    return resolve, emit
+
+
+def _map_keys(t):
+    return tuple(k for k, _ in t)
+
+
+def _map_values(t):
+    return tuple(v for _, v in t)
+
+
+def _map_entries(t):
+    return tuple(tuple(p) for p in t)
+
+
+register("map_keys", *_map_value_fn(
+    "map_keys", _map_keys, lambda a: T.array_of(a[0].params[0])))
+register("map_values", *_map_value_fn(
+    "map_values", _map_values, lambda a: T.array_of(a[0].params[1])))
+register("map_entries", *_map_value_fn(
+    "map_entries", _map_entries,
+    lambda a: T.array_of(T.row_of([(None, a[0].params[0]),
+                                   (None, a[0].params[1])]))))
+
+
+def _map_lookup(t, key):
+    for k, v in t:
+        if k == key:
+            return v
+    return None
+
+
+def _resolve_element_at(args):
+    if not args:
+        return None
+    if _is_array(args[0]):
+        return _elem_type(args[0])
+    if _is_map(args[0]):
+        return args[0].params[1]
+    return None
+
+
+_MAP_ELEMENT_AT = _map_value_fn("element_at", _map_lookup,
+                                lambda a: a[0].params[1])[1]
+_ARRAY_ELEMENT_AT = _array_transform("element_at", _element_at, "elem")[1]
+
+
+def _emit_element_at(args):
+    """element_at(a, i) and a[i] / m[k]: NULL when missing (the
+    reference's lenient subscript)."""
+    if _is_map(args[0].type):
+        return _MAP_ELEMENT_AT(args)
+    return _ARRAY_ELEMENT_AT(args)
+
+
+register("element_at", _resolve_element_at, _emit_element_at)
+register("subscript", _resolve_element_at, _emit_element_at)
+
+
+def _resolve_cardinality(args):
+    if args and args[0].name in ("HLL", "P4HLL", "QDIGEST"):
+        raise NotImplementedError(
+            f"cardinality of {args[0].name} sketches is not ported")
+    return T.BIGINT if args and args[0].name in ("ARRAY", "MAP") else None
+
+
+def _emit_cardinality(args):
+    col = args[0]
+    return _from_tables(col, T.BIGINT, _kept(
+        col, ("cardinality",), lambda: _result_tables(
+            [len(t) for t in _arr_entries(col)], T.BIGINT)))
+
+
+register("cardinality", _resolve_cardinality, _emit_cardinality)
+
+
+def _resolve_map_concat(args):
+    if args and all(_is_map(a) for a in args):
+        kt, vt = args[0].params
+        for a in args[1:]:
+            kt = T.common_super_type(kt, a.params[0]) or kt
+            vt = T.common_super_type(vt, a.params[1]) or vt
+        return T.map_of(kt, vt)
+    return None
+
+
+def _emit_map_concat(args):
+    rt = _resolve_map_concat([a.type for a in args])
+    uniq, inv, scalar = _pair_codes(args, "map_concat")
+    dicts = [_arr_entries(a) for a in args]
+    outs = np.empty(len(uniq), dtype=object)
+    for i, combo in enumerate(uniq):
+        merged = {}
+        for dv, code in zip(dicts, combo):
+            if 0 <= int(code) < len(dv):
+                merged.update(dict(dv[int(code)]))  # later maps win
+        outs[i] = _map_sort(merged.items())
+    return _tuple_dict_normalize(
+        outs, ColVal(_combo_codes(inv, scalar, args), all_valid(*args), rt),
+        rt)
+
+
+register("map_concat", _resolve_map_concat, _emit_map_concat)
+
+
+def _resolve_map_from_entries(args):
+    if args and _is_array(args[0]) and args[0].params[0].name == "ROW" \
+            and len(args[0].params[0].params) == 2:
+        return T.map_of(args[0].params[0].params[0][1],
+                        args[0].params[0].params[1][1])
+    return None
+
+
+def _emit_map_from_entries(args):
+    col = args[0]
+    rt = _resolve_map_from_entries([a.type for a in args])
+
+    def compute():
+        vals = []
+        for t in _arr_entries(col):
+            try:
+                vals.append(_map_build([p[0] for p in t],
+                                       [p[1] for p in t]))
+            except (ValueError, IndexError, TypeError):
+                vals.append(None)
+        return _result_tables(vals, rt)
+
+    return _from_tables(col, rt, _kept(col, ("map_from_entries", rt),
+                                       compute))
+
+
+register("map_from_entries", _resolve_map_from_entries,
+         _emit_map_from_entries)
+
+
+def _emit_map_hof(name):
+    def emit(args):
+        col, lam = args
+        _check_lambda(lam, name)
+        if name == "map_filter":
+            rt = col.type
+        elif name == "transform_values":
+            rt = T.map_of(col.type.params[0], lam.ret_type)
+        else:
+            rt = T.map_of(lam.ret_type, col.type.params[1])
+
+        def compute():
+            entries = _arr_entries(col)
+            lens = [len(t) for t in entries]
+            ks = [k for t in entries for k, _ in t]
+            vs = [v for t in entries for _, v in t]
+            res = []
+            if ks:
+                kc = _colval_from_pylist(ks, lam.param_types[0])
+                vc = _colval_from_pylist(vs, lam.param_types[1])
+                res = _pylist_from_colval(
+                    lam.apply({lam.params[0]: kc, lam.params[1]: vc}),
+                    len(ks))
+            outs = []
+            for pairs, window in zip(entries, _split_runs(lens, res)):
+                if name == "map_filter":
+                    outs.append(tuple(p for p, r in zip(pairs, window)
+                                      if r is not None and bool(r)))
+                elif name == "transform_values":
+                    outs.append(tuple((k, r) for (k, _), r
+                                      in zip(pairs, window)))
+                else:  # transform_keys
+                    if any(k is None for k in window):
+                        raise ValueError("map key cannot be null")
+                    if len(set(window)) != len(window):
+                        raise ValueError(
+                            "duplicate map keys from transform_keys")
+                    outs.append(_map_sort((r, v) for (_, v), r
+                                          in zip(pairs, window)))
+            return _entries_tables(outs)
+
+        return _from_tables(col, rt, _kept(
+            col, (name, _lambda_key(lam)), compute))
+
+    return emit
+
+
+register("map_filter",
+         lambda args: args[0] if len(args) == 2 and _is_map(args[0])
+         and _is_function(args[1]) else None,
+         _emit_map_hof("map_filter"))
+register("transform_values",
+         lambda args: T.map_of(args[0].params[0], _fn_ret(args[1]))
+         if len(args) == 2 and _is_map(args[0]) and _is_function(args[1])
+         else None,
+         _emit_map_hof("transform_values"))
+register("transform_keys",
+         lambda args: T.map_of(_fn_ret(args[1]), args[0].params[1])
+         if len(args) == 2 and _is_map(args[0]) and _is_function(args[1])
+         else None,
+         _emit_map_hof("transform_keys"))
+
+
+# ---- ROW --------------------------------------------------------------------
+
+
+def _resolve_row_ctor(args):
+    return T.row_of([(None, a) for a in args])
+
+
+def _emit_row_ctor(args):
+    vals = tuple(_constant_element(a, "ROW") for a in args)
+    return _one_entry(vals, None, _resolve_row_ctor([a.type for a in args]))
+
+
+register("row", _resolve_row_ctor, _emit_row_ctor)
+
+
+def _emit_row_field(args):
+    col, idx_v = args
+    idx = int(_const_arg("row_field", idx_v))
+    ft = col.type.params[idx][1]
+    return _from_tables(col, ft, _kept(
+        col, ("row_field", idx, ft), lambda: _result_tables(
+            [t[idx] if idx < len(t) else None for t in _arr_entries(col)],
+            ft)))
+
+
+register("row_field", lambda args: None, _emit_row_field)
+
+
+# ---- collection casts -------------------------------------------------------
+
+
+def _container_same_elements(a: T.Type, b: T.Type) -> bool:
+    def same(x, y):
+        return x == y or y.name == "UNKNOWN" or x.name == "UNKNOWN"
+
+    if a.name == "ROW":
+        return len(a.params) == len(b.params) and all(
+            same(x[1], y[1]) for x, y in zip(a.params, b.params))
+    return all(same(x, y) for x, y in zip(a.params, b.params))
+
+
+def _render_varchar(x, frm: T.Type) -> str:
+    """A value's text (reference: _render_varchar) for the types a
+    collection cast renders."""
+    if frm.name == "BOOLEAN":
+        return "true" if x else "false"
+    if frm.is_integer:
+        return str(int(x))
+    if frm.is_floating:
+        f = float(x)
+        if f != f:
+            return "NaN"
+        if f == float("inf"):
+            return "Infinity"
+        if f == float("-inf"):
+            return "-Infinity"
+        # Java Double.toString: plain decimal in [1e-3, 1e7), else
+        # scientific
+        if f == 0.0 or 1e-3 <= abs(f) < 1e7:
+            if f == int(f):
+                return f"{f:.1f}"
+            return repr(f)
+        mant, exp = f"{f:E}".split("E")
+        mant = mant.rstrip("0").rstrip(".")
+        if "." not in mant:
+            mant += ".0"
+        return f"{mant}E{int(exp)}"
+    if frm.name == "DATE":
+        return (datetime.date(1970, 1, 1)
+                + datetime.timedelta(days=int(x))).isoformat()
+    raise NotImplementedError(
+        f"CAST of {frm} to VARCHAR inside a collection is not ported")
+
+
+def _py_cast_scalar(x, ft: T.Type, tt: T.Type):
+    if x is None:
+        return None
+    if ft == tt or tt.name == "UNKNOWN":
+        return x
+    if _is_collection(tt):
+        return _py_cast_value(x, ft, tt)
+    if tt.is_string:
+        return x if ft.is_string else _render_varchar(x, ft)
+    if tt.is_integer:
+        return int(x)
+    if tt.is_floating:
+        return float(x)
+    if tt.name == "BOOLEAN":
+        return bool(x)
+    raise NotImplementedError(f"CAST {ft} -> {tt} inside a container")
+
+
+def _py_cast_value(t, frm: T.Type, to: T.Type):
+    """One collection dictionary entry converted between element
+    types."""
+    if t is None:
+        return None
+    if frm.name == "ARRAY":
+        return tuple(_py_cast_scalar(e, frm.params[0], to.params[0])
+                     for e in t)
+    if frm.name == "MAP":
+        return _map_sort(
+            (_py_cast_scalar(k, frm.params[0], to.params[0]),
+             _py_cast_scalar(w, frm.params[1], to.params[1])) for k, w in t)
+    return tuple(_py_cast_scalar(e, ft[1], tt[1])
+                 for e, ft, tt in zip(t, frm.params, to.params))
+
+
+def _cast_collection(v: ColVal, to: T.Type) -> ColVal:
+    """CAST between two ARRAY, MAP or ROW types of one kind: a re-tag
+    when the element types agree (ROW field renaming), else every
+    dictionary entry converted on the host."""
+    frm = v.type
+    if frm.name == "ROW" and len(frm.params) != len(to.params):
+        raise ValueError(f"cannot cast {frm} to {to}: field count mismatch")
+    if _container_same_elements(frm, to):
+        return ColVal(v.data, v.valid, to, v.dictionary)
+    entries = _arr_entries(v)
+    outs = np.empty(max(len(entries), 1), dtype=object)
+    outs[:] = [()] * len(outs)
+    for i, t in enumerate(entries):
+        outs[i] = _py_cast_value(t, frm, to)
+    return _tuple_dict_normalize(
+        outs, ColVal(_clip_codes(v.data, len(outs)), v.valid, to), to)
+
+
 # ---- casts ----------------------------------------------------------------
 
 
@@ -1560,7 +3084,11 @@ def emit_cast(v: ColVal, to: T.Type, safe: bool = False) -> ColVal:
     frm = v.type
     if frm == to:
         return v
+    if _is_collection(frm) and to.name == frm.name:
+        return _cast_collection(v, to)
     if frm.name == "UNKNOWN":  # CAST(NULL AS anything) == typed NULL
+        if to.name == "ARRAY":
+            return _one_entry((), False, to)
         return ColVal("" if to.is_string else to.numpy_dtype().type(0).item(),
                       False, to)
     if frm.name == "DATE" and to.name == "TIMESTAMP":

@@ -28,6 +28,9 @@ _QSEQ = contextvars.ContextVar("presto_tpu_query_seq", default=0)
 #: like random() need a row count; emitters only see argument ColVals)
 _BATCH_CAP = contextvars.ContextVar("presto_tpu_batch_capacity",
                                     default=None)
+#: the session's device (collection functions build their element
+#: columns there; a constant collection carries no tensor to ask)
+_DEVICE = contextvars.ContextVar("presto_tpu_torch_device", default="cpu")
 
 
 def current_zone() -> str:
@@ -50,6 +53,12 @@ def query_seq() -> int:
     return _QSEQ.get()
 
 
+def device():
+    import torch
+
+    return torch.device(_DEVICE.get())
+
+
 def batch_capacity() -> int | None:
     return _BATCH_CAP.get()
 
@@ -64,6 +73,7 @@ def activate(session) -> None:
     _START_US.set(int(time.time() * 1_000_000))
     _USER.set(str(getattr(session, "user", "user")))
     _QSEQ.set(next(_QSEQ_COUNTER))
+    _DEVICE.set(str(getattr(session, "device", "cpu")))
 
 
 def activate_raw(tz: str, start_us: int | None) -> None:

@@ -135,9 +135,10 @@ def test_unported_modes_raise(prop, port_catalog):
 
 
 @pytest.mark.parametrize("sql,name", [
-    ("SELECT array_agg(l_orderkey) FROM lineitem", "array_agg"),
+    ("SELECT approx_most_frequent(3, l_shipmode, 100) FROM lineitem",
+     "approx_most_frequent"),
     ("CREATE TABLE t AS SELECT l_orderkey FROM lineitem", "CreateTableAs"),
-    ("SELECT split(l_comment, ' ') FROM lineitem", "split"),
+    ("SELECT cos(l_discount) FROM lineitem", "cos"),
 ])
 def test_unported_nodes_and_functions_raise_with_their_name(sql, name,
                                                             port_catalog):

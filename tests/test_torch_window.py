@@ -12,7 +12,8 @@ oracle, on the CPU at SF0.01.
   seeded numpy inputs: the partition, peer and frame bounds of
   `_FrameContext` (the port finds them without cummax/cummin, as the
   same integers), `_segmented_scan`, `_minmax_sliding`, `_ntile` and
-  `_lag_lead`.
+  `_lag_lead`; the fixed-order prefix of the frame sums against
+  jnp.cumsum, and integer sums kept off it.
 """
 
 import jax.numpy as jnp
@@ -256,6 +257,44 @@ def test_segmented_scan_matches_reference(op, dtype, n, seed):
     ref = RW._segmented_scan(jnp.asarray(vals), jnp.asarray(flags),
                              getattr(jnp, f"{op}imum"), ident)
     _same(mine, ref)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n,seed", [(0, 0), (1, 1), (1024, 2), (1025, 3),
+                                    (1_100_000, 4)])
+def test_fixed_order_cumsum_matches_reference(dtype, n, seed):
+    """The frame sums' prefix (rows of 1,024, then their totals: three
+    levels past 2^20 values) against the reference's jnp.cumsum, within
+    sqrt(n) ulps of the largest prefix."""
+    x = np.random.default_rng(seed).standard_normal(n).astype(dtype) * 1e3
+    mine = W.fixed_order_cumsum(torch.from_numpy(x))
+    ref = np.asarray(jnp.cumsum(jnp.asarray(x)))
+    assert mine.dtype == torch.from_numpy(x).dtype and mine.shape == (n,)
+    ulp = np.finfo(dtype).eps * float(np.abs(x.astype(np.float64)).sum())
+    assert np.allclose(mine.numpy(), ref, rtol=0.0,
+                       atol=max(np.sqrt(n), 1.0) * ulp)
+
+
+def test_integer_window_sums_take_no_float_scan(monkeypatch):
+    """SUM over integers is exact through its int64 prefix alone; AVG
+    still adds in the fixed-order float scan."""
+    scans = []
+
+    def counted(x):
+        scans.append(x.dtype)
+        return real(x)
+
+    real = W.fixed_order_cumsum
+    monkeypatch.setattr(W, "fixed_order_cumsum", counted)
+    s = presto_tpu_torch.connect(Catalog(), device="cpu")
+    sql = ("SELECT {f}(x) OVER (ORDER BY y ROWS BETWEEN 1 PRECEDING AND "
+           "CURRENT ROW) FROM (VALUES (1, 2), (3, 4), (5, 6)) t(x, y) "
+           "ORDER BY y")
+    assert [r[0] for r in s.sql(sql.format(f="sum")).rows] == [1, 4, 8]
+    assert scans == []
+    assert [r[0] for r in s.sql(sql.format(f="avg")).rows] == [1.0, 2.0,
+                                                              4.0]
+    assert scans == [torch.float64]
 
 
 @pytest.mark.parametrize("frame", [f for f in FRAMES
