@@ -3289,9 +3289,10 @@ def unnest_routes(name, out) -> list:
     [mode, source rows, indices, words, route] for each block_gather
     shape the run captured at the expansion's index count (its expanded
     rows; the static executor's n x maxlen slots equal them where every
-    array has one length, as in C1 and C2).  A mode that captured no
-    such shape sent the expansion flat: every staged gather launches
-    block_gather, which Capture sees."""
+    array has one length, as in C1 and C2) from fewer source rows (a
+    gather of the expanded batch itself has as many).  A mode that
+    captured no such shape sent the expansion flat: every staged gather
+    launches block_gather, which Capture sees."""
     import torch
 
     from presto_tpu_torch.exec import gather as G
@@ -3304,7 +3305,8 @@ def unnest_routes(name, out) -> list:
             ("compiled", out.get("compiled_row", {}).get("kernel_shapes",
                                                           []))):
         hits = sorted({tuple(key) for kernel, key in shapes
-                       if kernel == "block_gather" and key[2] == m})
+                       if kernel == "block_gather" and key[2] == m
+                       and key[0] < m})
         got += [[mode, n, m, w, G.gather_route(n, m, w, True, dev)]
                 for n, w, _ in hits] or [[mode, None, m, None, "flat"]]
     return got

@@ -1856,113 +1856,6 @@ _NULL_PLACEHOLDER = {"ARRAY": (), "VARCHAR": "", "BOOLEAN": False,
                      "BIGINT": 0, "INTEGER": 0, "DOUBLE": 0.0}
 
 
-def _flat_elements(d: Dictionary):
-    """(lengths, flat elements as a numpy array, element type) of a tuple
-    dictionary whose elements are all ints, all floats (no NaN, no
-    negative zero) or all strings, with no NULL and nothing nested; None
-    for any other.  Kept beside the dictionary."""
-    def compute():
-        lens = np.fromiter(map(len, d.values), np.int64, len(d))
-        flat = list(itertools.chain.from_iterable(d.values))
-        kinds = set(map(type, flat))
-        if len(kinds) != 1:
-            return None
-        kind = kinds.pop()
-        if kind is str:
-            return lens, np.asarray(flat, dtype=object), kind
-        if kind not in (int, float):
-            return None
-        arr = np.asarray(flat, dtype=np.int64 if kind is int else np.float64)
-        if kind is float and (np.isnan(arr).any()
-                              or (np.signbit(arr) & (arr == 0)).any()):
-            return None
-        return lens, arr, kind
-
-    return d.derived(("flat_elements",), compute)
-
-
-def _numeric_flat(d: Dictionary, *constants):
-    """_flat_elements of ints or floats, where every constant is a
-    number too (their comparisons then agree with Python's)."""
-    got = _flat_elements(d)
-    if got is None or got[2] is str or not all(
-            type(c) in (int, float) for c in constants):
-        return None
-    return got
-
-
-def _per_entry(lens: np.ndarray, values: np.ndarray,
-               ok: np.ndarray) -> list:
-    """One Python value an entry from `values` where `ok`, else None."""
-    out = np.full(len(lens), None, dtype=object)
-    out[ok] = values[ok].tolist() if len(values) == len(lens) \
-        else values.tolist()
-    return out.tolist()
-
-
-def _vector_extreme(ufunc):
-    """array_min / array_max over numeric entries: one reduceat."""
-    def fast(d):
-        got = _numeric_flat(d)
-        if got is None:
-            return None
-        lens, arr, _ = got
-        ok = lens > 0
-        starts = np.cumsum(lens) - lens
-        red = ufunc.reduceat(arr, starts[ok]) if ok.any() else arr[:0]
-        return _per_entry(lens, red, ok)
-
-    return fast
-
-
-def _vector_element_at(d, i):
-    """element_at(a, i) for a constant integer i: one gather."""
-    got = _flat_elements(d)
-    if got is None or type(i) is not int:
-        return None
-    lens, arr, _ = got
-    if i == 0:  # an error in every entry: NULL in every entry
-        return [None] * len(lens)
-    starts = np.cumsum(lens) - lens
-    ok = lens >= abs(i)
-    pos = np.where(ok, starts + (i - 1 if i > 0 else lens + i), 0)
-    return _per_entry(lens, arr[pos] if len(arr) else arr, ok)
-
-
-def _vector_matches(d, x):
-    """(lengths, each flat element equal to x) where both sides are
-    numbers or both strings, else None."""
-    got = _flat_elements(d)
-    if got is None or (got[2] is str) != (type(x) is str) or (
-            type(x) not in (int, float, str)):
-        return None
-    lens, arr, _ = got
-    return lens, arr == x
-
-
-def _vector_contains(d, x):
-    got = _vector_matches(d, x)
-    if got is None:
-        return None
-    lens, hit = got
-    ends = np.cumsum(lens)
-    c = np.concatenate([[0], np.cumsum(hit, dtype=np.int64)])
-    return ((c[ends] - c[ends - lens]) > 0).tolist()
-
-
-def _vector_position(d, x):
-    got = _vector_matches(d, x)
-    if got is None:
-        return None
-    lens, hit = got
-    starts = np.cumsum(lens) - lens
-    owner = np.repeat(np.arange(len(lens)), lens)
-    first = np.full(len(lens), -1, dtype=np.int64)
-    pos = np.flatnonzero(hit)
-    first[owner[pos[::-1]]] = pos[::-1]  # reversed: the first match wins
-    return np.where(first >= 0, first - starts + 1, 0).tolist()
-
-
 def _array_transform(name, fn, out_type=None):
     """A function of an array and constant arguments, once per entry (an
     entry whose call raises gives NULL, as in the reference).  out_type:
@@ -1980,11 +1873,6 @@ def _array_transform(name, fn, out_type=None):
         return out_type
 
     def results(col: ColVal, extra: tuple) -> list:
-        fast = _VECTORIZED.get(fn)
-        got = fast(col.dictionary, *extra) if fast is not None \
-            and col.dictionary is not None else None
-        if got is not None:
-            return got
         got = []
         for v in _arr_entries(col):
             try:
@@ -2161,16 +2049,6 @@ def _array_except(v, w):
 def _arrays_overlap(v, w):
     return any(e in set(w) for e in v if e is not None)
 
-
-#: per-entry functions with a vectorized form over _flat_elements, which
-#: gives the same values (None where the entry's result is NULL)
-_VECTORIZED = {
-    _array_min: _vector_extreme(np.minimum),
-    _array_max: _vector_extreme(np.maximum),
-    _element_at: _vector_element_at,
-    _contains: _vector_contains,
-    _array_position: _vector_position,
-}
 
 register("contains", *_array_transform("contains", _contains, T.BOOLEAN))
 register("array_min", *_array_transform("array_min", _array_min, "elem"))

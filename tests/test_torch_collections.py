@@ -469,38 +469,17 @@ def test_dictionary_values_of_a_query_are_the_references(sessions):
         assert ours == refs, c
 
 
-@pytest.mark.parametrize("kind", ["int", "float", "str"])
-def test_vectorized_element_functions_equal_the_loops(kind):
-    """array_min, array_max, element_at, contains and array_position over
-    dictionaries of flat int, float or string tuples take a vectorized
-    path (functions/scalar.py _VECTORIZED); each gives the per-entry
-    loop's values, Python types included, None where the entry's result
-    is NULL."""
-    from presto_tpu_torch.batch import Dictionary
-
-    rng = np.random.default_rng(17)
-    pool = {"int": [-3, 0, 1, 5, 7], "float": [-1.5, 0.25, 2.0, 3.5],
-            "str": ["F", "O", "P", ""]}[kind]
-    vals = [tuple(pool[int(j)] for j in rng.integers(
-        0, len(pool), int(rng.integers(0, 7)))) for _ in range(400)]
-    d = Dictionary(np.array(vals + [None], dtype=object)[:-1])
-    probes = [(S._array_min, ()), (S._array_max, ()),
-              (S._element_at, (1,)), (S._element_at, (-1,)),
-              (S._element_at, (4,)), (S._element_at, (0,)),
-              (S._contains, (pool[1],)), (S._contains, ("zz",)),
-              (S._array_position, (pool[2],))]
-    ran = 0
-    for fn, args in probes:
-        fast = S._VECTORIZED[fn](d, *args)
-        if fast is None:  # no vectorized form for these inputs
-            continue
-        ran += 1
-        slow = []
-        for v in vals:
-            try:
-                slow.append(fn(v, *args))
-            except (ValueError, IndexError, TypeError):
-                slow.append(None)
-        assert fast == slow, (fn.__name__, args)
-        assert [type(x) for x in fast] == [type(x) for x in slow]
-    assert ran >= (5 if kind == "str" else 7)
+@pytest.mark.parametrize("kind", ["int", "float", "str", "nested", "mixed"])
+def test_repr_order_equals_the_repr_sort(kind):
+    """repr_order's head-key sort (the repr of each tuple's first element,
+    then the whole repr within a tie) gives sorted(key=repr), the order
+    of the reference's repr-keyed dictionaries: empty tuples, one-element
+    tuples, heads that prefix one another and NULL elements included."""
+    rng = np.random.default_rng(23)
+    pool = {"int": [-3, 0, 1, 10, 11, 100], "float": [-1.5, 0.25, 2.0, 1e300],
+            "str": ["", "a", "a,", "ab", "b'", "é"],
+            "nested": [(), (1,), (1, 2), ("a",), None],
+            "mixed": [None, 1, "1", 1.0, True, (2,)]}[kind]
+    uniq = list({tuple(pool[int(j)] for j in rng.integers(
+        0, len(pool), int(rng.integers(0, 5)))) for _ in range(400)})
+    assert S.repr_order(uniq) == sorted(uniq, key=repr)

@@ -6,12 +6,10 @@ per-entry results dropped first, as on a query's first run) and warm,
 under each of these variants of functions/scalar.py:
 
 - `all`: as shipped;
-- `no_vectorized`: _VECTORIZED emptied, so array_min, array_max,
-  element_at, contains and array_position loop over the entries;
 - `no_native_order`: _canonical_order always takes the repr pre-sort
   and the _tuple_cmp sort, never Python's own tuple order;
 - `no_head_key`: repr_order is sorted(key=repr) over whole tuples;
-- `none`: all three off.
+- `none`: both off.
 
 Each variant's rows must equal the `all` run's (the fast paths give the
 loops' values, in the loops' order).  Prints one JSON line per (query,
@@ -36,13 +34,12 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-FAST_PATHS = ("vectorized", "native_order", "head_key")
+FAST_PATHS = ("native_order", "head_key")
 # each variant with the fast paths it switches off; `all` runs first and
 # last, to show drift over the call
 VARIANTS = {"all": (), **{f"no_{p}": (p,) for p in FAST_PATHS},
             "none": FAST_PATHS}
-ORDER = ("all", "no_vectorized", "no_native_order", "no_head_key", "none",
-         "all")
+ORDER = ("all", "no_native_order", "no_head_key", "none", "all")
 
 
 @contextlib.contextmanager
@@ -51,11 +48,8 @@ def variant(name):
     from presto_tpu_torch.exec import collections as C
     from presto_tpu_torch.functions import scalar as S
 
-    saved = (dict(S._VECTORIZED), S._natively_ordered, S.repr_order,
-             C.repr_order)
+    saved = S._natively_ordered, S.repr_order, C.repr_order
     off = VARIANTS[name]
-    if "vectorized" in off:
-        S._VECTORIZED.clear()
     if "native_order" in off:
         S._natively_ordered = lambda uniq: False
     if "head_key" in off:
@@ -63,9 +57,7 @@ def variant(name):
     try:
         yield
     finally:
-        S._VECTORIZED.clear()
-        S._VECTORIZED.update(saved[0])
-        S._natively_ordered, S.repr_order, C.repr_order = saved[1:]
+        S._natively_ordered, S.repr_order, C.repr_order = saved
 
 
 def drop_kept_results():
@@ -83,8 +75,7 @@ def timed(session, sql):
 
     t = time.perf_counter()
     rows = session.sql(sql).rows
-    if session.device.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     return (time.perf_counter() - t) * 1e3, rows
 
 
@@ -93,13 +84,11 @@ def main() -> int:
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--warm", type=int, default=2)
     ap.add_argument("--queries", default="C1,C4,C8")
-    ap.add_argument("--device", default="cuda",
-                    help="cpu: a check of the script at a small --sf")
     args = ap.parse_args()
 
     import torch
 
-    if args.device == "cuda" and not torch.cuda.is_available():
+    if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     import presto_tpu_torch
@@ -107,7 +96,7 @@ def main() -> int:
     from presto_tpu_torch.collection_queries import QUERIES
 
     cat = tpch_catalog(args.sf, os.path.join(ROOT, "build", "tpch_cache"))
-    session = presto_tpu_torch.connect(cat, device=args.device,
+    session = presto_tpu_torch.connect(cat, device="cuda",
                                        execution_mode="dynamic")
     names = args.queries.split(",")
     expected = {}
@@ -129,8 +118,6 @@ def main() -> int:
             if not same:
                 print(f"{name} {v}: rows differ", file=sys.stderr)
                 return 1
-    if args.device != "cuda":
-        return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
