@@ -106,7 +106,44 @@ class MemoryTable(ConnectorTable):
                          else np.asarray(v)) for k, v in data.items()}
         self._rows = len(next(iter(self.data.values()))) if self.data else 0
 
+    # The host arrays.  Appended pages wait in `_pending` and join the
+    # arrays in one concatenation when the arrays are next read: a write
+    # of k pages then copies the table once, not k times.  The result is
+    # the reference's page-by-page concatenation.
+    @property
+    def data(self) -> Dict[str, np.ndarray]:
+        if self._pending:
+            pages, self._pending = self._pending, []
+
+            def cat(parts):
+                # masked concat ONLY for columns that carry a mask —
+                # null-free columns must stay plain ndarrays
+                if any(isinstance(p, np.ma.MaskedArray) for p in parts):
+                    return np.ma.concatenate(parts)
+                return np.concatenate(parts)
+
+            self._data = {c: cat([self._data[c]] + [p[c] for p in pages])
+                          for c in self.schema}
+        return self._data
+
+    @data.setter
+    def data(self, value: Dict[str, np.ndarray]) -> None:
+        self._data = value
+        self._pending: List[Dict[str, np.ndarray]] = []
+
+    def _invalidate(self) -> None:
+        self.__dict__.pop("_col_stats", None)
+        super()._invalidate()
+
     def column_stats(self, column: str):
+        """The column's statistics, computed once a column and kept until
+        the next write (`_invalidate`)."""
+        cache = self.__dict__.setdefault("_col_stats", {})
+        if column not in cache:
+            cache[column] = self._column_stats(column)
+        return cache[column]
+
+    def _column_stats(self, column: str):
         from presto_tpu_torch.plan.stats import ColStats
 
         a = self.data.get(column)
@@ -153,19 +190,11 @@ class MemoryTable(ConnectorTable):
         def keep_mask(v):
             return v if isinstance(v, np.ma.MaskedArray) else np.asarray(v)
 
+        page = {c: keep_mask(arrays[c]) for c in self.schema}
         if self._rows == 0:
-            self.data = {c: keep_mask(arrays[c]) for c in self.schema}
+            self.data = page
         else:
-            def cat(old, new):
-                # masked concat ONLY for columns that carry a mask —
-                # null-free columns must stay plain ndarrays
-                if isinstance(old, np.ma.MaskedArray) \
-                        or isinstance(new, np.ma.MaskedArray):
-                    return np.ma.concatenate([old, new])
-                return np.concatenate([old, new])
-
-            self.data = {c: cat(self.data[c], keep_mask(arrays[c]))
-                         for c in self.schema}
+            self._pending.append(page)
         self._rows += n
         self._invalidate()
         return n

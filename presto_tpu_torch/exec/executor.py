@@ -58,12 +58,24 @@ ALL merges their dictionaries, and UNNEST (`_exec_unnest`,
 executors: the static one over the (entries x longest array) element
 matrix of the dictionary, up to STATIC_UNNEST_MAX expanded rows.
 
+Statements other than queries (`_dispatch_statement`): CREATE TABLE AS
+and INSERT through exec/writer.py (the plan nodes TableWriter and
+TableFinish, `_exec_tablewriter`, `_exec_tablefinish`), DELETE
+(`_delete_from`), CREATE and DROP TABLE, the transaction statements
+(transaction.py), SET SESSION, EXPLAIN (plain, TYPE VALIDATE, and
+ANALYZE in "auto" and "dynamic"), SHOW CREATE TABLE and SHOW TABLES,
+COLUMNS, FUNCTIONS, SESSION, CATALOGS, SCHEMAS and STATS, over memory
+tables; every scanned table is checked against the session's access
+control (security.py) when a statement is planned.
+
 Not ported yet, and raising NotImplementedError when reached: chunked
-and distributed execution, batched compiled execution and prepared
-statements, float32_compute, every statement other than a query (the
-write nodes TableWriter and TableFinish with them), the plan node
-SpatialJoin, DECIMAL aggregates, and the aggregates that return sketch
-states or other host-built values (map_union_sum, approx_most_frequent,
+and distributed execution, batched compiled execution, PREPARE,
+EXECUTE, DEALLOCATE and DESCRIBE INPUT/OUTPUT (the serving tier),
+materialized views, EXPLAIN (TYPE DISTRIBUTED), EXPLAIN ANALYZE under
+execution_mode "compiled", writes to file connectors and streamed
+writes (exec/writer.py), float32_compute, the plan node SpatialJoin,
+DECIMAL aggregates, and the aggregates that return sketch states or
+other host-built values (map_union_sum, approx_most_frequent,
 reduce_agg, approx_set, merge, qdigest_agg, tdigest_agg, min_by /
 max_by with three arguments, the array and weighted
 approx_percentile, learn_* and classification_*, and the $hll_* /
@@ -173,7 +185,145 @@ def execute_query(session, text: str) -> QueryResult:
         raise
 
 
+#: the prefix of materialized views' backing tables, which SHOW TABLES
+#: leaves out (reference: presto_tpu/exec/matview.py MV_PREFIX)
+MV_PREFIX = "__mv__"
+
+_OK = ([("result", T.BOOLEAN)], [(True,)])
+
+
+def _refuse_unported_properties(session) -> None:
+    """Raise for a session property whose execution path is not ported,
+    before any statement runs a query under it."""
+    if session.properties.get("float32_compute", False):
+        raise NotImplementedError("float32_compute is not ported")
+
+
 def _dispatch_statement(session, text: str, stmt, mon) -> QueryResult:
+    if isinstance(stmt, (ast.Prepare, ast.Execute, ast.Deallocate,
+                         ast.DescribeInput, ast.DescribeOutput)):
+        raise NotImplementedError(
+            f"{type(stmt).__name__} goes through the serving tier "
+            "(server/serving.py), which is not ported to presto_tpu_torch")
+    if isinstance(stmt, (ast.CreateMaterializedView,
+                         ast.RefreshMaterializedView,
+                         ast.DropMaterializedView,
+                         ast.ShowMaterializedViews)):
+        raise NotImplementedError(
+            f"{type(stmt).__name__} needs materialized views "
+            "(exec/matview.py), which are not ported to presto_tpu_torch")
+    if isinstance(stmt, ast.TransactionStatement):
+        if stmt.action == "START":
+            session.txn.begin(stmt.read_only)
+        elif stmt.action == "COMMIT":
+            session.txn.commit()
+        else:
+            session.txn.rollback()
+        return QueryResult(*_OK)
+    if isinstance(stmt, ast.SetSession):
+        session.access_control.check_can_set_session_property(
+            session.user, stmt.name)
+        session.set(stmt.name, stmt.value)
+        return QueryResult(*_OK)
+    if isinstance(stmt, ast.ShowTables):
+        rows = sorted((t,) for t in session.catalog.tables
+                      if not t.startswith(MV_PREFIX))
+        return QueryResult([("Table", T.VARCHAR)], rows)
+    if isinstance(stmt, ast.ShowColumns):
+        from presto_tpu_torch.exec.writer import describe_extra_rows
+
+        t = session.catalog.get(stmt.table)
+        rows = [(c, str(ty)) for c, ty in t.schema.items()]
+        rows += describe_extra_rows(t)
+        return QueryResult([("Column", T.VARCHAR), ("Type", T.VARCHAR)], rows)
+    if isinstance(stmt, ast.ShowFunctions):
+        from presto_tpu_torch.functions import aggregate as _agg
+        from presto_tpu_torch.functions import scalar as _sc
+
+        rows = sorted(
+            [(n, "scalar") for n in _sc.REGISTRY if not n.startswith("$")]
+            + [(n, "aggregate") for n in _agg.AGG_NAMES]
+            + [(n, "window") for n in _agg.WINDOW_ONLY])
+        return QueryResult(
+            [("Function", T.VARCHAR), ("Type", T.VARCHAR)], rows)
+    if isinstance(stmt, ast.ShowSession):
+        rows = sorted((k, str(v)) for k, v in session.properties.items())
+        return QueryResult(
+            [("Name", T.VARCHAR), ("Value", T.VARCHAR)], rows)
+    if isinstance(stmt, ast.ShowCatalogs):
+        rows = sorted((q,) for q in session.catalog.known_qualifiers)
+        return QueryResult([("Catalog", T.VARCHAR)], rows)
+    if isinstance(stmt, ast.ShowSchemas):
+        schemas = {"default"}
+        for name in session.catalog.tables:
+            parts = name.split(".")
+            if len(parts) >= 2:
+                schemas.add(parts[-2])
+        return QueryResult([("Schema", T.VARCHAR)],
+                           sorted((s,) for s in schemas))
+    if isinstance(stmt, ast.ShowStats):
+        # per-column connector statistics and the row-count summary row
+        # (reference: ShowStatsRewrite)
+        t = session.catalog.get(stmt.table)
+        rows = []
+        for c in t.schema:
+            st = t.column_stats(c)
+            rows.append((c,
+                         float(st.ndv) if st is not None
+                         and st.ndv is not None else None,
+                         st.min if st is not None else None,
+                         st.max if st is not None else None,
+                         None))
+        rows.append((None, None, None, None, float(t.row_count())))
+        return QueryResult(
+            [("column_name", T.VARCHAR),
+             ("distinct_values_count", T.DOUBLE),
+             ("low_value", T.DOUBLE), ("high_value", T.DOUBLE),
+             ("row_count", T.DOUBLE)], rows)
+    if isinstance(stmt, ast.Explain):
+        if stmt.analyze:
+            text_plan = explain_analyze_text(session, stmt.statement, mon)
+        elif stmt.type_ == "VALIDATE":
+            plan_statement(session, stmt.statement)  # analysis only
+            return QueryResult([("Valid", T.BOOLEAN)], [(True,)])
+        elif stmt.type_ == "DISTRIBUTED":
+            raise NotImplementedError(
+                "EXPLAIN (TYPE DISTRIBUTED) waits for distributed "
+                "execution, which is not ported to presto_tpu_torch")
+        else:
+            text_plan = explain_text(session, stmt.statement)
+        return QueryResult([("Query Plan", T.VARCHAR)], [(text_plan,)])
+    if isinstance(stmt, (ast.CreateTableAs, ast.InsertInto)):
+        # the PageSink write pipeline (exec/writer.py)
+        from presto_tpu_torch.exec import writer as W
+
+        _refuse_unported_properties(session)
+        return W.run_write(session, text, stmt, mon)
+    if isinstance(stmt, ast.ShowCreateTable):
+        from presto_tpu_torch.exec import writer as W
+
+        t = session.catalog.get(stmt.table)
+        return QueryResult([("Create Table", T.VARCHAR)],
+                           [(W.render_create_table(t),)])
+    if isinstance(stmt, ast.CreateTable):
+        session.access_control.check_can_create_table(session.user, stmt.name)
+        if stmt.name in session.catalog:
+            if stmt.if_not_exists:
+                return QueryResult(*_OK)
+            raise ExecutionError(f"Table '{stmt.name}' already exists")
+        schema = {c: T.parse_type(t) for c, t in stmt.columns}
+        session.txn.record_create(stmt.name)
+        _create_table(session, stmt.name, schema, stmt.properties)
+        return QueryResult(*_OK)
+    if isinstance(stmt, ast.DropTable):
+        session.access_control.check_can_drop_table(session.user, stmt.name)
+        if stmt.name in session.catalog:
+            session.txn.record_drop(session.catalog.get(stmt.name))
+        session.catalog.drop(stmt.name, stmt.if_exists)
+        return QueryResult(*_OK)
+    if isinstance(stmt, ast.Delete):
+        n = _delete_from(session, stmt)
+        return QueryResult([("rows", T.BIGINT)], [(n,)])
     if not isinstance(stmt, ast.QueryStatement):
         raise NotImplementedError(
             f"{type(stmt).__name__} statements are not ported to "
@@ -181,8 +331,7 @@ def _dispatch_statement(session, text: str, stmt, mon) -> QueryResult:
     props = session.properties
     if props.get("distributed", False):
         raise NotImplementedError("distributed execution is not ported")
-    if props.get("float32_compute", False):
-        raise NotImplementedError("float32_compute is not ported")
+    _refuse_unported_properties(session)
     mode = props.get("execution_mode", "auto")
     if mode == "chunked":
         raise NotImplementedError("execution_mode=chunked is not ported")
@@ -201,6 +350,124 @@ def _dispatch_statement(session, text: str, stmt, mon) -> QueryResult:
         plan = plan_statement(session, stmt)
     with mon.phase("execute"):
         return Executor(session, monitor=mon).run(plan)
+
+
+def _create_table(session, name, schema, properties):
+    """Create and register an empty memory table (reference:
+    per-connector metadata.createTable; CTAS and INSERT go through
+    exec/writer.py).  Declared layout properties record onto the empty
+    table, so that later INSERTs apply and verify them."""
+    from presto_tpu_torch.exec import writer as W
+
+    connector = W.target_connector(properties)
+    try:
+        t, _ = W.build_target_table(session, name, schema, properties)
+        wp = W.WriteProperties.parse(properties, schema, connector)
+    except W.WriteError as e:
+        raise ExecutionError(str(e)) from e
+    if wp is not None:
+        t.record_write_properties(wp.to_dict(), ordered=False)
+    session.catalog.register(t)
+
+
+def _delete_from(session, stmt: ast.Delete) -> int:
+    """DELETE FROM t [WHERE pred]: evaluate the predicate over the whole
+    table (a scan and project plan, row order kept) and hand the keep
+    mask to the table (reference: MetadataDeleteOperator)."""
+    session.access_control.check_can_delete(session.user, stmt.table)
+    table = session.catalog.get(stmt.table)
+    if not hasattr(table, "delete_where"):
+        raise ExecutionError(f"table '{stmt.table}' does not support DELETE")
+    session.txn.record_table_write(table)
+    n = table.row_count()
+    if stmt.where is None:
+        return table.delete_where(np.zeros(n, dtype=bool))
+    q = ast.Query(
+        body=ast.QuerySpec(
+            select=[ast.SelectItem(stmt.where, "__pred__")],
+            from_=ast.Table(stmt.table)))
+    arrays, _types = execute_plan_to_host(session, ast.QueryStatement(q))
+    pred = next(iter(arrays.values()))
+    if isinstance(pred, np.ma.MaskedArray):
+        pred = pred.filled(False)
+    keep = ~np.asarray(pred, dtype=bool)  # NULL predicate rows are kept
+    return table.delete_where(keep)
+
+
+def execute_plan_to_host(session, stmt):
+    """Run a query in the dynamic executor and return its columns as
+    host arrays (NULLs masked) with their types; duplicate names take a
+    suffix `_i`."""
+    from presto_tpu_torch.exec import writer as W
+
+    _refuse_unported_properties(session)
+    plan = plan_statement(session, stmt)
+    batch = Executor(session).evaluate(plan)
+    out = plan.root
+    arrays, sel = to_numpy(batch)
+    out_types = dict(out.source.outputs())
+    types = {}
+    result = {}
+    used = {}
+    for name, sym in zip(out.names, out.symbols):
+        n = name
+        i = used.get(name, 0)
+        used[name] = i + 1
+        if i:
+            n = f"{name}_{i}"
+        # keep the mask: write sinks must see NULLs to reject them
+        result[n] = W.host_column(arrays[sym][sel])
+        types[n] = out_types.get(sym, T.VARCHAR)
+    return result, types
+
+
+def explain_text(session, stmt) -> str:
+    """EXPLAIN: the optimized plan with estimated rows a node."""
+    from presto_tpu_torch.plan import stats as S
+
+    plan = plan_statement(session, stmt)
+    memo = {}
+
+    def ann(node):
+        try:
+            st = S.derive(node, session.catalog, memo)
+            return f"  {{rows: {st.est_rows:,.0f}}}"
+        except Exception:
+            return ""
+
+    lines = [P.plan_tree_str(plan.root, annotate=ann)]
+    for pid, sub in sorted(plan.subplans.items()):
+        lines.append(f"\nSubplan {pid}:")
+        lines.append(P.plan_tree_str(sub, 1, annotate=ann))
+    return "\n".join(lines)
+
+
+def explain_analyze_text(session, stmt, mon) -> str:
+    """EXPLAIN ANALYZE in "auto" and "dynamic": run the statement in the
+    dynamic executor with per-node stats and render the plan with each
+    node's rows and time (reference: ExplainAnalyzeOperator).  The
+    reference's compiled form reads XLA's cost analysis off the
+    executable, which has no CUDA-graph counterpart here yet."""
+    from presto_tpu_torch.observe.stats import annotated_plan
+
+    mode = str(session.properties.get("execution_mode", "auto"))
+    if mode == "chunked":
+        raise NotImplementedError("execution_mode=chunked is not ported")
+    if mode == "compiled":
+        raise NotImplementedError(
+            "EXPLAIN ANALYZE under execution_mode='compiled' reads XLA's "
+            "cost analysis in presto_tpu, which has no counterpart in "
+            "presto_tpu_torch yet")
+    _refuse_unported_properties(session)
+    mon.stats.execution_mode = "dynamic"
+    mon.collect_node_stats = True  # ANALYZE implies per-node stats
+    with mon.phase("plan"):
+        plan = plan_statement(session, stmt)
+    with mon.phase("execute"):
+        result = Executor(session, monitor=mon).run(plan)
+    mon.stats.output_rows = len(result)
+    mon.rows_preset = True  # finish() must not count the plan text's row
+    return annotated_plan(plan.root, plan.subplans, mon.stats)
 
 
 def _collect_tablescans(node: P.PlanNode, out: list):
@@ -366,11 +633,23 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
 
 
 def plan_statement(session, stmt) -> P.QueryPlan:
-    """Plan + optimize (the reference also authorizes every scanned table
-    against the session's access control, which is not ported)."""
+    """Plan, optimize and authorize: every table the plan scans is
+    checked against the session's access control (reference:
+    AccessControlManager.checkCanSelectFromColumns)."""
+    if isinstance(stmt, (ast.CreateTableAs, ast.InsertInto)):
+        # Output <- TableFinish <- TableWriter over the query's plan
+        from presto_tpu_torch.exec import writer as W
+
+        return W.plan_write_statement(session, stmt)
     plan = Planner(session).plan_statement(stmt)
     if session.properties.get("optimizer_enabled", True):
         plan = optimize(plan, session)
+    scans: list = []
+    _collect_tablescans(plan.root, scans)
+    for sub in plan.subplans.values():
+        _collect_tablescans(sub, scans)
+    for t in {n.table for n in scans}:
+        session.access_control.check_can_select(session.user, t)
     return plan
 
 
@@ -386,6 +665,9 @@ class Executor:
         self.scan_inputs = scan_inputs  # {id(TableScan): Batch}
         self.guards: List[torch.Tensor] = []
         self.monitor = monitor  # QueryMonitor collecting per-node stats
+        # a write's WriteContext, set by exec/writer.run_write: the sink
+        # TableWriter appends to and TableFinish commits
+        self.write_ctx = None
         self.ctx = EvalContext()
         # plan DAGs (transitive semi-join inference shares a filter
         # subquery between both join sides) run each shared node once
@@ -597,16 +879,7 @@ class Executor:
         for name, sym in zip(out.names, out.symbols):
             cols.append((name, out_types.get(sym, T.VARCHAR)))
             rows_data.append(arrays[sym][sel])
-        rows = []
-        n = len(rows_data[0]) if rows_data else 0
-        for i in range(n):
-            row = []
-            for a in rows_data:
-                v = a[i] if not np.ma.is_masked(a[i]) else None
-                if isinstance(v, np.generic):
-                    v = v.item()
-                row.append(v)
-            rows.append(tuple(row))
+        rows = list(zip(*(_python_values(a) for a in rows_data)))
         return QueryResult(cols, rows)
 
     def evaluate(self, plan: P.QueryPlan) -> Batch:
@@ -1944,6 +2217,51 @@ class Executor:
 
     def _exec_output(self, node: P.Output) -> Batch:
         return self.exec_node(node.source).select(list(node.symbols))
+
+    # ---- the write pipeline (exec/writer.py; reference:
+    # TableWriterOperator and TableFinishOperator) ---------------------
+    def _exec_tablewriter(self, node: P.TableWriter) -> Batch:
+        if self.write_ctx is None:
+            raise ExecutionError(
+                "TableWriter requires a write context — write statements "
+                "execute through exec/writer.run_write")
+        from presto_tpu_torch.exec import writer as W
+
+        inner = node.source  # the query's Output node
+        b = self.exec_node(inner)
+        arrays, types = W._host_arrays(inner, b)
+        try:
+            n = self.write_ctx.write_page(arrays, types)
+        except W.WriteError as e:
+            raise ExecutionError(str(e)) from e
+        return batch_from_numpy({node.rows_symbol:
+                                 np.asarray([n], dtype=np.int64)},
+                                {node.rows_symbol: T.BIGINT}, self.device)
+
+    def _exec_tablefinish(self, node: P.TableFinish) -> Batch:
+        b = self.exec_node(node.source)
+        if self.write_ctx is not None:
+            from presto_tpu_torch.exec import writer as W
+
+            try:
+                self.write_ctx.finish()  # the commit
+            except W.WriteError as e:
+                raise ExecutionError(str(e)) from e
+        return b
+
+
+def _python_values(a: np.ndarray) -> list:
+    """A result column's values as Python objects, a masked one as None:
+    tolist() in one pass over a 1-D column, whose numpy scalars (an
+    object column may hold some) become Python values as .item() makes
+    them."""
+    if a.ndim != 1:
+        return [None if np.ma.is_masked(v) else
+                v.item() if isinstance(v, np.generic) else v for v in a]
+    vals = a.tolist()
+    if a.dtype == object:
+        vals = [v.item() if isinstance(v, np.generic) else v for v in vals]
+    return vals
 
 
 def _hll_m(a: ir.AggCall) -> int:

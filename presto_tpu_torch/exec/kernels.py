@@ -1103,7 +1103,68 @@ def rf_domain(col: Column, live: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# sketches: approx_distinct as a vectorized HyperLogLog over one register
+# write-path layout functions (exec/writer.py): bucket assignment shares
+# the splitmix64 mix of the runtime filters above; the sort permutation
+# is successive stable sorts.  Host numpy in and out, the work on the
+# given device; the writer lays out host pages.
+# ---------------------------------------------------------------------------
+
+
+def write_bucket_ids(values, bucket_count: int,
+                     device: torch.device) -> np.ndarray:
+    """Hash-bucket id of each row for a write's bucket column(s):
+    splitmix64 of each int64 key column, XOR-combined, then the uint64
+    remainder by bucket_count (reference: presto_tpu's write_bucket_ids).
+    torch has no unsigned remainder: with h = hi * 2^32 + lo over the two
+    32-bit halves, h mod m = ((hi mod m) * (2^32 mod m) + lo) mod m, in
+    int64 without overflow for m < 2^31."""
+    cols = values if isinstance(values, (list, tuple)) else [values]
+    m = max(int(bucket_count), 1)
+    if m >= 1 << 31:
+        raise ValueError(f"bucket_count {bucket_count} exceeds 2^31 - 1")
+    h = None
+    for v in cols:
+        t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.int64))
+        mixed = _rf_mix64(t.to(device))
+        h = mixed if h is None else h ^ mixed
+    hi = _lsr(h, 32)
+    lo = h & 0xFFFFFFFF
+    b = ((hi % m) * ((1 << 32) % m) + lo) % m
+    return b.to(torch.int32).cpu().numpy()
+
+
+def write_sort_perm(keys: List[np.ndarray], device: torch.device,
+                    ascending: Optional[List[bool]] = None) -> np.ndarray:
+    """Lexicographic sort permutation of a write page: keys in priority
+    order (keys[0] major), each an orderable host int or float array
+    (string columns come as sorted-dictionary codes).  Successive stable
+    sorts from the minor key to the major one through argsort_stable; a
+    descending key sorts ~k for integers and -k for floats.  Float keys
+    sort through _f64_sort_key as the reference's sort does: -0.0 and
+    the subnormals equal to 0.0, every NaN last, equal to each other."""
+    n = len(keys[0]) if keys else 0
+    perm = np.arange(n, dtype=np.int64)
+    asc = ascending if ascending is not None else [True] * len(keys)
+    for key, up in reversed(list(zip(keys, asc))):
+        k = np.ascontiguousarray(np.asarray(key)[perm])
+        if not up:
+            if k.dtype.kind in ("i", "u"):
+                k = ~k  # an exact order-reversing bijection on integers
+            else:
+                k = -k
+        t = torch.from_numpy(np.ascontiguousarray(k)).to(device)
+        if t.is_floating_point():
+            t = t.to(torch.float64)
+            # XLA's comparisons flush subnormals: they sort equal to 0.0
+            t = _f64_sort_key(torch.where(
+                t.abs() < 2.2250738585072014e-308, 0.0, t))
+        o = argsort_stable(t).cpu().numpy()
+        perm = perm[o]
+    return perm
+
+
+# ---------------------------------------------------------------------------
+# sketches:approx_distinct as a vectorized HyperLogLog over one register
 # matrix, the value-hash sample of COUNT/SUM ... WITH ERROR, and the
 # grouped percentile of approx_percentile.  The reference's uint64 values
 # run as int64 bit patterns (masks and `_lsr` for the unsigned shifts),

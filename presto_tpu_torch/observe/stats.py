@@ -261,6 +261,7 @@ class QueryMonitor:
         )
         self.collect_node_stats = bool(
             session.properties.get("collect_node_stats", False))
+        self.rows_preset = False  # EXPLAIN ANALYZE pins the analyzed count
 
     @classmethod
     def begin(cls, session, sql: str):
@@ -299,7 +300,8 @@ class QueryMonitor:
                 from presto_tpu_torch.plan.nodes import plan_tree_str
 
                 self.stats.plan_text = plan_tree_str(plan.root)
-        self.stats.output_rows = len(result)
+        if not self.rows_preset:
+            self.stats.output_rows = len(result)
 
     def fail(self, error: BaseException) -> None:
         self.stats.state = "FAILED"

@@ -310,10 +310,10 @@ class QueryResult:
 
 
 class Session:
-    """A catalog, session properties and the torch device every query of
-    this session runs on (the reference's Session, minus the access
-    control, transaction and system-table hooks this slice does not
-    port)."""
+    """A catalog, session properties, the torch device every query of
+    this session runs on, and the access control, transaction manager and
+    property-rule hooks of the reference's Session (its system tables
+    and event listeners are not ported)."""
 
     def __init__(self, catalog=None, properties: Optional[Dict[str, Any]] = None,
                  user: str = "user", source: str = "embedded", device=None):
@@ -321,14 +321,23 @@ class Session:
         import threading
 
         from presto_tpu_torch.catalog import Catalog
+        from presto_tpu_torch.security import (ALLOW_ALL,
+                                               SessionPropertyManager)
+        from presto_tpu_torch.transaction import TransactionManager
 
         self.catalog = catalog if catalog is not None else Catalog()
         self.device = resolve_device(device)
         self.user = user
         self.source = source
+        # security.FileBasedAccessControl to restrict
+        self.access_control = ALLOW_ALL
+        self.txn = TransactionManager(self)
+        self.property_manager: Optional[SessionPropertyManager] = None
         self.properties = dict(DEFAULT_SESSION_PROPERTIES)
+        self._explicit_props: set = set()
         if properties:
             self.properties.update(properties)
+            self._explicit_props.update(properties)
         self.history = collections.deque(maxlen=1000)
         self.history_lock = threading.Lock()
 
@@ -336,6 +345,18 @@ class Session:
         if name not in self.properties:
             raise KeyError(f"unknown session property: {name}")
         self.properties[name] = value
+        # explicit settings outrank property-manager rule defaults
+        self._explicit_props.add(name)
+
+    def apply_property_manager(self) -> None:
+        """Apply the rule-matched session property defaults (reference:
+        SessionPropertyConfigurationManager): explicit SET SESSION and
+        constructor values outrank rules."""
+        if self.property_manager is not None:
+            for k, v in self.property_manager.overrides(
+                    self.user, self.source).items():
+                if k in self.properties and k not in self._explicit_props:
+                    self.properties[k] = v
 
     @property
     def last_stats(self):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from presto_tpu_torch.exec import gather as G
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 H100_SMS = 132
 

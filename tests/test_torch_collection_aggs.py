@@ -33,6 +33,7 @@ from presto_tpu_torch.exec.executor import COLLECTION_AGGS, StaticFallback
 from tests.torch_collections_common import (MODES, assert_frozen,
                                             check_reference, frozen,
                                             tuplify, values_of)
+from tests.torch_threads import torch_one_thread  # noqa: F401
 SCHEMA = {"id": "BIGINT", "g": "BIGINT", "v": "BIGINT", "x": "DOUBLE",
           "s": "VARCHAR", "k": "VARCHAR", "b": "BOOLEAN"}
 

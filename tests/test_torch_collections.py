@@ -35,6 +35,7 @@ from tests.torch_collections_common import (MODES, assert_frozen,
                                             check_reference, frozen,
                                             values_of)
 from tests.torch_functions_common import static_pass_builds
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 #: the 38 collection names of functions/scalar.py's REGISTRY
 COLLECTION_NAMES = (

@@ -43,6 +43,7 @@ from tests.torch_collections_common import (MODES, assert_frozen,
                                             tuplify, values_of)
 from tests.torch_functions_common import (assert_rows_equal,
                                           static_pass_builds)
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 #: the queries that run as one compiled program in "auto"
 COMPILED = ("C1", "C2")

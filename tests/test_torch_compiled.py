@@ -62,6 +62,7 @@ from tests.test_torch_kernels import _cols, _t
 from tests.test_torch_tpch import _assert_rows_match, counters
 from tests.test_torch_tpch import oracle  # noqa: F401
 from tests.test_tpch_correctness import ORDERED
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,7 @@ from presto_tpu_torch.exec import kernels as K
 from presto_tpu_torch.plan import runtime_filters as RF
 from presto_tpu_torch.tpch_queries import QUERIES
 from tests.test_torch_tpch import _assert_rows_match
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 DF_KEYS = ("df_filters_produced", "df_filters_applied", "df_rows_pruned")
 

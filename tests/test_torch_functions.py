@@ -30,6 +30,7 @@ from tests.test_torch_compiled import _memo_state
 from tests.test_torch_tpch import counters
 from tests.torch_functions_common import (assert_rows_equal,
                                           static_pass_builds)
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 MODES = ("dynamic", "auto")
 

@@ -12,6 +12,7 @@ import pytest
 from tests.test_torch_functions_corpus import (
     MODES, Runs, assert_query_matches_reference,
     assert_static_pass_reads_nothing_back)
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 NAMES = ("F6", "F7", "F8", "F9", "F10", "F11")
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from presto_tpu_torch.exec import kernels as K
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "presto_tpu")

@@ -29,6 +29,7 @@ from presto_tpu_torch.plan.nodes import plan_tree_str
 from presto_tpu_torch.sql.parser import parse
 from presto_tpu_torch.tpch_queries import QUERIES
 from tests.sqlite_oracle import to_sqlite
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 RTOL = 1e-9
 Q18_250 = QUERIES[18].replace("> 300", "> 250")

@@ -22,6 +22,7 @@ from presto_tpu.exec import kernels as RK
 from presto_tpu_torch import types as T
 from presto_tpu_torch.batch import Batch, Column
 from presto_tpu_torch.exec import kernels as K
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 
 def _t(a):

@@ -35,6 +35,7 @@ from presto_tpu_torch.exec import kernels as K
 from presto_tpu_torch.exec.executor import SORT_STATS_KEYS
 from presto_tpu_torch.tpch_queries import QUERIES
 from tests.test_torch_tpch import _assert_rows_match, counters
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 SENT = K.I64_MAX
 

@@ -16,6 +16,7 @@ import pytest
 import presto_tpu
 import presto_tpu_torch
 from presto_tpu_torch.catalog import tpch_catalog
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 RTOL = 1e-9
 

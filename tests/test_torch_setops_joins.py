@@ -48,6 +48,7 @@ from presto_tpu_torch.sql.parser import parse
 from tests.sqlite_oracle import assert_same_results, to_sqlite
 from tests.test_torch_compiled import HostRead, _memo_state, no_host_reads
 from tests.test_torch_tpch import _assert_rows_match, counters
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 MODES = ("dynamic", "auto")
 

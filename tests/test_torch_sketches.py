@@ -24,6 +24,7 @@ from presto_tpu_torch import types as T
 from presto_tpu_torch.batch import Column, Dictionary
 from presto_tpu_torch.exec import kernels as K
 from presto_tpu_torch.exec.xxh64 import xxh64, xxh64_values
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 
 def test_xxh64_known_vectors():

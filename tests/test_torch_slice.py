@@ -25,6 +25,7 @@ from presto_tpu_torch.sql.parser import parse
 from presto_tpu_torch.tpch_queries import QUERIES
 from tests.sqlite_oracle import to_sqlite
 from tests.tpch_queries import QUERIES as REF_QUERIES
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 RTOL = 1e-9
 FUSED_PROBE = ("SELECT l_returnflag, count(*), sum(l_extendedprice), "
@@ -137,7 +138,10 @@ def test_unported_modes_raise(prop, port_catalog):
 @pytest.mark.parametrize("sql,name", [
     ("SELECT approx_most_frequent(3, l_shipmode, 100) FROM lineitem",
      "approx_most_frequent"),
-    ("CREATE TABLE t AS SELECT l_orderkey FROM lineitem", "CreateTableAs"),
+    # CREATE TABLE AS is ported (exec/writer.py); a materialized view is
+    # not
+    ("CREATE MATERIALIZED VIEW t AS SELECT l_orderkey FROM lineitem",
+     "CreateMaterializedView"),
     ("SELECT cos(l_discount) FROM lineitem", "cos"),
 ])
 def test_unported_nodes_and_functions_raise_with_their_name(sql, name,

@@ -33,6 +33,7 @@ from presto_tpu_torch.exec import compile_cache as CC
 from tests.test_torch_compiled import _memo_state, no_host_reads
 from tests.test_torch_setops_joins import no_scalar_stores
 from tests.test_torch_tpch import _assert_rows_match, counters
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 MODES = ("dynamic", "auto")
 N = 240

@@ -20,6 +20,7 @@ from presto_tpu.plan.stats import ColStats as RColStats
 from presto_tpu_torch.catalog import TpcdsTable, tpcds_catalog
 from presto_tpu_torch.connectors import tpcds as gen
 from presto_tpu_torch.plan.stats import ColStats
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 SF = 0.01
 TABLES = sorted(ref_gen.SCHEMAS)

@@ -13,6 +13,7 @@ from presto_tpu_torch.tpcds_queries import QUERIES
 from tests.torch_tpcds_common import (  # noqa: F401 (fixtures)
     MODES, check_frozen, check_live, check_oracle, live_params, main,
     one_thread, oracle, oracle_params, port, reference)
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 QIDS = [q for q in sorted(QUERIES) if 26 <= q <= 50]
 

@@ -1,4 +1,4 @@
-"""TPC-DS queries 65 to 99 through presto_tpu_torch on the CPU at
+"""TPC-DS queries 65 to 79 through presto_tpu_torch on the CPU at
 SF0.01, in "dynamic" and "auto", against the sqlite oracle and
 presto_tpu (tests/torch_tpcds_common.py says what each test holds).
 
@@ -13,8 +13,9 @@ from presto_tpu_torch.tpcds_queries import QUERIES
 from tests.torch_tpcds_common import (  # noqa: F401 (fixtures)
     MODES, check_frozen, check_live, check_oracle, live_params, main,
     one_thread, oracle, oracle_params, port, reference)
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
-QIDS = [q for q in sorted(QUERIES) if 65 <= q <= 99]
+QIDS = [q for q in sorted(QUERIES) if 65 <= q <= 79]
 
 #: presto_tpu's counters (SORT_STATS_KEYS order) in "dynamic" and in
 #: "auto" ("compiled"), and its memo entry, each query at SF0.01
@@ -49,46 +50,6 @@ FROZEN = {
          "compiled": [56, 0, 0, 0, 4, 4, 143361], "memo": ["DYNAMIC"]},
     79: {"dynamic": [1, 2, 0, 0, 0, 0, 0],
          "compiled": [3, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    80: {"dynamic": [47, 6, 6, 0, 0, 0, 0],
-         "compiled": [39, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    81: {"dynamic": [10, 0, 0, 0, 0, 0, 0],
-         "compiled": [8, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    82: {"dynamic": [6, 0, 0, 0, 1, 1, 226800],
-         "compiled": [6, 0, 0, 0, 1, 1, 226800], "memo": []},
-    83: {"dynamic": [31, 0, 0, 0, 3, 3, 219084],
-         "compiled": [25, 0, 0, 0, 3, 3, 0], "memo": ["executable"]},
-    84: {"dynamic": [4, 0, 0, 0, 0, 0, 0],
-         "compiled": [4, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    85: {"dynamic": [9, 0, 0, 0, 0, 0, 0],
-         "compiled": [7, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    86: {"dynamic": [8, 0, 0, 0, 0, 0, 0],
-         "compiled": [4, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    87: {"dynamic": [12, 2, 0, 0, 0, 0, 0],
-         "compiled": [12, 2, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    88: {"dynamic": [0, 0, 0, 0, 0, 0, 0],
-         "compiled": [0, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    89: {"dynamic": [3, 0, 0, 0, 0, 0, 0],
-         "compiled": [3, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    90: {"dynamic": [0, 0, 0, 0, 0, 0, 0],
-         "compiled": [0, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    91: {"dynamic": [3, 0, 0, 0, 0, 0, 0],
-         "compiled": [1, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    92: {"dynamic": [4, 1, 0, 0, 0, 0, 0],
-         "compiled": [3, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    93: {"dynamic": [6, 0, 0, 0, 0, 0, 0],
-         "compiled": [4, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    94: {"dynamic": [6, 2, 0, 0, 0, 0, 0],
-         "compiled": [6, 2, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    95: {"dynamic": [15, 3, 0, 0, 0, 0, 0],
-         "compiled": [15, 3, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    96: {"dynamic": [0, 0, 0, 0, 0, 0, 0],
-         "compiled": [0, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    97: {"dynamic": [10, 0, 0, 0, 0, 0, 0],
-         "compiled": [10, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    98: {"dynamic": [3, 0, 0, 0, 0, 0, 0],
-         "compiled": [3, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
-    99: {"dynamic": [3, 0, 0, 0, 0, 0, 0],
-         "compiled": [1, 0, 0, 0, 0, 0, 0], "memo": ["executable"]},
 }
 
 

@@ -40,6 +40,7 @@ from tests.sqlite_oracle import assert_same_results, to_sqlite
 from tests.test_torch_compiled import _memo_state
 from tests.test_torch_tpch import _assert_rows_match, counters
 from tests.test_window import NULLS_BASE, WINDOW_QUERIES
+from tests.torch_threads import torch_one_thread  # noqa: F401
 
 MODES = ("dynamic", "auto")
 
