@@ -110,8 +110,9 @@ buckets and sorts, INSERT, a rolled-back and a committed transaction,
 DELETE, EXPLAIN, EXPLAIN ANALYZE, the SHOW family, SET SESSION, DROP
 TABLE) over the TPC-H SF1 tables, in fresh sessions: twice in "auto"
 (the second run's rows and tables identical to the first's), once in
-"dynamic" under the capture (each kernel at each new shape against its
-plain version), and D2 and D3 once in "compiled": every statement's
+"dynamic", and D2 and D3 once in "compiled", every run but the second
+under the capture (each kernel at each new shape against its plain
+version): every statement's
 rows, write stats and counters and every written table's digest (rows,
 column sums, each page's bucket, rows, sort-key sequence and rows as a
 multiset) against presto_tpu's SF1 values (WRITE_REFERENCE_SF1); one
@@ -1541,11 +1542,14 @@ REFERENCE_COUNTERS_SF1.update({
 REFERENCE_MEMO_SF1.update({name: v["compiled"]["memo"]
                            for name, v in COLL_REFERENCE_SF1.items()})
 # presto_tpu's values of the statement corpus (presto_tpu_torch/
-# statement_queries.py) at SF1 on the CPU, {mode: {id: {"rows", "stats"
-# (execution_mode, rows_written, bytes_written, write_files), "counters",
-# "digest" (statement_queries.table_digest of the table written, or
-# None)}}}, from `JAX_PLATFORMS=cpu python -m tests.test_torch_statements
-# 1 <cache dir>`; "compiled" holds D2 and D3 alone
+# statement_queries.py) at SF1 on the CPU, each fact once: "dynamic"
+# whole, {id: {"rows", "stats" (execution_mode, rows_written,
+# bytes_written, write_files), "counters", "digest"
+# (statement_queries.table_digest of the table written; None, or the id
+# of an earlier statement whose digest it equals)}}, "auto" and
+# "compiled" only what differs (statement_queries.expand_reference
+# gives each mode whole; "compiled" runs D2 and D3 alone), from
+# `JAX_PLATFORMS=cpu python -m tests.test_torch_statements 1 <cache dir>`
 WRITE_REFERENCE_SF1 = {
     "dynamic": {
         "D1": {'rows': [[4]],
@@ -1576,37 +1580,69 @@ WRITE_REFERENCE_SF1 = {
                                     'l_partkey': 1476067890,
                                     'l_suppkey': 3766950701,
                                     'l_shipdate': 3795576022},
-                          'pages': [[0, 375037, 1062493734,
+                          'pages': [[0,
+                                     375037,
+                                     1062493734,
                                      10373469860454308264],
-                                    [1, 375038, 2758154998,
+                                    [1,
+                                     375038,
+                                     2758154998,
                                      13729658309794533905],
-                                    [2, 375037, 2064473759,
+                                    [2,
+                                     375037,
+                                     2064473759,
                                      13198620046059947235],
-                                    [3, 375038, 1727707307,
+                                    [3,
+                                     375038,
+                                     1727707307,
                                      3745574045033612199],
-                                    [4, 375037, 697100398,
+                                    [4,
+                                     375037,
+                                     697100398,
                                      2382789346324655637],
-                                    [5, 375038, 3590820923,
+                                    [5,
+                                     375038,
+                                     3590820923,
                                      4774727483628575127],
-                                    [6, 375037, 253767043,
+                                    [6,
+                                     375037,
+                                     253767043,
                                      9461722880552679716],
-                                    [7, 375038, 1993808994,
+                                    [7,
+                                     375038,
+                                     1993808994,
                                      5916474618947862703],
-                                    [8, 375038, 4170406215,
+                                    [8,
+                                     375038,
+                                     4170406215,
                                      7052688778219356101],
-                                    [9, 375037, 1593632121,
+                                    [9,
+                                     375037,
+                                     1593632121,
                                      224710989465175767],
-                                    [10, 375038, 592496536,
+                                    [10,
+                                     375038,
+                                     592496536,
                                      6449817989757345545],
-                                    [11, 375037, 1623786506,
+                                    [11,
+                                     375037,
+                                     1623786506,
                                      17719680324542538508],
-                                    [12, 375038, 1752444774,
+                                    [12,
+                                     375038,
+                                     1752444774,
                                      13521067166114719672],
-                                    [13, 375037, 1815139045,
+                                    [13,
+                                     375037,
+                                     1815139045,
                                      11737851673271795461],
-                                    [14, 375038, 3028194326,
+                                    [14,
+                                     375038,
+                                     3028194326,
                                      5400659748630729758],
-                                    [15, 375038, 110006983,
+                                    [15,
+                                     375038,
+                                     110006983,
                                      3122278900057759766]],
                           'ordering': [['l_orderkey', True]],
                           'write_properties': {'bucketed_by': ['l_orderkey'],
@@ -1628,68 +1664,130 @@ WRITE_REFERENCE_SF1 = {
                                     'o_custkey': 3568677477,
                                     'o_orderdate': 382975859,
                                     'c_mktsegment': 3557076221},
-                          'pages': [[0, 46200, 3170668444,
+                          'pages': [[0,
+                                     46200,
+                                     3170668444,
                                      9501530312027532639],
-                                    [1, 47911, 3871099761,
+                                    [1,
+                                     47911,
+                                     3871099761,
                                      12154285186535632341],
-                                    [2, 48063, 1990486797,
+                                    [2,
+                                     48063,
+                                     1990486797,
                                      15227873504006070347],
-                                    [3, 47191, 406836151,
+                                    [3,
+                                     47191,
+                                     406836151,
                                      12940103470621851133],
-                                    [4, 48639, 4032501074,
+                                    [4,
+                                     48639,
+                                     4032501074,
                                      5531233265718070757],
-                                    [5, 47207, 227101738,
+                                    [5,
+                                     47207,
+                                     227101738,
                                      17781717197147077130],
-                                    [6, 45049, 2865047219,
+                                    [6,
+                                     45049,
+                                     2865047219,
                                      17137662449740219115],
-                                    [7, 46645, 1929580275,
+                                    [7,
+                                     46645,
+                                     1929580275,
                                      10397137722776177275],
-                                    [8, 46522, 2868018335,
+                                    [8,
+                                     46522,
+                                     2868018335,
                                      6160963211707744066],
-                                    [9, 47376, 2172888073,
+                                    [9,
+                                     47376,
+                                     2172888073,
                                      9464063111470653473],
-                                    [10, 46694, 2630417796,
+                                    [10,
+                                     46694,
+                                     2630417796,
                                      808084568111723230],
-                                    [11, 46066, 2708764964,
+                                    [11,
+                                     46066,
+                                     2708764964,
                                      4250865577872899522],
-                                    [12, 46290, 1915384664,
+                                    [12,
+                                     46290,
+                                     1915384664,
                                      17234266875047924936],
-                                    [13, 45913, 1578457035,
+                                    [13,
+                                     45913,
+                                     1578457035,
                                      13097640272416831189],
-                                    [14, 47915, 804950781,
+                                    [14,
+                                     47915,
+                                     804950781,
                                      13015708054966350472],
-                                    [15, 47003, 3998820902,
+                                    [15,
+                                     47003,
+                                     3998820902,
                                      9386840027128710724],
                                     [16, 47262, 27190900, 329823791178458594],
-                                    [17, 45784, 720457127,
+                                    [17,
+                                     45784,
+                                     720457127,
                                      10179929848205196285],
-                                    [18, 48027, 2979778674,
+                                    [18,
+                                     48027,
+                                     2979778674,
                                      9570627576061540595],
-                                    [19, 47261, 1156129540,
+                                    [19,
+                                     47261,
+                                     1156129540,
                                      15746228242359397155],
-                                    [20, 47457, 4125358659,
+                                    [20,
+                                     47457,
+                                     4125358659,
                                      3906764041924922762],
-                                    [21, 47020, 105710059,
+                                    [21,
+                                     47020,
+                                     105710059,
                                      9200058825272207838],
-                                    [22, 46709, 2212311170,
+                                    [22,
+                                     46709,
+                                     2212311170,
                                      6583293621926476402],
-                                    [23, 46432, 2690386008,
+                                    [23,
+                                     46432,
+                                     2690386008,
                                      8751495803162005527],
-                                    [24, 47959, 2169923588,
+                                    [24,
+                                     47959,
+                                     2169923588,
                                      1424580822712666080],
-                                    [25, 46909, 801340972,
+                                    [25,
+                                     46909,
+                                     801340972,
                                      7123967026564405549],
-                                    [26, 46931, 3523507467,
+                                    [26,
+                                     46931,
+                                     3523507467,
                                      3161986173376017571],
-                                    [27, 46138, 1160466409,
+                                    [27,
+                                     46138,
+                                     1160466409,
                                      17816042745875774252],
-                                    [28, 45957, 1968237334,
+                                    [28,
+                                     45957,
+                                     1968237334,
                                      218282267407569823],
-                                    [29, 46706, 4178986938,
+                                    [29,
+                                     46706,
+                                     4178986938,
                                      17406628685156141677],
-                                    [30, 45533, 4179496106,
+                                    [30,
+                                     45533,
+                                     4179496106,
                                      13560084800555174987],
-                                    [31, 47231, 332245264,
+                                    [31,
+                                     47231,
+                                     332245264,
                                      3087029044858133476]],
                           'ordering': [],
                           'write_properties': {'bucketed_by': ['o_custkey'],
@@ -1717,7 +1815,8 @@ WRITE_REFERENCE_SF1 = {
                         [3, 2, 44272.259999999995, 15.5],
                         [4, 5, 182242.97999999998, 31.8],
                         [5, 4, 117708.00000000001, 23.0],
-                        [6, 4, 146859.29, 23.25], [7, 2, 84985.19, 26.5],
+                        [6, 4, 146859.29, 23.25],
+                        [7, 2, 84985.19, 26.5],
                         [8, 6, 225588.71000000002, 24.666666666666668],
                         [33, 3, 91655.84000000001, 16.666666666666668],
                         [34, 4, 172245.90000000002, 27.25],
@@ -1725,7 +1824,8 @@ WRITE_REFERENCE_SF1 = {
                         [36, 3, 64653.04, 14.333333333333334],
                         [37, 4, 174365.15, 37.25],
                         [38, 5, 232782.41999999998, 33.6],
-                        [39, 5, 287528.68, 34.8], [40, 2, 113435.02, 29.5]],
+                        [39, 5, 287528.68, 34.8],
+                        [40, 2, 113435.02, 29.5]],
                'stats': ['dynamic', 0, 0, 0],
                'counters': [3, 3, 0, 0, 0, 0, 0],
                'digest': None},
@@ -1797,7 +1897,8 @@ WRITE_REFERENCE_SF1 = {
                          [3, 2, 44272.259999999995, 15.5],
                          [4, 5, 182242.97999999998, 31.8],
                          [5, 4, 117708.00000000001, 23.0],
-                         [6, 4, 146859.29, 23.25], [7, 2, 84985.19, 26.5],
+                         [6, 4, 146859.29, 23.25],
+                         [7, 2, 84985.19, 26.5],
                          [8, 6, 225588.71000000002, 24.666666666666668],
                          [33, 3, 91655.84000000001, 16.666666666666668],
                          [34, 4, 172245.90000000002, 27.25],
@@ -1805,7 +1906,8 @@ WRITE_REFERENCE_SF1 = {
                          [36, 3, 64653.04, 14.333333333333334],
                          [37, 4, 174365.15, 37.25],
                          [38, 5, 232782.41999999998, 33.6],
-                         [39, 5, 287528.68, 34.8], [40, 2, 113435.02, 29.5]],
+                         [39, 5, 287528.68, 34.8],
+                         [40, 2, 113435.02, 29.5]],
                 'stats': ['dynamic', 0, 0, 0],
                 'counters': [5, 1, 0, 0, 0, 0, 0],
                 'digest': None},
@@ -1816,40 +1918,7 @@ WRITE_REFERENCE_SF1 = {
         "D6f": {'rows': [[63]],
                 'stats': ['dynamic', 63, 2772, 0],
                 'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': {'rows': 6000664,
-                           'sums': {'l_orderkey': 18000712697616,
-                                    'l_partkey': 599944866108,
-                                    'l_suppkey': 30007275810,
-                                    'l_quantity': 152964403.0,
-                                    'l_extendedprice': 229387631791.55994,
-                                    'l_shipdate': 55711658206},
-                           'order': {'l_orderkey': 1040595681,
-                                     'l_partkey': 358890581,
-                                     'l_suppkey': 387564063,
-                                     'l_shipdate': 2736460530},
-                           'pages': [[0, 3, 1076248072, 6667826826418334825],
-                                     [1, 4, 2243470284, 9090345071474682435],
-                                     [2, 4, 1030862505, 4348875220560982218],
-                                     [3, 4, 3631265351, 1825735520871590402],
-                                     [4, 4, 2639762235, 2028635094330738044],
-                                     [5, 4, 3444532676, 9252934060488713528],
-                                     [6, 4, 3106697279, 2134746604835902518],
-                                     [7, 4, 3546611580, 6627373296233190990],
-                                     [8, 4, 1859952832, 11272776493763599898],
-                                     [9, 4, 2254253501, 17066418462451230145],
-                                     [10, 4, 1973296421, 7033768438804316735],
-                                     [11, 4, 3276127155, 10866114333438723113],
-                                     [12, 4, 1777162404, 15566746872201256167],
-                                     [13, 4, 1605061154, 13265740317318022533],
-                                     [14, 4, 3159145994, 8935519278759784929],
-                                     [15, 4, 442289718, 6600025768366363160]],
-                           'ordering': [],
-                           'write_properties': {'bucketed_by': ['l_orderkey'],
-                                                'bucket_count': 16,
-                                                'sorted_by': [['l_orderkey',
-                                                               True]],
-                                                'partitioned_by': [],
-                                                'bucketing': 'range'}}},
+                'digest': 'D6b'},
         "D6g": {'rows': [[True]],
                 'stats': ['', 0, 0, 0],
                 'counters': [0, 0, 0, 0, 0, 0, 0],
@@ -1859,7 +1928,8 @@ WRITE_REFERENCE_SF1 = {
                          [3, 4, 88544.51999999999, 15.5],
                          [4, 10, 364485.95999999996, 31.8],
                          [5, 8, 235416.00000000003, 23.0],
-                         [6, 8, 293718.58, 23.25], [7, 4, 169970.38, 26.5],
+                         [6, 8, 293718.58, 23.25],
+                         [7, 4, 169970.38, 26.5],
                          [8, 12, 451177.42000000004, 24.666666666666668],
                          [33, 6, 183311.68000000002, 16.666666666666668],
                          [34, 8, 344491.80000000005, 27.25],
@@ -1867,7 +1937,8 @@ WRITE_REFERENCE_SF1 = {
                          [36, 6, 129306.08, 14.333333333333334],
                          [37, 8, 348730.3, 37.25],
                          [38, 10, 465564.83999999997, 33.6],
-                         [39, 10, 575057.36, 34.8], [40, 4, 226870.04, 29.5]],
+                         [39, 10, 575057.36, 34.8],
+                         [40, 4, 226870.04, 29.5]],
                 'stats': ['dynamic', 0, 0, 0],
                 'counters': [5, 1, 0, 0, 0, 0, 0],
                 'digest': None},
@@ -1955,8 +2026,10 @@ WRITE_REFERENCE_SF1 = {
                 'stats': ['', 0, 0, 0],
                 'counters': [0, 0, 0, 0, 0, 0, 0],
                 'digest': None},
-        "D8d": {'rows': [['o_orderkey', 'BIGINT'], ['o_custkey', 'BIGINT'],
-                         ['o_orderdate', 'DATE'], ['o_totalprice', 'DOUBLE'],
+        "D8d": {'rows': [['o_orderkey', 'BIGINT'],
+                         ['o_custkey', 'BIGINT'],
+                         ['o_orderdate', 'DATE'],
+                         ['o_totalprice', 'DOUBLE'],
                          ['c_mktsegment', 'VARCHAR'],
                          ['# sorted_by', 'o_orderdate DESC'],
                          ['# bucketed_by', 'o_custkey (hash, 32 buckets)']],
@@ -1967,16 +2040,27 @@ WRITE_REFERENCE_SF1 = {
                          ['l_partkey', 200000.0, 1.0, 200000.0, None],
                          ['l_suppkey', 10000.0, 1.0, 10000.0, None],
                          ['l_quantity', 50.0, 1.0, 50.0, None],
-                         ['l_extendedprice', 965158.0, 901.0,
-                          104949.50000000001, None],
+                         ['l_extendedprice',
+                          965158.0,
+                          901.0,
+                          104949.50000000001,
+                          None],
                          ['l_shipdate', 2496.0, 8036.0, 10531.0, None],
                          [None, None, None, None, 6000664.0]],
                 'stats': ['', 0, 0, 0],
                 'counters': [0, 0, 0, 0, 0, 0, 0],
                 'digest': None},
-        "D8f": {'rows': [['customer'], ['li_range'], ['lineitem'], ['nation'],
-                         ['ord_hash'], ['orders'], ['part'], ['partsupp'],
-                         ['region'], ['rev'], ['supplier']],
+        "D8f": {'rows': [['customer'],
+                         ['li_range'],
+                         ['lineitem'],
+                         ['nation'],
+                         ['ord_hash'],
+                         ['orders'],
+                         ['part'],
+                         ['partsupp'],
+                         ['region'],
+                         ['rev'],
+                         ['supplier']],
                 'stats': ['', 0, 0, 0],
                 'counters': [0, 0, 0, 0, 0, 0, 0],
                 'digest': None},
@@ -1988,326 +2072,30 @@ WRITE_REFERENCE_SF1 = {
                'stats': ['', 0, 0, 0],
                'counters': [0, 0, 0, 0, 0, 0, 0],
                'digest': None},
-        "D9b": {'rows': [['customer'], ['li_range'], ['lineitem'], ['nation'],
-                         ['ord_hash'], ['orders'], ['part'], ['partsupp'],
-                         ['region'], ['supplier']],
+        "D9b": {'rows': [['customer'],
+                         ['li_range'],
+                         ['lineitem'],
+                         ['nation'],
+                         ['ord_hash'],
+                         ['orders'],
+                         ['part'],
+                         ['partsupp'],
+                         ['region'],
+                         ['supplier']],
                 'stats': ['', 0, 0, 0],
                 'counters': [0, 0, 0, 0, 0, 0, 0],
                 'digest': None},
     },
     "auto": {
-        "D1": {'rows': [[4]],
-               'stats': ['dynamic', 4, 128, 0],
-               'counters': [2, 0, 0, 0, 0, 0, 0],
-               'digest': {'rows': 4,
-                          'sums': {'l_returnflag': 7282263060,
-                                   'l_linestatus': 4791522564,
-                                   'revenue': 217915044563.13873,
-                                   'n': 6000601},
-                          'order': {'l_returnflag': 3440020942,
-                                    'l_linestatus': 391525534,
-                                    'n': 3488851466},
-                          'pages': [[None, 4, 0, 17728647867162783916]],
-                          'ordering': [],
-                          'write_properties': {}}},
-        "D2": {'rows': [[6000601]],
-               'stats': ['dynamic', 6000601, 264026444, 0],
-               'counters': [0, 0, 0, 0, 0, 0, 0],
-               'digest': {'rows': 6000601,
-                          'sums': {'l_orderkey': 18000712696407,
-                                   'l_partkey': 599938387411,
-                                   'l_suppkey': 30006943654,
-                                   'l_quantity': 152962802.0,
-                                   'l_extendedprice': 229385261723.15994,
-                                   'l_shipdate': 55711075191},
-                          'order': {'l_orderkey': 4052313609,
-                                    'l_partkey': 1476067890,
-                                    'l_suppkey': 3766950701,
-                                    'l_shipdate': 3795576022},
-                          'pages': [[0, 375037, 1062493734,
-                                     10373469860454308264],
-                                    [1, 375038, 2758154998,
-                                     13729658309794533905],
-                                    [2, 375037, 2064473759,
-                                     13198620046059947235],
-                                    [3, 375038, 1727707307,
-                                     3745574045033612199],
-                                    [4, 375037, 697100398,
-                                     2382789346324655637],
-                                    [5, 375038, 3590820923,
-                                     4774727483628575127],
-                                    [6, 375037, 253767043,
-                                     9461722880552679716],
-                                    [7, 375038, 1993808994,
-                                     5916474618947862703],
-                                    [8, 375038, 4170406215,
-                                     7052688778219356101],
-                                    [9, 375037, 1593632121,
-                                     224710989465175767],
-                                    [10, 375038, 592496536,
-                                     6449817989757345545],
-                                    [11, 375037, 1623786506,
-                                     17719680324542538508],
-                                    [12, 375038, 1752444774,
-                                     13521067166114719672],
-                                    [13, 375037, 1815139045,
-                                     11737851673271795461],
-                                    [14, 375038, 3028194326,
-                                     5400659748630729758],
-                                    [15, 375038, 110006983,
-                                     3122278900057759766]],
-                          'ordering': [['l_orderkey', True]],
-                          'write_properties': {'bucketed_by': ['l_orderkey'],
-                                               'bucket_count': 16,
-                                               'sorted_by': [['l_orderkey',
-                                                              True]],
-                                               'partitioned_by': [],
-                                               'bucketing': 'range'}}},
-        "D3": {'rows': [[1500000]],
-               'stats': ['dynamic', 1500000, 54000000, 0],
-               'counters': [0, 0, 0, 0, 1, 1, 0],
-               'digest': {'rows': 1500000,
-                          'sums': {'o_orderkey': 4499982750000,
-                                   'o_custkey': 112410436586,
-                                   'o_orderdate': 13835178342,
-                                   'o_totalprice': 413171118835.98004,
-                                   'c_mktsegment': 1969628282709100},
-                          'order': {'o_orderkey': 571030903,
-                                    'o_custkey': 3568677477,
-                                    'o_orderdate': 382975859,
-                                    'c_mktsegment': 3557076221},
-                          'pages': [[0, 46200, 3170668444,
-                                     9501530312027532639],
-                                    [1, 47911, 3871099761,
-                                     12154285186535632341],
-                                    [2, 48063, 1990486797,
-                                     15227873504006070347],
-                                    [3, 47191, 406836151,
-                                     12940103470621851133],
-                                    [4, 48639, 4032501074,
-                                     5531233265718070757],
-                                    [5, 47207, 227101738,
-                                     17781717197147077130],
-                                    [6, 45049, 2865047219,
-                                     17137662449740219115],
-                                    [7, 46645, 1929580275,
-                                     10397137722776177275],
-                                    [8, 46522, 2868018335,
-                                     6160963211707744066],
-                                    [9, 47376, 2172888073,
-                                     9464063111470653473],
-                                    [10, 46694, 2630417796,
-                                     808084568111723230],
-                                    [11, 46066, 2708764964,
-                                     4250865577872899522],
-                                    [12, 46290, 1915384664,
-                                     17234266875047924936],
-                                    [13, 45913, 1578457035,
-                                     13097640272416831189],
-                                    [14, 47915, 804950781,
-                                     13015708054966350472],
-                                    [15, 47003, 3998820902,
-                                     9386840027128710724],
-                                    [16, 47262, 27190900, 329823791178458594],
-                                    [17, 45784, 720457127,
-                                     10179929848205196285],
-                                    [18, 48027, 2979778674,
-                                     9570627576061540595],
-                                    [19, 47261, 1156129540,
-                                     15746228242359397155],
-                                    [20, 47457, 4125358659,
-                                     3906764041924922762],
-                                    [21, 47020, 105710059,
-                                     9200058825272207838],
-                                    [22, 46709, 2212311170,
-                                     6583293621926476402],
-                                    [23, 46432, 2690386008,
-                                     8751495803162005527],
-                                    [24, 47959, 2169923588,
-                                     1424580822712666080],
-                                    [25, 46909, 801340972,
-                                     7123967026564405549],
-                                    [26, 46931, 3523507467,
-                                     3161986173376017571],
-                                    [27, 46138, 1160466409,
-                                     17816042745875774252],
-                                    [28, 45957, 1968237334,
-                                     218282267407569823],
-                                    [29, 46706, 4178986938,
-                                     17406628685156141677],
-                                    [30, 45533, 4179496106,
-                                     13560084800555174987],
-                                    [31, 47231, 332245264,
-                                     3087029044858133476]],
-                          'ordering': [],
-                          'write_properties': {'bucketed_by': ['o_custkey'],
-                                               'bucket_count': 32,
-                                               'sorted_by': [['o_orderdate',
-                                                              False]],
-                                               'partitioned_by': [],
-                                               'bucketing': 'hash'}}},
-        "D4": {'rows': [[1]],
-               'stats': ['dynamic', 1, 32, 0],
-               'counters': [2, 0, 0, 0, 0, 0, 0],
-               'digest': {'rows': 5,
-                          'sums': {'l_returnflag': 8413054766,
-                                   'l_linestatus': 5670340752,
-                                   'revenue': 219406580004.36584,
-                                   'n': 6041449},
-                          'order': {'l_returnflag': 3333037312,
-                                    'l_linestatus': 2299748226,
-                                    'n': 517636972},
-                          'pages': [[None, 1, 0, 17328790111027156804]],
-                          'ordering': [],
-                          'write_properties': {}}},
-        "D5": {'rows': [[1, 6, 216225.16999999998, 23.666666666666668],
-                        [2, 5, 143581.9, 17.0],
-                        [3, 2, 44272.259999999995, 15.5],
-                        [4, 5, 182242.97999999998, 31.8],
-                        [5, 4, 117708.00000000001, 23.0],
-                        [6, 4, 146859.29, 23.25], [7, 2, 84985.19, 26.5],
-                        [8, 6, 225588.71000000002, 24.666666666666668],
-                        [33, 3, 91655.84000000001, 16.666666666666668],
-                        [34, 4, 172245.90000000002, 27.25],
-                        [35, 3, 71938.85, 15.333333333333334],
-                        [36, 3, 64653.04, 14.333333333333334],
-                        [37, 4, 174365.15, 37.25],
-                        [38, 5, 232782.41999999998, 33.6],
-                        [39, 5, 287528.68, 34.8], [40, 2, 113435.02, 29.5]],
-               'stats': ['compiled', 0, 0, 0],
-               'counters': [3, 3, 0, 0, 0, 0, 0],
-               'digest': None},
-        "D6a": {'rows': [[True]],
-                'stats': ['', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D6b": {'rows': [[63]],
-                'stats': ['dynamic', 63, 2772, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': {'rows': 6000664,
-                           'sums': {'l_orderkey': 18000712697616,
-                                    'l_partkey': 599944866108,
-                                    'l_suppkey': 30007275810,
-                                    'l_quantity': 152964403.0,
-                                    'l_extendedprice': 229387631791.55994,
-                                    'l_shipdate': 55711658206},
-                           'order': {'l_orderkey': 1040595681,
-                                     'l_partkey': 358890581,
-                                     'l_suppkey': 387564063,
-                                     'l_shipdate': 2736460530},
-                           'pages': [[0, 3, 1076248072, 6667826826418334825],
-                                     [1, 4, 2243470284, 9090345071474682435],
-                                     [2, 4, 1030862505, 4348875220560982218],
-                                     [3, 4, 3631265351, 1825735520871590402],
-                                     [4, 4, 2639762235, 2028635094330738044],
-                                     [5, 4, 3444532676, 9252934060488713528],
-                                     [6, 4, 3106697279, 2134746604835902518],
-                                     [7, 4, 3546611580, 6627373296233190990],
-                                     [8, 4, 1859952832, 11272776493763599898],
-                                     [9, 4, 2254253501, 17066418462451230145],
-                                     [10, 4, 1973296421, 7033768438804316735],
-                                     [11, 4, 3276127155, 10866114333438723113],
-                                     [12, 4, 1777162404, 15566746872201256167],
-                                     [13, 4, 1605061154, 13265740317318022533],
-                                     [14, 4, 3159145994, 8935519278759784929],
-                                     [15, 4, 442289718, 6600025768366363160]],
-                           'ordering': [],
-                           'write_properties': {'bucketed_by': ['l_orderkey'],
-                                                'bucket_count': 16,
-                                                'sorted_by': [['l_orderkey',
-                                                               True]],
-                                                'partitioned_by': [],
-                                                'bucketing': 'range'}}},
-        "D6c": {'rows': [[True]],
-                'stats': ['', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': {'rows': 6000601,
-                           'sums': {'l_orderkey': 18000712696407,
-                                    'l_partkey': 599938387411,
-                                    'l_suppkey': 30006943654,
-                                    'l_quantity': 152962802.0,
-                                    'l_extendedprice': 229385261723.15994,
-                                    'l_shipdate': 55711075191},
-                           'order': {'l_orderkey': 4052313609,
-                                     'l_partkey': 1476067890,
-                                     'l_suppkey': 3766950701,
-                                     'l_shipdate': 3795576022},
-                           'pages': [],
-                           'ordering': [],
-                           'write_properties': {'bucketed_by': ['l_orderkey'],
-                                                'bucket_count': 16,
-                                                'sorted_by': [['l_orderkey',
-                                                               True]],
-                                                'partitioned_by': [],
-                                                'bucketing': 'range'}}},
-        "D6d": {'rows': [[1, 6, 216225.16999999998, 23.666666666666668],
-                         [2, 5, 143581.9, 17.0],
-                         [3, 2, 44272.259999999995, 15.5],
-                         [4, 5, 182242.97999999998, 31.8],
-                         [5, 4, 117708.00000000001, 23.0],
-                         [6, 4, 146859.29, 23.25], [7, 2, 84985.19, 26.5],
-                         [8, 6, 225588.71000000002, 24.666666666666668],
-                         [33, 3, 91655.84000000001, 16.666666666666668],
-                         [34, 4, 172245.90000000002, 27.25],
-                         [35, 3, 71938.85, 15.333333333333334],
-                         [36, 3, 64653.04, 14.333333333333334],
-                         [37, 4, 174365.15, 37.25],
-                         [38, 5, 232782.41999999998, 33.6],
-                         [39, 5, 287528.68, 34.8], [40, 2, 113435.02, 29.5]],
-                'stats': ['compiled', 0, 0, 0],
-                'counters': [5, 1, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D6e": {'rows': [[True]],
-                'stats': ['', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D6f": {'rows': [[63]],
-                'stats': ['dynamic', 63, 2772, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': {'rows': 6000664,
-                           'sums': {'l_orderkey': 18000712697616,
-                                    'l_partkey': 599944866108,
-                                    'l_suppkey': 30007275810,
-                                    'l_quantity': 152964403.0,
-                                    'l_extendedprice': 229387631791.55994,
-                                    'l_shipdate': 55711658206},
-                           'order': {'l_orderkey': 1040595681,
-                                     'l_partkey': 358890581,
-                                     'l_suppkey': 387564063,
-                                     'l_shipdate': 2736460530},
-                           'pages': [[0, 3, 1076248072, 6667826826418334825],
-                                     [1, 4, 2243470284, 9090345071474682435],
-                                     [2, 4, 1030862505, 4348875220560982218],
-                                     [3, 4, 3631265351, 1825735520871590402],
-                                     [4, 4, 2639762235, 2028635094330738044],
-                                     [5, 4, 3444532676, 9252934060488713528],
-                                     [6, 4, 3106697279, 2134746604835902518],
-                                     [7, 4, 3546611580, 6627373296233190990],
-                                     [8, 4, 1859952832, 11272776493763599898],
-                                     [9, 4, 2254253501, 17066418462451230145],
-                                     [10, 4, 1973296421, 7033768438804316735],
-                                     [11, 4, 3276127155, 10866114333438723113],
-                                     [12, 4, 1777162404, 15566746872201256167],
-                                     [13, 4, 1605061154, 13265740317318022533],
-                                     [14, 4, 3159145994, 8935519278759784929],
-                                     [15, 4, 442289718, 6600025768366363160]],
-                           'ordering': [],
-                           'write_properties': {'bucketed_by': ['l_orderkey'],
-                                                'bucket_count': 16,
-                                                'sorted_by': [['l_orderkey',
-                                                               True]],
-                                                'partitioned_by': [],
-                                                'bucketing': 'range'}}},
-        "D6g": {'rows': [[True]],
-                'stats': ['', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': None},
+        "D5": {'stats': ['compiled', 0, 0, 0]},
+        "D6d": {'stats': ['compiled', 0, 0, 0]},
         "D6h": {'rows': [[1, 12, 432450.33999999997, 23.666666666666668],
                          [2, 10, 287163.8, 17.0],
                          [3, 4, 88544.51999999999, 15.5],
                          [4, 10, 364485.9599999999, 31.8],
                          [5, 8, 235416.00000000006, 23.0],
-                         [6, 8, 293718.58, 23.25], [7, 4, 169970.38, 26.5],
+                         [6, 8, 293718.58, 23.25],
+                         [7, 4, 169970.38, 26.5],
                          [8, 12, 451177.4199999999, 24.666666666666668],
                          [33, 6, 183311.68000000002, 16.666666666666668],
                          [34, 8, 344491.80000000005, 27.25],
@@ -2317,270 +2105,12 @@ WRITE_REFERENCE_SF1 = {
                          [38, 10, 465564.83999999997, 33.6],
                          [39, 10, 575057.3600000001, 34.8],
                          [40, 4, 226870.04, 29.5]],
-                'stats': ['compiled', 0, 0, 0],
-                'counters': [5, 1, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D7": {'rows': [[230760]],
-               'stats': ['', 0, 0, 0],
-               'counters': [0, 0, 0, 0, 0, 0, 0],
-               'digest': {'rows': 1269240,
-                          'sums': {'o_orderkey': 3809388147250,
-                                   'o_custkey': 95107716651,
-                                   'o_orderdate': 11938994564,
-                                   'o_totalprice': 349575944840.7001,
-                                   'c_mktsegment': 1666005639885784},
-                          'order': {'o_orderkey': 1134454733,
-                                    'o_custkey': 2938699618,
-                                    'o_orderdate': 4009424219,
-                                    'c_mktsegment': 1115422708},
-                          'pages': [],
-                          'ordering': [],
-                          'write_properties': {'bucketed_by': ['o_custkey'],
-                                               'bucket_count': 32,
-                                               'sorted_by': [['o_orderdate',
-                                                              False]],
-                                               'partitioned_by': [],
-                                               'bucketing': 'hash'}}},
-        "D7b": {'rows': [[1269240, 349575944840.7, 8401]],
-                'stats': ['compiled', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D8a": {'rows': [["Output [('l_orderkey', 'l_orderkey$14'), ('n', "
-                          "'n$15'), ('revenue', 'revenue$16'), ('qty', "
-                          "'qty$17')]  {rows: 1,692,507}\n"
-                          "  Sort [('l_orderkey$14', True, None)]  {rows: "
-                          '1,692,507}\n'
-                          '    Project {l_orderkey$14 := l_orderkey$0, n$15 '
-                          ':= count$11, revenue$16 := sum$12, qty$17 := '
-                          'avg$13}  {rows: 1,692,507}\n'
-                          "      Aggregate SINGLE keys=['l_orderkey$0'] "
-                          '{count$11 := count(), sum$12 := '
-                          'sum(l_extendedprice$4), avg$13 := '
-                          'avg(l_quantity$3)}  {rows: 1,692,507}\n'
-                          '        Project {l_orderkey$0 := l_orderkey$0, '
-                          'l_quantity$3 := l_quantity$3, l_extendedprice$4 := '
-                          'l_extendedprice$4}  {rows: 1,692,507}\n'
-                          "          Join INNER [('l_orderkey$0', "
-                          "'o_orderkey$6')]  {rows: 1,692,507}\n"
-                          '            Filter [lt(l_orderkey$0, CAST(64 AS '
-                          'BIGINT))]  {rows: 2,000,221}\n'
-                          "              TableScan li_range ['l_orderkey', "
-                          "'l_quantity', 'l_extendedprice']  {rows: "
-                          '6,000,664}\n'
-                          "            TableScan ord_hash ['o_orderkey']  "
-                          '{rows: 1,269,240}']],
-                'stats': ['', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D8b": {'rows': [["Output [('l_returnflag', 'l_returnflag$4'), "
-                          "('l_linestatus', 'l_linestatus$5'), ('revenue', "
-                          "'revenue$6'), ('n', 'n$7')]   <- rows=5 time=?\n"
-                          "  Sort [('l_returnflag$4', True, None), "
-                          "('l_linestatus$5', True, None)]   <- rows=5 "
-                          'time=?\n'
-                          '    Project {l_returnflag$4 := l_returnflag$0, '
-                          'l_linestatus$5 := l_linestatus$1, revenue$6 := '
-                          'revenue$2, n$7 := n$3}   <- rows=5 time=?\n'
-                          "      TableScan rev ['l_returnflag', "
-                          "'l_linestatus', 'revenue', 'n']   <- rows=5 "
-                          'time=?']],
-                'stats': ['dynamic', 0, 0, 0],
-                'counters': [1, 0, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D8c": {'rows': [['CREATE TABLE li_range (\n'
-                          '   l_orderkey bigint,\n'
-                          '   l_partkey bigint,\n'
-                          '   l_suppkey bigint,\n'
-                          '   l_quantity double,\n'
-                          '   l_extendedprice double,\n'
-                          '   l_shipdate date\n'
-                          ')\n'
-                          'WITH (\n'
-                          "   connector = 'memory',\n"
-                          "   bucketed_by = ARRAY['l_orderkey'],\n"
-                          '   bucket_count = 16,\n'
-                          "   sorted_by = ARRAY['l_orderkey asc']\n"
-                          ')']],
-                'stats': ['', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D8d": {'rows': [['o_orderkey', 'BIGINT'], ['o_custkey', 'BIGINT'],
-                         ['o_orderdate', 'DATE'], ['o_totalprice', 'DOUBLE'],
-                         ['c_mktsegment', 'VARCHAR'],
-                         ['# sorted_by', 'o_orderdate DESC'],
-                         ['# bucketed_by', 'o_custkey (hash, 32 buckets)']],
-                'stats': ['', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D8e": {'rows': [['l_orderkey', 1500000.0, 1.0, 5999976.0, None],
-                         ['l_partkey', 200000.0, 1.0, 200000.0, None],
-                         ['l_suppkey', 10000.0, 1.0, 10000.0, None],
-                         ['l_quantity', 50.0, 1.0, 50.0, None],
-                         ['l_extendedprice', 965158.0, 901.0,
-                          104949.50000000001, None],
-                         ['l_shipdate', 2496.0, 8036.0, 10531.0, None],
-                         [None, None, None, None, 6000664.0]],
-                'stats': ['', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D8f": {'rows': [['customer'], ['li_range'], ['lineitem'], ['nation'],
-                         ['ord_hash'], ['orders'], ['part'], ['partsupp'],
-                         ['region'], ['rev'], ['supplier']],
-                'stats': ['', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D8g": {'rows': [[True]],
-                'stats': ['', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': None},
-        "D9": {'rows': [[True]],
-               'stats': ['', 0, 0, 0],
-               'counters': [0, 0, 0, 0, 0, 0, 0],
-               'digest': None},
-        "D9b": {'rows': [['customer'], ['li_range'], ['lineitem'], ['nation'],
-                         ['ord_hash'], ['orders'], ['part'], ['partsupp'],
-                         ['region'], ['supplier']],
-                'stats': ['', 0, 0, 0],
-                'counters': [0, 0, 0, 0, 0, 0, 0],
-                'digest': None},
+                'stats': ['compiled', 0, 0, 0]},
+        "D7b": {'stats': ['compiled', 0, 0, 0]},
     },
     "compiled": {
-        "D2": {'rows': [[6000601]],
-               'stats': ['compiled', 6000601, 288028848, 0],
-               'counters': [0, 0, 0, 0, 0, 0, 0],
-               'digest': {'rows': 6000601,
-                          'sums': {'l_orderkey': 18000712696407,
-                                   'l_partkey': 599938387411,
-                                   'l_suppkey': 30006943654,
-                                   'l_quantity': 152962802.0,
-                                   'l_extendedprice': 229385261723.15994,
-                                   'l_shipdate': 55711075191},
-                          'order': {'l_orderkey': 4052313609,
-                                    'l_partkey': 1476067890,
-                                    'l_suppkey': 3766950701,
-                                    'l_shipdate': 3795576022},
-                          'pages': [[0, 375037, 1062493734,
-                                     10373469860454308264],
-                                    [1, 375038, 2758154998,
-                                     13729658309794533905],
-                                    [2, 375037, 2064473759,
-                                     13198620046059947235],
-                                    [3, 375038, 1727707307,
-                                     3745574045033612199],
-                                    [4, 375037, 697100398,
-                                     2382789346324655637],
-                                    [5, 375038, 3590820923,
-                                     4774727483628575127],
-                                    [6, 375037, 253767043,
-                                     9461722880552679716],
-                                    [7, 375038, 1993808994,
-                                     5916474618947862703],
-                                    [8, 375038, 4170406215,
-                                     7052688778219356101],
-                                    [9, 375037, 1593632121,
-                                     224710989465175767],
-                                    [10, 375038, 592496536,
-                                     6449817989757345545],
-                                    [11, 375037, 1623786506,
-                                     17719680324542538508],
-                                    [12, 375038, 1752444774,
-                                     13521067166114719672],
-                                    [13, 375037, 1815139045,
-                                     11737851673271795461],
-                                    [14, 375038, 3028194326,
-                                     5400659748630729758],
-                                    [15, 375038, 110006983,
-                                     3122278900057759766]],
-                          'ordering': [['l_orderkey', True]],
-                          'write_properties': {'bucketed_by': ['l_orderkey'],
-                                               'bucket_count': 16,
-                                               'sorted_by': [['l_orderkey',
-                                                              True]],
-                                               'partitioned_by': [],
-                                               'bucketing': 'range'}}},
-        "D3": {'rows': [[1500000]],
-               'stats': ['compiled', 1500000, 60000000, 0],
-               'counters': [0, 0, 0, 0, 1, 1, 0],
-               'digest': {'rows': 1500000,
-                          'sums': {'o_orderkey': 4499982750000,
-                                   'o_custkey': 112410436586,
-                                   'o_orderdate': 13835178342,
-                                   'o_totalprice': 413171118835.98004,
-                                   'c_mktsegment': 1969628282709100},
-                          'order': {'o_orderkey': 571030903,
-                                    'o_custkey': 3568677477,
-                                    'o_orderdate': 382975859,
-                                    'c_mktsegment': 3557076221},
-                          'pages': [[0, 46200, 3170668444,
-                                     9501530312027532639],
-                                    [1, 47911, 3871099761,
-                                     12154285186535632341],
-                                    [2, 48063, 1990486797,
-                                     15227873504006070347],
-                                    [3, 47191, 406836151,
-                                     12940103470621851133],
-                                    [4, 48639, 4032501074,
-                                     5531233265718070757],
-                                    [5, 47207, 227101738,
-                                     17781717197147077130],
-                                    [6, 45049, 2865047219,
-                                     17137662449740219115],
-                                    [7, 46645, 1929580275,
-                                     10397137722776177275],
-                                    [8, 46522, 2868018335,
-                                     6160963211707744066],
-                                    [9, 47376, 2172888073,
-                                     9464063111470653473],
-                                    [10, 46694, 2630417796,
-                                     808084568111723230],
-                                    [11, 46066, 2708764964,
-                                     4250865577872899522],
-                                    [12, 46290, 1915384664,
-                                     17234266875047924936],
-                                    [13, 45913, 1578457035,
-                                     13097640272416831189],
-                                    [14, 47915, 804950781,
-                                     13015708054966350472],
-                                    [15, 47003, 3998820902,
-                                     9386840027128710724],
-                                    [16, 47262, 27190900, 329823791178458594],
-                                    [17, 45784, 720457127,
-                                     10179929848205196285],
-                                    [18, 48027, 2979778674,
-                                     9570627576061540595],
-                                    [19, 47261, 1156129540,
-                                     15746228242359397155],
-                                    [20, 47457, 4125358659,
-                                     3906764041924922762],
-                                    [21, 47020, 105710059,
-                                     9200058825272207838],
-                                    [22, 46709, 2212311170,
-                                     6583293621926476402],
-                                    [23, 46432, 2690386008,
-                                     8751495803162005527],
-                                    [24, 47959, 2169923588,
-                                     1424580822712666080],
-                                    [25, 46909, 801340972,
-                                     7123967026564405549],
-                                    [26, 46931, 3523507467,
-                                     3161986173376017571],
-                                    [27, 46138, 1160466409,
-                                     17816042745875774252],
-                                    [28, 45957, 1968237334,
-                                     218282267407569823],
-                                    [29, 46706, 4178986938,
-                                     17406628685156141677],
-                                    [30, 45533, 4179496106,
-                                     13560084800555174987],
-                                    [31, 47231, 332245264,
-                                     3087029044858133476]],
-                          'ordering': [],
-                          'write_properties': {'bucketed_by': ['o_custkey'],
-                                               'bucket_count': 32,
-                                               'sorted_by': [['o_orderdate',
-                                                              False]],
-                                               'partitioned_by': [],
-                                               'bucketing': 'hash'}}},
+        "D2": {'stats': ['compiled', 6000601, 288028848, 0]},
+        "D3": {'stats': ['compiled', 1500000, 60000000, 0]},
     },
 }
 
@@ -4613,9 +4143,10 @@ def check_write_repeat(first, second):
 def phase_writes(cat, capture, counters, launches, by_query):
     """The statement corpus at SF1 on the card over the TPC-H tables of
     `cat`, each run in a fresh session: twice in "auto" (the second run
-    held identical to the first), once in "dynamic" under the Capture
-    (each kernel at each new shape against its plain version), and D2
-    and D3 once in "compiled" (the writer's compiled source path).  Every
+    held identical to the first), once in "dynamic", and D2 and D3 once
+    in "compiled" (the writer's compiled source path); every run but the
+    second "auto" one under the Capture (each kernel at each new shape,
+    of either executor, against its plain version).  Every
     run is held to presto_tpu's SF1 values (WRITE_REFERENCE_SF1); a
     rollback must leave the table's digest as it was, and D5's text
     after each write must see the write (a new graph, counts doubled
@@ -4630,10 +4161,10 @@ def phase_writes(cat, capture, counters, launches, by_query):
     for mode, n in WRITE_RUNS.items():
         for i in range(n):
             runs[mode, i] = write_script_run(
-                tables, mode, capture, counters,
-                captured=(mode == "dynamic"))
+                tables, mode, capture, counters, captured=(i == 0))
     runs["compiled", 0] = write_script_run(
-        tables, "compiled", capture, counters, ids=SQ.COMPILED_IDS)
+        tables, "compiled", capture, counters, ids=SQ.COMPILED_IDS,
+        captured=True)
     for (mode, i), run in runs.items():
         for sid, got in run.items():
             res = got["result"]
@@ -4643,7 +4174,8 @@ def phase_writes(cat, capture, counters, launches, by_query):
                   "execution_mode": res.stats.execution_mode,
                   "launches": got["launches"],
                   "kernel_shapes": got["shapes"]})
-        check_write_run(mode, run, WRITE_REFERENCE_SF1[mode])
+        check_write_run(mode, run,
+                        SQ.expand_reference(WRITE_REFERENCE_SF1, mode))
         key = "dynamic" if mode == "dynamic" else "compiled"
         for sid, got in run.items():
             by_query.setdefault(f"writes {mode} {i} {sid}", {})[key] = \

@@ -106,31 +106,6 @@ class MemoryTable(ConnectorTable):
                          else np.asarray(v)) for k, v in data.items()}
         self._rows = len(next(iter(self.data.values()))) if self.data else 0
 
-    # The host arrays.  Appended pages wait in `_pending` and join the
-    # arrays in one concatenation when the arrays are next read: a write
-    # of k pages then copies the table once, not k times.  The result is
-    # the reference's page-by-page concatenation.
-    @property
-    def data(self) -> Dict[str, np.ndarray]:
-        if self._pending:
-            pages, self._pending = self._pending, []
-
-            def cat(parts):
-                # masked concat ONLY for columns that carry a mask —
-                # null-free columns must stay plain ndarrays
-                if any(isinstance(p, np.ma.MaskedArray) for p in parts):
-                    return np.ma.concatenate(parts)
-                return np.concatenate(parts)
-
-            self._data = {c: cat([self._data[c]] + [p[c] for p in pages])
-                          for c in self.schema}
-        return self._data
-
-    @data.setter
-    def data(self, value: Dict[str, np.ndarray]) -> None:
-        self._data = value
-        self._pending: List[Dict[str, np.ndarray]] = []
-
     def _invalidate(self) -> None:
         self.__dict__.pop("_col_stats", None)
         super()._invalidate()
@@ -184,17 +159,33 @@ class MemoryTable(ConnectorTable):
         return []
 
     def append(self, arrays: Dict[str, np.ndarray]) -> int:
-        n = len(next(iter(arrays.values()))) if arrays else 0
-        if n == 0:
-            return 0
+        return self.append_pages([arrays])
+
+    def append_pages(self, pages: List[Dict[str, np.ndarray]]) -> int:
+        """Append pages in one concatenation a column (a write of k pages
+        copies the table once, not k times); the result is the
+        reference's page-by-page append."""
         def keep_mask(v):
             return v if isinstance(v, np.ma.MaskedArray) else np.asarray(v)
 
-        page = {c: keep_mask(arrays[c]) for c in self.schema}
-        if self._rows == 0:
-            self.data = page
+        pages = [{c: keep_mask(p[c]) for c in self.schema} for p in pages
+                 if p and len(next(iter(p.values())))]
+        if not pages:
+            return 0
+        n = sum(len(next(iter(p.values()))) for p in pages)
+        if self._rows:
+            pages.insert(0, self.data)
+        if len(pages) == 1:
+            self.data = pages[0]
         else:
-            self._pending.append(page)
+            def cat(parts):
+                # masked concat ONLY for columns that carry a mask —
+                # null-free columns must stay plain ndarrays
+                if any(isinstance(p, np.ma.MaskedArray) for p in parts):
+                    return np.ma.concatenate(parts)
+                return np.concatenate(parts)
+
+            self.data = {c: cat([p[c] for p in pages]) for c in self.schema}
         self._rows += n
         self._invalidate()
         return n

@@ -17,9 +17,9 @@ the sink contract the connectors implement:
 - `abort()` deletes staged output, leaving the table byte-identical.
 
 Memory tables have no native sink and adapt through AppendPageSink,
-which forwards pages to `table.append`: no staging, but the same
-streaming surface, so the writer has one code path in every execution
-mode.  The file connectors' staged sink (StagedFileSink) is not ported:
+which appends a write's pages to the table at finish: no staging, but
+the same streaming surface, so the writer has one code path in every
+execution mode.  The file connectors' staged sink (StagedFileSink) is not ported:
 open_sink raises for a table that would need it.
 """
 
@@ -101,14 +101,17 @@ class PageSink:
 
 
 class AppendPageSink(PageSink):
-    """Adapter over the legacy `table.append` SPI (memory / blackhole /
-    hive): pages forward immediately, finish is a no-op commit.  Not
-    snapshot-isolated — connectors wanting staged atomic publishes
-    implement page_sink() natively (localfile/parquet/orc)."""
+    """Adapter over the `table.append` SPI of the memory connector.  Its
+    pages join the table in one `append_pages` at finish (a write of k
+    pages copies the table once); abort appends them too, as the
+    reference's sink, which forwards each page at once, leaves a failed
+    write's pages in the table.  Not snapshot-isolated: transactional
+    undo (the pre-image) is the transaction manager's job."""
 
     def __init__(self, table):
         super().__init__()
         self.table = table
+        self._pages: List[Dict[str, np.ndarray]] = []
         self._rows = 0
         self._bytes = 0
 
@@ -119,7 +122,9 @@ class AppendPageSink(PageSink):
     def append_page(self, arrays, bucket=None, partition=None,
                     key_ranges=None) -> int:
         seq = self._next_seq()
-        n = self.table.append(dict(arrays))
+        n = len(next(iter(arrays.values()))) if arrays else 0
+        if n:
+            self._pages.append(dict(arrays))
         self._rows += n
         self._bytes += sum(int(getattr(a, "nbytes", 0))
                            for a in arrays.values())
@@ -127,15 +132,19 @@ class AppendPageSink(PageSink):
                               partition=partition, key_ranges=key_ranges))
         return n
 
+    def _flush(self) -> None:
+        pages, self._pages = self._pages, []
+        if pages:
+            self.table.append_pages(pages)
+
     def finish(self) -> WriteResult:
         if self.finished is None:
+            self._flush()
             self.finished = WriteResult(rows=self._rows, bytes=self._bytes)
         return self.finished
 
     def abort(self) -> None:
-        # pages were applied eagerly; transactional undo (pre-image /
-        # manifest snapshot) is the transaction manager's job
-        pass
+        self._flush()
 
 
 def files_ordered(ranges_seq) -> bool:

@@ -461,9 +461,9 @@ class WriteContext:
         if self._done:
             return self.sink.finished
         t0 = time.perf_counter_ns()
+        res = self.sink.finish()  # a memory table holds the pages after it
         if isinstance(self.sink, AppendPageSink):
             self._record_append_claim()
-        res = self.sink.finish()
         if res.bytes:
             self.bytes = res.bytes
         if self.on_commit is not None:

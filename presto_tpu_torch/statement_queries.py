@@ -313,3 +313,52 @@ def _listify(v):
     if isinstance(v, dict):
         return {k: _listify(x) for k, x in v.items()}
     return v
+
+
+# ---------------------------------------------------------------------------
+# a frozen reference, each fact once
+# ---------------------------------------------------------------------------
+
+
+def compact_reference(full: Dict[str, dict]) -> Dict[str, dict]:
+    """presto_tpu's values of the script, {mode: {id: {"rows", "stats",
+    "counters", "digest"}}}, with each fact kept once: "dynamic" whole,
+    where a digest equal to an earlier statement's is that statement's
+    id; every other mode only the keys where it differs from "dynamic",
+    a statement where none differs left out ({} where the mode runs
+    only some statements, see expand_reference)."""
+    base = full["dynamic"]
+    dyn: Dict[str, dict] = {}
+    seen: Dict[str, str] = {}
+    for sid, got in base.items():
+        dig = got["digest"]
+        if dig is not None:
+            dig = seen.setdefault(repr(_listify(dig)), sid)
+            if dig == sid:
+                dig = got["digest"]
+        dyn[sid] = {**got, "digest": dig}
+    out = {"dynamic": dyn}
+    for mode, stmts in full.items():
+        if mode == "dynamic":
+            continue
+        out[mode] = {}
+        for sid, got in stmts.items():
+            over = {k: v for k, v in got.items()
+                    if _listify(v) != _listify(base[sid][k])}
+            if over or mode == "compiled":
+                out[mode][sid] = over
+    return out
+
+
+def expand_reference(compact: Dict[str, dict], mode: str) -> Dict[str, dict]:
+    """One mode's values from compact_reference's form: "compiled" runs
+    the statements it lists (COMPILED_IDS), every other mode the whole
+    script."""
+    base = compact["dynamic"]
+    over = compact.get(mode, {}) if mode != "dynamic" else {}
+    ids = list(over) if mode == "compiled" else list(base)
+    out = {sid: {**base[sid], **over.get(sid, {})} for sid in ids}
+    for got in out.values():
+        if isinstance(got["digest"], str):
+            got["digest"] = base[got["digest"]]["digest"]
+    return out

@@ -18,8 +18,9 @@ a mode; every case reads those runs.  The port is held to:
 - D2 and D3 again under "compiled" (the writer's compiled source path).
 
 `JAX_PLATFORMS=cpu python -m tests.test_torch_statements SF [CACHE_DIR]`
-prints presto_tpu's values at scale factor SF as one JSON line
-(chip_smoke.py's WRITE_REFERENCE_SF1 came from it at SF 1).
+prints presto_tpu's values at scale factor SF as one JSON line, each
+fact once (statement_queries.compact_reference; chip_smoke.py's
+WRITE_REFERENCE_SF1 came from it at SF 1).
 """
 
 import json
@@ -173,10 +174,22 @@ def test_compiled_write_matches_reference(sid, runs):
 # ---------------------------------------------------------------------------
 
 
+def _reference_values(res) -> dict:
+    """A run's {id: (QueryResult, digest)} as the frozen reference keeps
+    it (JSON-able)."""
+    return {sid: {"rows": [list(r) for r in SQ.comparable(
+                      sid, r.rows, reference=True)],
+                  "stats": [getattr(r.stats, k) for k in WRITE_STATS],
+                  "counters": _counters(r.stats),
+                  "digest": None if dig is None else
+                  {k: v for k, v in dig.items() if k != "data"}}
+            for sid, (r, dig) in res.items()}
+
+
 def reference_at(sf: float, cache_dir=None) -> dict:
     """presto_tpu's rows, write stats, counters and table digests of the
     script at scale factor `sf`, in "auto" and "dynamic", and of D2 and
-    D3 in "compiled" (JSON-able)."""
+    D3 in "compiled", each fact once (SQ.compact_reference)."""
     from presto_tpu.catalog import tpch_catalog as ref_catalog
 
     out = {}
@@ -185,15 +198,23 @@ def reference_at(sf: float, cache_dir=None) -> dict:
         session = presto_tpu.connect(
             cat, execution_mode=mode, query_max_memory_bytes=64 << 30)
         ids = SQ.COMPILED_IDS if mode == "compiled" else None
-        res = SQ.run_script(session, RefSink, ids)
-        out[mode] = {
-            sid: {"rows": [list(r) for r in SQ.comparable(
-                      sid, r.rows, reference=True)],
-                  "stats": [getattr(r.stats, k) for k in WRITE_STATS],
-                  "counters": _counters(r.stats),
-                  "digest": dig}
-            for sid, (r, dig) in res.items()}
-    return out
+        out[mode] = _reference_values(SQ.run_script(session, RefSink, ids))
+    return SQ.compact_reference(out)
+
+
+def test_compact_reference_keeps_every_value(runs):
+    """The frozen form (each fact once) gives each mode's values back
+    exactly."""
+    full = {mode: _reference_values(runs("ref", mode)) for mode in MODES}
+    full["compiled"] = _reference_values(
+        runs("ref", "compiled", SQ.COMPILED_IDS))
+    compact = json.loads(json.dumps(SQ.compact_reference(full)))
+    assert any(isinstance(v["digest"], str)
+               for v in compact["dynamic"].values())
+    for mode, want in full.items():
+        got = SQ.expand_reference(compact, mode)
+        assert list(got) == list(want)
+        assert got == json.loads(json.dumps(want))
 
 
 if __name__ == "__main__":

@@ -154,6 +154,89 @@ def test_pages_ordered_matches_reference():
             assert mine == theirs
 
 
+# ---------------------------------------------------------------------------
+# a memory table's appends
+# ---------------------------------------------------------------------------
+
+
+def _pages(case):
+    """(table's first rows, pages to append): int and float columns, a
+    NULL mask on one page where `case` asks for it, empty pages."""
+    rng = np.random.default_rng(7)
+
+    def page(n, masked=False):
+        x = rng.integers(-9, 9, n)
+        f = rng.standard_normal(n)
+        if masked:
+            f = np.ma.masked_array(f, mask=rng.random(n) < 0.3)
+        return {"x": x, "f": f}
+
+    first = page(0 if case == "empty_table" else 5, case == "masked_first")
+    pages = [page(3), page(0), page(4, case == "masked_later"), page(2)]
+    return first, pages
+
+
+def _same_data(mine, theirs):
+    assert list(mine) == list(theirs)
+    for c in theirs:
+        a, b = mine[c], theirs[c]
+        assert isinstance(a, np.ma.MaskedArray) \
+            == isinstance(b, np.ma.MaskedArray), c
+        assert a.dtype == b.dtype, c
+        assert np.ma.getmaskarray(a).tolist() \
+            == np.ma.getmaskarray(b).tolist(), c
+        assert np.ma.getdata(a).tolist() == np.ma.getdata(b).tolist(), c
+
+
+@pytest.mark.parametrize("case", ["plain", "masked_first", "masked_later",
+                                  "empty_table"])
+def test_append_pages_equals_page_by_page_append(case):
+    """MemoryTable.append_pages (one concatenation a column) leaves the
+    arrays presto_tpu's MemoryTable leaves after one append a page."""
+    schema = {"x": PTy.BIGINT, "f": PTy.DOUBLE}
+    ref_schema = {"x": RTy.BIGINT, "f": RTy.DOUBLE}
+    first, pages = _pages(case)
+    mine = MemoryTable("t", schema, dict(first))
+    theirs = RefMemoryTable("t", ref_schema, dict(first))
+    assert mine.append_pages([dict(p) for p in pages]) \
+        == sum(theirs.append(dict(p)) for p in pages)
+    assert mine.row_count() == theirs.row_count()
+    _same_data(mine.data, theirs.data)
+
+
+@pytest.mark.parametrize("end", ["finish", "abort"])
+def test_append_sink_appends_its_pages_once(end):
+    """AppendPageSink holds a write's pages and appends them in one
+    append_pages at finish, or at abort, leaving what presto_tpu's sink
+    leaves, which appends each page as it comes."""
+    from presto_tpu.connectors import AppendPageSink as RefSink
+
+    from presto_tpu_torch.connectors import AppendPageSink
+
+    first, pages = _pages("masked_later")
+    mine = MemoryTable("t", {"x": PTy.BIGINT, "f": PTy.DOUBLE}, dict(first))
+    theirs = RefMemoryTable("t", {"x": RTy.BIGINT, "f": RTy.DOUBLE},
+                            dict(first))
+    calls = []
+    real = mine.append_pages
+    mine.append_pages = lambda ps: calls.append(len(ps)) or real(ps)
+    sink, ref_sink = AppendPageSink(mine), RefSink(theirs)
+    for p in pages:
+        assert sink.append_page(dict(p)) == ref_sink.append_page(dict(p))
+    assert mine.row_count() == len(first["x"]) and not calls
+    getattr(sink, end)()
+    getattr(ref_sink, end)()
+    assert calls == [3]
+    assert [(m.seq, m.rows) for m in sink.pages] \
+        == [(m.seq, m.rows) for m in ref_sink.pages]
+    _same_data(mine.data, theirs.data)
+    if end == "finish":
+        assert (sink.finished.rows, sink.finished.bytes) \
+            == (ref_sink.finished.rows, ref_sink.finished.bytes)
+    sink.abort()  # after finish: nothing more
+    assert calls == [3]
+
+
 def _pair(**props):
     """(presto_tpu session, port session) over a small memory table with
     a NULL and a string column."""
