@@ -118,6 +118,19 @@ column sums, each page's bucket, rows, sort-key sequence and rows as a
 multiset) against presto_tpu's SF1 values (WRITE_REFERENCE_SF1); one
 `writes` line a statement and run, and a `writes_kernels` line (D1, D4
 and D5 must launch fused_group_sums, D3 or D5 block_gather).
+The decimals phase runs the decimal corpus of presto_tpu_torch/
+decimal_queries.py (N1 to N9: CREATE TABLE AS of the TPC-H money columns
+as DECIMAL(12,2), Q1, Q3, Q6 and Q18 over them, casts, an INSERT and a
+DELETE, and the statements that raise in presto_tpu) over the TPC-H SF1
+tables, in fresh sessions, once in "dynamic", "auto" and "compiled",
+every run under the capture: each statement's rows (decimals exactly),
+column types, error, execution mode, counters and memo entry against
+presto_tpu's SF1 values (DEC_REFERENCE_SF1); one `decimals` line a
+statement and mode (ms, launches, shapes, memo entry, and for the
+queries a warm profile's busy and idle shares), a
+`decimals_segment_sum128` line (the exact Int128 sum's share of N2's
+device time) and a `decimals_kernels` line (N7 and NG must launch
+fused_group_sums, N5 or N6 block_gather).
 segment_sum is held to bit identity in ten calls and to the correctly
 rounded sums on the inputs of Q15 and Q3; the integer
 division fault C1, a SELECT without FROM and a DISTINCT aggregate run on
@@ -2117,6 +2130,780 @@ WRITE_REFERENCE_SF1 = {
 # presto_tpu's counters and memo entry of each query at each scale
 # factor the card holds it there, {sf: {name: ...}}; the TPC-DS queries
 # keyed "ds<Q>"
+# presto_tpu's values of the decimal corpus (presto_tpu_torch/
+# decimal_queries.py) at SF1 on the CPU, each fact once: "dynamic" whole,
+# {id: {"rows" (a Decimal as "d:<text>"), "types", "error" ([type,
+# first line of the message] or None), "mode", "counters", "memo"}},
+# "auto" and "compiled" only what differs (decimal_queries.
+# expand_reference gives each mode whole), from `JAX_PLATFORMS=cpu
+# python -m tests.torch_decimal_common 1 <cache dir>`
+DEC_REFERENCE_SF1 = {'dynamic': {'N1a': {'error': None,
+                     'rows': [[6000601]],
+                     'types': ['BIGINT'],
+                     'mode': 'dynamic',
+                     'counters': [0, 0, 0, 0, 0, 0, 0],
+                     'memo': []},
+             'N1b': {'error': None,
+                     'rows': [[1500000]],
+                     'types': ['BIGINT'],
+                     'mode': 'dynamic',
+                     'counters': [0, 0, 0, 0, 0, 0, 0],
+                     'memo': []},
+             'N2': {'error': None,
+                    'rows': [['A',
+                              'F',
+                              'd:38175716.00',
+                              'd:57244104191.08',
+                              'd:54380485143.6237',
+                              25.499521412850715,
+                              38236.27723393264,
+                              0.05002616365462454,
+                              1497115],
+                             ['N',
+                              'F',
+                              'd:997717.00',
+                              'd:1496531023.67',
+                              'd:1422159975.6779',
+                              25.429907733088648,
+                              38143.7279826169,
+                              0.0497955854615663,
+                              39234],
+                             ['N',
+                              'O',
+                              'd:74647007.00',
+                              'd:111937609235.44',
+                              'd:106339180109.1461',
+                              25.49094906967111,
+                              38225.18826510378,
+                              0.05002359330582434,
+                              2928373],
+                             ['R',
+                              'F',
+                              'd:38158831.00',
+                              'd:57232240751.99',
+                              'd:54372266278.0123',
+                              25.480362959391766,
+                              38216.53413177039,
+                              0.049983927381276584,
+                              1497578]],
+                    'types': ['VARCHAR',
+                              'VARCHAR',
+                              'DECIMAL(38,2)',
+                              'DECIMAL(38,2)',
+                              'DECIMAL(38,4)',
+                              'DOUBLE',
+                              'DOUBLE',
+                              'DOUBLE',
+                              'BIGINT'],
+                    'mode': 'dynamic',
+                    'counters': [2, 1, 0, 0, 0, 0, 0],
+                    'memo': []},
+             'N3': {'error': ['NotImplementedError',
+                              'long-decimal x long-decimal multiply '
+                              '(128x128) is not supported; cast one side '
+                              'down or to DOUBLE'],
+                    'rows': None,
+                    'memo': []},
+             'N4': {'error': None,
+                    'rows': [['d:124264691.8866']],
+                    'types': ['DECIMAL(38,4)'],
+                    'mode': 'dynamic',
+                    'counters': [0, 0, 0, 0, 0, 0, 0],
+                    'memo': []},
+             'N5': {'error': None,
+                    'rows': [[1708744, 'd:406285.3865', 9194, 0, 75099.93],
+                             [3432737, 'd:396873.5829', 9196, 0, 90261.37],
+                             [5645442, 'd:390060.8908', 9201, 0, 513634.21],
+                             [4746277, 'd:389356.6019', 9187, 0, 12253.31],
+                             [5405825, 'd:388245.7642', 9195, 0, 472585.09],
+                             [340488, 'd:382034.2307', 9201, 0, 467699.0],
+                             [3437922, 'd:380195.0782', 9178, 0, 271912.85],
+                             [826277, 'd:376878.2186', 9196, 0, 53695.73],
+                             [3527746, 'd:376737.2668', 9188, 0, 482586.82],
+                             [2759432,
+                              'd:375577.1538',
+                              9188,
+                              0,
+                              173744.75]],
+                    'types': ['BIGINT',
+                              'DECIMAL(38,4)',
+                              'DATE',
+                              'INTEGER',
+                              'DECIMAL(12,2)'],
+                    'mode': 'dynamic',
+                    'counters': [6, 0, 0, 0, 2, 2, 6569069],
+                    'memo': []},
+             'N6': {'error': None,
+                    'rows': [['Customer#000051242',
+                              51242,
+                              5631618,
+                              9144,
+                              549072.04,
+                              'd:305.00'],
+                             ['Customer#000103718',
+                              103718,
+                              587844,
+                              9304,
+                              543416.11,
+                              'd:310.00'],
+                             ['Customer#000090776',
+                              90776,
+                              1443112,
+                              8062,
+                              525181.12,
+                              'd:309.00'],
+                             ['Customer#000044053',
+                              44053,
+                              2214690,
+                              10136,
+                              516285.33,
+                              'd:310.00'],
+                             ['Customer#000090877',
+                              90877,
+                              4845704,
+                              8509,
+                              501237.27,
+                              'd:302.00'],
+                             ['Customer#000114593',
+                              114593,
+                              4543938,
+                              8718,
+                              499704.46,
+                              'd:309.00'],
+                             ['Customer#000022078',
+                              22078,
+                              608903,
+                              9900,
+                              496791.87,
+                              'd:306.00'],
+                             ['Customer#000040091',
+                              40091,
+                              3458788,
+                              9118,
+                              496637.33,
+                              'd:309.00'],
+                             ['Customer#000043895',
+                              43895,
+                              1628997,
+                              9739,
+                              474452.36,
+                              'd:302.00'],
+                             ['Customer#000117746',
+                              117746,
+                              1032229,
+                              10347,
+                              469396.35,
+                              'd:305.00'],
+                             ['Customer#000077156',
+                              77156,
+                              691816,
+                              9420,
+                              448743.17,
+                              'd:303.00'],
+                             ['Customer#000044318',
+                              44318,
+                              5239397,
+                              9478,
+                              448460.21,
+                              'd:311.00'],
+                             ['Customer#000006425',
+                              6425,
+                              3428551,
+                              9328,
+                              440416.7,
+                              'd:302.00'],
+                             ['Customer#000025184',
+                              25184,
+                              4978145,
+                              9080,
+                              433412.61,
+                              'd:311.00'],
+                             ['Customer#000091514',
+                              91514,
+                              378469,
+                              9222,
+                              430690.16,
+                              'd:304.00'],
+                             ['Customer#000118574',
+                              118574,
+                              814885,
+                              9721,
+                              429294.49,
+                              'd:303.00'],
+                             ['Customer#000099872',
+                              99872,
+                              1080580,
+                              9966,
+                              410705.56,
+                              'd:309.00'],
+                             ['Customer#000054523',
+                              54523,
+                              2054053,
+                              9267,
+                              409750.27,
+                              'd:306.00'],
+                             ['Customer#000110849',
+                              110849,
+                              1810632,
+                              9386,
+                              396152.46,
+                              'd:301.00'],
+                             ['Customer#000014897',
+                              14897,
+                              692705,
+                              9784,
+                              385693.01,
+                              'd:301.00'],
+                             ['Customer#000143360',
+                              143360,
+                              2012966,
+                              9275,
+                              372866.45,
+                              'd:302.00'],
+                             ['Customer#000006730',
+                              6730,
+                              1455432,
+                              9526,
+                              368658.34,
+                              'd:308.00'],
+                             ['Customer#000010109',
+                              10109,
+                              5862754,
+                              8835,
+                              342439.16,
+                              'd:304.00'],
+                             ['Customer#000115169',
+                              115169,
+                              4399906,
+                              8677,
+                              337801.05,
+                              'd:301.00'],
+                             ['Customer#000093863',
+                              93863,
+                              4626658,
+                              8828,
+                              328607.27,
+                              'd:301.00'],
+                             ['Customer#000020246',
+                              20246,
+                              402628,
+                              9720,
+                              320473.19,
+                              'd:308.00'],
+                             ['Customer#000076327',
+                              76327,
+                              4734116,
+                              9941,
+                              318386.04,
+                              'd:313.00'],
+                             ['Customer#000036173',
+                              36173,
+                              3236102,
+                              8235,
+                              313647.4,
+                              'd:309.00'],
+                             ['Customer#000125753',
+                              125753,
+                              2464387,
+                              9776,
+                              306293.21,
+                              'd:302.00'],
+                             ['Customer#000050960',
+                              50960,
+                              1357222,
+                              8081,
+                              300183.42,
+                              'd:305.00'],
+                             ['Customer#000136943',
+                              136943,
+                              5560870,
+                              8880,
+                              298344.74,
+                              'd:302.00'],
+                             ['Customer#000066944',
+                              66944,
+                              5174950,
+                              8237,
+                              292593.85,
+                              'd:305.00'],
+                             ['Customer#000069727',
+                              69727,
+                              875814,
+                              9701,
+                              289690.85,
+                              'd:303.00'],
+                             ['Customer#000142148',
+                              142148,
+                              5125474,
+                              8617,
+                              286523.95,
+                              'd:323.00'],
+                             ['Customer#000081184',
+                              81184,
+                              1665698,
+                              10307,
+                              277102.22,
+                              'd:302.00'],
+                             ['Customer#000129566',
+                              129566,
+                              5130598,
+                              10263,
+                              267973.04,
+                              'd:301.00'],
+                             ['Customer#000053366',
+                              53366,
+                              1201256,
+                              9111,
+                              262790.89,
+                              'd:302.00'],
+                             ['Customer#000069704',
+                              69704,
+                              462689,
+                              9400,
+                              261514.74,
+                              'd:306.00'],
+                             ['Customer#000112082',
+                              112082,
+                              926757,
+                              9456,
+                              253631.38,
+                              'd:302.00'],
+                             ['Customer#000080141',
+                              80141,
+                              3955783,
+                              10158,
+                              225068.04,
+                              'd:301.00'],
+                             ['Customer#000028556',
+                              28556,
+                              5992930,
+                              9138,
+                              207941.52,
+                              'd:321.00'],
+                             ['Customer#000137560',
+                              137560,
+                              4734626,
+                              9562,
+                              191394.91,
+                              'd:306.00'],
+                             ['Customer#000089378',
+                              89378,
+                              4562183,
+                              8759,
+                              191233.04,
+                              'd:309.00'],
+                             ['Customer#000034388',
+                              34388,
+                              1175173,
+                              9057,
+                              181961.38,
+                              'd:306.00'],
+                             ['Customer#000063106',
+                              63106,
+                              3963201,
+                              8262,
+                              181576.07,
+                              'd:301.00'],
+                             ['Customer#000069293',
+                              69293,
+                              2788903,
+                              9034,
+                              169350.37,
+                              'd:324.00'],
+                             ['Customer#000070001',
+                              70001,
+                              1835170,
+                              8497,
+                              154290.2,
+                              'd:302.00'],
+                             ['Customer#000128612',
+                              128612,
+                              3176999,
+                              8985,
+                              147732.55,
+                              'd:303.00'],
+                             ['Customer#000093476',
+                              93476,
+                              3532419,
+                              8859,
+                              144413.39,
+                              'd:303.00'],
+                             ['Customer#000071884',
+                              71884,
+                              3733313,
+                              9397,
+                              130545.05,
+                              'd:311.00'],
+                             ['Customer#000030758',
+                              30758,
+                              5346758,
+                              10232,
+                              122404.8,
+                              'd:315.00'],
+                             ['Customer#000102956',
+                              102956,
+                              5198726,
+                              9421,
+                              113172.82,
+                              'd:305.00'],
+                             ['Customer#000138139',
+                              138139,
+                              1931971,
+                              8279,
+                              112962.78,
+                              'd:316.00'],
+                             ['Customer#000078560',
+                              78560,
+                              5331079,
+                              9105,
+                              93830.79,
+                              'd:301.00'],
+                             ['Customer#000042976',
+                              42976,
+                              4560930,
+                              9724,
+                              88343.38,
+                              'd:302.00'],
+                             ['Customer#000028403',
+                              28403,
+                              3264738,
+                              9580,
+                              86446.79,
+                              'd:308.00'],
+                             ['Customer#000124535',
+                              124535,
+                              1834984,
+                              8520,
+                              61047.58,
+                              'd:308.00'],
+                             ['Customer#000047398',
+                              47398,
+                              1962629,
+                              8820,
+                              50172.56,
+                              'd:304.00'],
+                             ['Customer#000007622',
+                              7622,
+                              3557954,
+                              9362,
+                              37621.17,
+                              'd:302.00'],
+                             ['Customer#000027808',
+                              27808,
+                              3734721,
+                              9297,
+                              26797.47,
+                              'd:323.00'],
+                             ['Customer#000018508',
+                              18508,
+                              5791075,
+                              10037,
+                              16544.02,
+                              'd:305.00'],
+                             ['Customer#000101753',
+                              101753,
+                              4588775,
+                              10374,
+                              10228.77,
+                              'd:302.00']],
+                    'types': ['VARCHAR',
+                              'BIGINT',
+                              'BIGINT',
+                              'DATE',
+                              'DECIMAL(12,2)',
+                              'DECIMAL(38,2)'],
+                    'mode': 'dynamic',
+                    'counters': [13, 1, 1, 0, 4, 4, 7500090],
+                    'memo': []},
+             'N7': {'error': None,
+                    'rows': [['A',
+                              'F',
+                              57244104191.08,
+                              'd:57244104191.080000',
+                              'd:903.00',
+                              'd:104949.55',
+                              'd:57243390316.00',
+                              1497115,
+                              680492,
+                              59877.06999999996],
+                             ['N',
+                              'F',
+                              1496531023.67,
+                              'd:1496531023.670000',
+                              'd:909.00',
+                              'd:103548.56',
+                              'd:1496512333.00',
+                              39234,
+                              17730,
+                              1564.61],
+                             ['N',
+                              'O',
+                              113412385756.42,
+                              'd:113412385756.420000',
+                              'd:901.00',
+                              'd:104799.58',
+                              'd:113410972403.00',
+                              2966674,
+                              1348802,
+                              118634.71999999994],
+                             ['R',
+                              'F',
+                              57232240751.99,
+                              'd:57232240751.990000',
+                              'd:905.00',
+                              'd:104899.58',
+                              'd:57231526573.00',
+                              1497578,
+                              680084,
+                              59931.35000000002]],
+                    'types': ['VARCHAR',
+                              'VARCHAR',
+                              'DOUBLE',
+                              'DECIMAL(38,6)',
+                              'DECIMAL(30,2)',
+                              'DECIMAL(31,2)',
+                              'DECIMAL(38,2)',
+                              'BIGINT',
+                              'BIGINT',
+                              'DOUBLE'],
+                    'mode': 'dynamic',
+                    'counters': [2, 1, 0, 0, 0, 0, 0],
+                    'memo': []},
+             'N7b': {'error': None,
+                     'rows': [['ALGERIA', 'd:0.0000', '0.0', '0.00'],
+                              ['ARGENTINA',
+                               'd:1.2500',
+                               '0.3333333333333333',
+                               '1.00'],
+                              ['BRAZIL',
+                               'd:2.5000',
+                               '0.6666666666666666',
+                               '1.00'],
+                              ['CANADA', 'd:3.7500', '1.0', '1.00'],
+                              ['CHINA', 'd:22.5000', '6.0', '2.00'],
+                              ['EGYPT',
+                               'd:5.0000',
+                               '1.3333333333333333',
+                               '4.00'],
+                              ['ETHIOPIA',
+                               'd:6.2500',
+                               '1.6666666666666667',
+                               '0.00'],
+                              ['FRANCE', 'd:7.5000', '2.0', '3.00'],
+                              ['GERMANY',
+                               'd:8.7500',
+                               '2.3333333333333335',
+                               '3.00'],
+                              ['INDIA',
+                               'd:10.0000',
+                               '2.6666666666666665',
+                               '2.00'],
+                              ['INDONESIA', 'd:11.2500', '3.0', '2.00'],
+                              ['IRAN',
+                               'd:12.5000',
+                               '3.3333333333333335',
+                               '4.00'],
+                              ['IRAQ',
+                               'd:13.7500',
+                               '3.6666666666666665',
+                               '4.00'],
+                              ['JAPAN', 'd:15.0000', '4.0', '2.00'],
+                              ['JORDAN',
+                               'd:16.2500',
+                               '4.333333333333333',
+                               '4.00'],
+                              ['KENYA',
+                               'd:17.5000',
+                               '4.666666666666667',
+                               '0.00'],
+                              ['MOROCCO', 'd:18.7500', '5.0', '0.00'],
+                              ['MOZAMBIQUE',
+                               'd:20.0000',
+                               '5.333333333333333',
+                               '0.00'],
+                              ['PERU',
+                               'd:21.2500',
+                               '5.666666666666667',
+                               '1.00'],
+                              ['ROMANIA',
+                               'd:23.7500',
+                               '6.333333333333333',
+                               '3.00'],
+                              ['RUSSIA',
+                               'd:27.5000',
+                               '7.333333333333333',
+                               '3.00'],
+                              ['SAUDI ARABIA',
+                               'd:25.0000',
+                               '6.666666666666667',
+                               '4.00'],
+                              ['UNITED KINGDOM',
+                               'd:28.7500',
+                               '7.666666666666667',
+                               '3.00'],
+                              ['UNITED STATES', 'd:30.0000', '8.0', '1.00'],
+                              ['VIETNAM', 'd:26.2500', '7.0', '2.00']],
+                     'types': ['VARCHAR',
+                               'DECIMAL(30,4)',
+                               'VARCHAR',
+                               'VARCHAR'],
+                     'mode': 'dynamic',
+                     'counters': [1, 0, 0, 0, 0, 0, 0],
+                     'memo': []},
+             'N7c': {'error': ['TypeError',
+                               'int() argument must be a string, a '
+                               'bytes-like object or a real number, not '
+                               "'list'"],
+                     'rows': None,
+                     'memo': []},
+             'NG': {'error': None,
+                    'rows': [['A',
+                              0.02,
+                              0.09,
+                              0.0,
+                              104949.5,
+                              1089920,
+                              483740,
+                              27782293.0],
+                             ['N',
+                              0.02,
+                              0.09,
+                              0.0,
+                              104799.5,
+                              2186724,
+                              971665,
+                              55750880.0],
+                             ['R',
+                              0.02,
+                              0.09,
+                              0.0,
+                              104899.5,
+                              1089795,
+                              484289,
+                              27754524.0]],
+                    'types': ['VARCHAR',
+                              'DECIMAL(12,2)',
+                              'DECIMAL(12,2)',
+                              'DECIMAL(12,2)',
+                              'DECIMAL(12,2)',
+                              'BIGINT',
+                              'BIGINT',
+                              'DOUBLE'],
+                    'mode': 'dynamic',
+                    'counters': [2, 1, 0, 0, 0, 0, 0],
+                    'memo': []},
+             'N8a': {'error': None,
+                     'rows': [[2]],
+                     'types': ['BIGINT'],
+                     'mode': 'dynamic',
+                     'counters': [0, 0, 0, 0, 0, 0, 0],
+                     'memo': []},
+             'N8n': {'error': ['ExecutionError',
+                               'INSERT of NULL values into column '
+                               "'l_quantity' is not supported by this "
+                               'connector'],
+                     'rows': None,
+                     'memo': []},
+             'N8b': {'error': None,
+                     'rows': [[240194]],
+                     'types': ['BIGINT'],
+                     'mode': '',
+                     'counters': [0, 0, 0, 0, 0, 0, 0],
+                     'memo': []},
+             'N8c': {'error': None,
+                     'rows': [[5760409,
+                               'd:152602682.00',
+                               3.0,
+                               9999999999.0,
+                               2703.0,
+                               'd:230389.31',
+                               5760409]],
+                     'types': ['BIGINT',
+                               'DECIMAL(38,2)',
+                               'DECIMAL(12,2)',
+                               'DECIMAL(12,2)',
+                               'DECIMAL(12,2)',
+                               'DECIMAL(38,2)',
+                               'BIGINT'],
+                     'mode': 'dynamic',
+                     'counters': [0, 0, 0, 0, 0, 0, 0],
+                     'memo': []},
+             'N8d': {'error': None,
+                     'rows': [['l_orderkey',
+                               1490986.0,
+                               1.0,
+                               9000002.0,
+                               None],
+                              ['l_returnflag', 4.0, None, None, None],
+                              ['l_linestatus', 3.0, None, None, None],
+                              ['l_shipdate', 2497.0, 8036.0, 10562.0, None],
+                              ['l_quantity', 48.0, 3.0, 50.0, None],
+                              ['l_extendedprice',
+                               893786.0,
+                               2703.0,
+                               9999999999.0,
+                               None],
+                              ['l_discount', 11.0, 0.0, 0.1, None],
+                              ['l_tax', 9.0, 0.0, 0.08, None],
+                              [None, None, None, None, 5760409.0]],
+                     'types': ['VARCHAR',
+                               'DOUBLE',
+                               'DOUBLE',
+                               'DOUBLE',
+                               'DOUBLE'],
+                     'mode': '',
+                     'counters': [0, 0, 0, 0, 0, 0, 0],
+                     'memo': []},
+             'N9': {'error': ['ValueError',
+                              'DECIMAL overflow: CAST DECIMAL(38,2) -> '
+                              'DECIMAL(18,10) value does not fit a short '
+                              'decimal'],
+                    'rows': None,
+                    'memo': []}},
+ 'auto': {'N1a': {},
+          'N1b': {},
+          'N2': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+          'N3': {'memo': ['DYNAMIC']},
+          'N4': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+          'N5': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+          'N6': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+          'N7': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+          'N7b': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+          'N7c': {},
+          'NG': {'mode': 'compiled',
+                 'counters': [0, 1, 0, 0, 0, 0, 0],
+                 'memo': ['executable']},
+          'N8a': {},
+          'N8n': {},
+          'N8b': {},
+          'N8c': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+          'N8d': {},
+          'N9': {'memo': ['DYNAMIC']}},
+ 'compiled': {'N1a': {'mode': 'compiled'},
+              'N1b': {'mode': 'compiled'},
+              'N2': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+              'N3': {'memo': ['DYNAMIC']},
+              'N4': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+              'N5': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+              'N6': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+              'N7': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+              'N7b': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+              'N7c': {'error': ['StaticFallback',
+                                'The numpy.ndarray conversion method '
+                                '__array__() was called on traced array '
+                                'with shape int64[25,2]']},
+              'NG': {'mode': 'compiled',
+                     'counters': [0, 1, 0, 0, 0, 0, 0],
+                     'memo': ['executable']},
+              'N8a': {'mode': 'compiled'},
+              'N8n': {'error': ['WriteError',
+                                'INSERT of NULL values into column '
+                                "'l_quantity' is not supported by this "
+                                'connector']},
+              'N8b': {},
+              'N8c': {'mode': 'compiled', 'memo': ['DYNAMIC']},
+              'N8d': {},
+              'N9': {'memo': ['DYNAMIC']}}}
 REFERENCE_COUNTERS = {SF: REFERENCE_COUNTERS_SF1, DS_CPU_CHECK_SF: {}}
 REFERENCE_MEMO = {SF: REFERENCE_MEMO_SF1, DS_CPU_CHECK_SF: {}}
 for _sf, _refs in ((SF, DS_REFERENCE_SF1),
@@ -3504,6 +4291,10 @@ def phase_slice(capture):
     guarded("writes", None, phase_writes, cats[SF], capture, counters,
             launches, by_query)
     emit({"phase": "writes_total", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    guarded("decimals", None, phase_decimals, cats[SF], capture, counters,
+            launches, by_query)
+    emit({"phase": "decimals_total", "seconds": time.perf_counter() - t0})
     torch.cuda.synchronize()
     emit({"phase": "slice", "launches": launches,
           "launches_by_query": by_query})
@@ -4211,6 +5002,182 @@ def phase_writes(cat, capture, counters, launches, by_query):
         raise AssertionError("neither D3 nor D5 launched block_gather")
 
 
+# ---------------------------------------------------------------------------
+# the decimals phase: the decimal corpus at SF1
+# ---------------------------------------------------------------------------
+
+DEC_MODES = ("dynamic", "auto", "compiled")
+#: the queries profiled warm after each mode's script (busy and idle)
+DEC_PROFILED = ("N2", "N4", "N5", "N6", "N7", "NG", "N8c")
+
+
+class _CapturedSession:
+    """A session whose statements run under the Capture, for
+    decimal_queries.record."""
+
+    def __init__(self, session, capture, sid, mode):
+        self.session, self.capture = session, capture
+        self.sid, self.mode = sid, mode
+
+    @property
+    def _compiled_cache(self):
+        return getattr(self.session, "_compiled_cache", None)
+
+    def sql(self, text):
+        return self.capture.run(self.session, self.sid, text, self.mode)
+
+
+def dec_script_run(tables, mode, capture, counters):
+    """One run of the decimal script (presto_tpu_torch/decimal_queries.py)
+    in a fresh session on the card, every statement under the Capture:
+    each kernel's launch count set to 0 just before and read just after,
+    its wall time, its record (rows or error, types, execution mode,
+    counters, memo entry) and the kernel shapes it met, each new shape
+    then held against its plain version; then a warm profiled run of
+    each query of DEC_PROFILED (device busy and idle)."""
+    import torch
+
+    import presto_tpu_torch
+    from presto_tpu_torch import decimal_queries as DQ
+    from presto_tpu_torch.exec.executor import SORT_STATS_KEYS
+
+    session = presto_tpu_torch.connect(_fresh_catalog(tables),
+                                       device="cuda", execution_mode=mode)
+    out = {}
+    for sid, sql in DQ.SCRIPT:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rec = DQ.record(_CapturedSession(session, capture, sid, mode), sid,
+                        sql, SORT_STATS_KEYS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = {k: fn.launches for k, fn in counters.items()}
+        shapes = sorted(set(map(tuple, capture.shapes)))
+        capture.check()
+        out[sid] = {"record": rec, "ms": ms, "launches": launches,
+                    "shapes": shapes}
+    for sid in DEC_PROFILED:
+        out[sid]["profile"] = profile_run(session, DQ.statement(sid), top=4,
+                                          host_top=4)
+    if mode == "dynamic":
+        out["N2"]["python_top"] = python_profile(session, DQ.statement("N2"))
+    out["_session"] = session
+    return out
+
+
+def python_profile(session, sql, top=8):
+    """The functions of most self time (cProfile; built-ins and torch
+    calls included) in one warm run, for a run whose wall the device's
+    busy time leaves mostly unexplained."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    prof.enable()
+    session.sql(sql)
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = [(f"{os.path.basename(f)}:{line}({fn})", tt * 1e3)
+            for (f, line, fn), (_cc, _nc, tt, _ct, _callers) in stats.items()]
+    rows.sort(key=lambda r: -r[1])
+    return rows[:top]
+
+
+def dec_segment_sum128_share(session, sql, busy_ms):
+    """segment_sum128's time in one warm run of `sql` (its calls
+    recorded, then each timed alone by CUDA events) and its share of the
+    run's device busy time."""
+    from presto_tpu_torch.exec import dec128 as D128
+
+    real, calls = D128.segment_sum128, []
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    D128.segment_sum128 = rec
+    try:
+        session.sql(sql)
+    finally:
+        D128.segment_sum128 = real
+    ms = sum(cuda_ms(lambda a=a, k=k: real(*a, **k), iters=10)
+             for a, k in calls)
+    return {"calls": len(calls), "ms": ms,
+            "share_of_busy": ms / busy_ms if isinstance(busy_ms, float)
+            else "not measured"}
+
+
+def phase_decimals(cat, capture, counters, launches, by_query):
+    """The decimal corpus at SF1 on the card over the TPC-H tables of
+    `cat`: the script once in "dynamic", "auto" and "compiled", each in
+    a fresh session under the Capture.  Every statement's record is held
+    to presto_tpu's SF1 values (DEC_REFERENCE_SF1): rows with decimals
+    exactly and floats within QUERY_RTOL, column types, the error of a
+    statement that raises (type and message), execution mode, counters
+    and memo entry.  One `decimals` line a statement and mode, one
+    `decimals_segment_sum128` line (its share of N2's device time) and a
+    `decimals_kernels` line: N7 and NG must launch fused_group_sums, N5
+    or N6 block_gather.  Launch counts of the "auto" and "compiled" runs
+    add into the compiled mode's, the "dynamic" run's into the dynamic
+    executor's."""
+    from presto_tpu_torch import decimal_queries as DQ
+
+    tables = list(cat.tables.values())
+    runs = {}
+    for mode in DEC_MODES:
+        runs[mode] = dec_script_run(tables, mode, capture, counters)
+        session = runs[mode].pop("_session")
+        if mode == "dynamic":
+            busy = runs[mode]["N2"]["profile"].get("device_busy_ms")
+            emit({"phase": "decimals_segment_sum128", "query": "N2",
+                  "card": card_line(), "device_busy_ms": busy,
+                  **dec_segment_sum128_share(session, DQ.statement("N2"),
+                                             busy)})
+        del session
+    bad = []
+    for mode, run in runs.items():
+        want = DQ.expand_reference(DEC_REFERENCE_SF1, mode)
+        for sid, got in run.items():
+            rec = got["record"]
+            emit({"phase": "decimals", "mode": mode, "id": sid,
+                  "card": card_line(), "ms": got["ms"],
+                  "execution_mode": rec.get("mode"), "memo": rec["memo"],
+                  "error": rec["error"], "rows": None if rec["rows"] is None
+                  else len(rec["rows"]), "launches": got["launches"],
+                  "kernel_shapes": got["shapes"],
+                  "profile": got.get("profile"),
+                  "python_top": got.get("python_top")})
+            miss = DQ.mismatch(sid, rec, want[sid], QUERY_RTOL)
+            if miss:
+                bad.append(f"{mode} {miss}")
+            key = "dynamic" if mode == "dynamic" else "compiled"
+            by_query.setdefault(f"decimals {mode} {sid}", {})[key] = \
+                got["launches"]
+            for kernel in counters:
+                launches[key][kernel] += got["launches"][kernel]
+    fgs_in = sorted({sid for run in runs.values() for sid, g in run.items()
+                     if g["launches"]["fused_group_sums"]})
+    bg_in = sorted({sid for run in runs.values() for sid, g in run.items()
+                    if g["launches"]["block_gather"]})
+    emit({"phase": "decimals_kernels", "fused_group_sums_in": fgs_in,
+          "block_gather_in": bg_in,
+          "seconds": {m: sum(g["ms"] for g in r.values()) / 1e3
+                      for m, r in runs.items()}})
+    if bad:
+        raise AssertionError("; ".join(bad[:5]))
+    missing = [s for s in DQ.FUSED_IDS if s not in fgs_in]
+    if missing:
+        raise AssertionError(f"{missing} launched no fused_group_sums")
+    if not set(bg_in) & set(DQ.GATHER_IDS):
+        raise AssertionError(f"none of {DQ.GATHER_IDS} launched "
+                             "block_gather")
+
+
 def exact_group_sums(vals, gid, G):
     """[k, G] f64 numpy: each group's sum of each value row, correctly
     rounded (math.fsum on the host)."""
@@ -4227,10 +5194,11 @@ def exact_group_sums(vals, gid, G):
     return out
 
 
-def profile_run(session, sql, top=8):
+def profile_run(session, sql, top=8, host_top=0):
     """Where one warm run's time goes: wall time, summed device kernel
     time (so the device's busy and idle shares of the wall) and the
-    kernels that took most of it, from torch.profiler."""
+    kernels that took most of it, from torch.profiler; with host_top,
+    also the host operations of most self time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4258,6 +5226,12 @@ def profile_run(session, sql, top=8):
                             for e in kernels[:top]]})
     else:
         row["device_busy_ms"] = "not measured"
+    if host_top:
+        ops = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CUDA]
+        ops.sort(key=lambda e: -e.self_cpu_time_total)
+        row["host_top"] = [[e.key[:60], e.count, e.self_cpu_time_total / 1e3]
+                           for e in ops[:host_top]]
     return row
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import decimal
 import hashlib
 import itertools
 import threading
@@ -175,9 +176,29 @@ def column_from_numpy(data: np.ndarray, typ: Type, device: torch.device,
     dictionary = None
     if typ.is_string and data.dtype.kind in ("U", "S", "O"):
         data, dictionary = encode_strings(data)
-    if typ.is_decimal:
-        raise NotImplementedError(
-            "DECIMAL columns are not ported to presto_tpu_torch")
+    if typ.is_decimal and typ.is_long_decimal:
+        from presto_tpu_torch.exec import dec128 as D128
+
+        if not (data.ndim == 2 and data.dtype.kind == "i"):  # else limbs
+            s = typ.decimal_scale
+            with decimal.localcontext() as ctx:
+                ctx.prec = 80  # the default 28 cannot hold 38 digits
+                ints = [int(decimal.Decimal(str(v)).scaleb(s).quantize(
+                    decimal.Decimal(1), rounding=decimal.ROUND_HALF_UP))
+                    for v in data]
+            data = D128.from_host_ints(ints)
+        v = None if valid is None else upload(np.asarray(valid, dtype=bool),
+                                              device)
+        return Column(upload(np.ascontiguousarray(data, dtype=np.int64),
+                             device), v, typ, None)
+    if typ.is_decimal and data.dtype.kind == "f":
+        # host floats (a decoded decimal column written again by CTAS or
+        # INSERT) carry the scaled value: rescale, never truncate
+        scaled = data * (10 ** typ.decimal_scale)
+        from presto_tpu_torch.types import check_decimal_overflow
+
+        check_decimal_overflow(scaled, valid, "ingested value")
+        data = np.round(scaled)
     data = np.ascontiguousarray(data, dtype=typ.numpy_dtype())
     v = None if valid is None else upload(np.asarray(valid, dtype=bool),
                                           device)
@@ -229,11 +250,27 @@ def _pull_all(batch: Batch) -> dict:
 
 
 def decode_host_column(data, valid, typ, dictionary) -> np.ndarray:
-    """Decode one pulled column on host: dictionary lookup, NULL masking."""
+    """Decode one pulled column on host: dictionary lookup, decimal
+    rescale, NULL masking.  Long decimals come back as exact
+    decimal.Decimal values, short ones as float64 divided by 10^scale,
+    as the reference returns them."""
     data = np.asarray(data)
     if dictionary is not None:
         codes = np.clip(data, 0, len(dictionary) - 1)
         data = dictionary.values[codes]
+    elif typ.is_decimal and typ.is_long_decimal and data.ndim == 2:
+        from presto_tpu_torch.exec import dec128 as D128
+
+        ints = D128.to_host_ints(data)  # signed (the hi limb is signed)
+        s = typ.decimal_scale
+        out = np.empty(len(ints), dtype=object)
+        with decimal.localcontext() as ctx:
+            ctx.prec = 80  # scaleb rounds to the context's precision
+            for i, v in enumerate(ints):
+                out[i] = decimal.Decimal(v).scaleb(-s)
+        data = out
+    elif typ.is_decimal:
+        data = data.astype(np.float64) / (10 ** typ.decimal_scale)
     if valid is not None:
         data = np.ma.masked_array(data, mask=~np.asarray(valid))
     return data

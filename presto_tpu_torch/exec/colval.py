@@ -34,16 +34,20 @@ class StaticFallback(Exception):
 
 _STATIC_PASS = contextvars.ContextVar("presto_tpu_torch_static_pass",
                                       default=False)
+_GUARDS = contextvars.ContextVar("presto_tpu_torch_guards", default=None)
 
 
 @contextlib.contextmanager
-def static_pass():
+def static_pass(guards: Optional[list] = None):
     """Mark the block as the static executor's pass (what compiled mode
-    captures on a card)."""
+    captures on a card); `guards` is the executor's guard list, which
+    the expression-level checks (check_rows) append to."""
     token = _STATIC_PASS.set(True)
+    gtoken = _GUARDS.set(guards)
     try:
         yield
     finally:
+        _GUARDS.reset(gtoken)
         _STATIC_PASS.reset(token)
 
 
@@ -59,6 +63,26 @@ def refuse_host_read(what: str) -> None:
     pass does not trace, and such a read would synchronize a capture."""
     if _STATIC_PASS.get():
         raise StaticFallback(f"{what} reads device values on the host")
+
+
+def check_rows(bad, msg: str) -> None:
+    """An expression-level check (a DECIMAL overflow, say) over a bool
+    tensor of failing rows, or a python bool.  In the static pass the
+    tensor's any() joins the executor's guards, read with the result, so
+    a failing compiled query reruns in the dynamic executor; elsewhere it
+    is read back once and raises ValueError(msg), as the reference's
+    host checks do."""
+    import torch
+
+    if isinstance(bad, torch.Tensor):
+        if _STATIC_PASS.get():
+            guards = _GUARDS.get()
+            if guards is not None:
+                guards.append(bad.any())
+            return
+        bad = bool(bad.any())
+    if bad:
+        raise ValueError(msg)
 
 
 @dataclasses.dataclass

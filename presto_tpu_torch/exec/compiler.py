@@ -13,6 +13,7 @@ import torch
 
 from presto_tpu_torch.batch import Batch, Column, Dictionary
 from presto_tpu_torch.exec.colval import ColVal, LambdaVal
+from presto_tpu_torch.functions import decimals
 from presto_tpu_torch.functions import scalar as scalar_fns
 from presto_tpu_torch.plan import ir
 
@@ -34,6 +35,11 @@ def eval_expr(expr: ir.RowExpr, batch: Batch, ctx: EvalContext) -> ColVal:
         return ColVal(expr.value, None, expr.type)
     if isinstance(expr, ir.ScalarSub):
         v, valid = ctx.scalar_results[expr.plan_id]
+        if expr.type.is_decimal and valid:
+            # _single_value decodes a decimal to its SCALED host value (a
+            # Decimal when long, a float when short); decimal ColVals
+            # carry the unscaled integer
+            v = decimals.host_unscaled(v, expr.type.decimal_scale)
         return ColVal(v, None if valid else False, expr.type)
     if isinstance(expr, ir.CastExpr):
         return scalar_fns.emit_cast(eval_expr(expr.arg, batch, ctx),
@@ -65,6 +71,10 @@ def to_column(v: ColVal, capacity: int, device: torch.device) -> Column:
     """Materialize a ColVal as a full-capacity Column on `device`."""
     data = v.data
     if not isinstance(data, torch.Tensor) or data.ndim == 0:
+        if decimals.is_long(v.type):
+            limbs = decimals.lift128(v, device)
+            return Column(limbs.expand(capacity, 2).contiguous(),
+                          _expand_valid(v.valid, capacity, device), v.type)
         if isinstance(data, (str, bytes)):
             # string literal column: single-entry dictionary
             import numpy as np

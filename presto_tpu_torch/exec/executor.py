@@ -51,6 +51,16 @@ histogram, numeric_histogram, map_union, set_agg, set_union), built on
 the host from the rows (exec/collections.py) in the dynamic executor
 alone: the static one raises StaticFallback, as the reference's does.
 
+DECIMAL values (functions/decimals.py, exec/dec128.py): a short decimal
+is a scaled int64, a long one (precision over 18) (n, 2) Int128 limbs.
+sum of a decimal is DECIMAL(38, s), summed exactly in four 32-bit lanes
+(dec128.segment_sum128); min and max of limbs in two passes
+(segment_minmax128); avg is a DOUBLE and the stddev/variance family
+reads the unscaled values, as the reference's do.  A plan with a long
+decimal anywhere runs in the dynamic executor and memoizes "DYNAMIC"
+(`_plan_has_long_decimal`); one over short decimals alone runs as a
+graph, its overflow checks guards (colval.check_rows).
+
 ARRAY, MAP and ROW values are int32 codes into host dictionaries of
 tuples (functions/scalar.py); VALUES folds their constructors, UNION
 ALL merges their dictionaries, and UNNEST (`_exec_unnest`,
@@ -74,7 +84,7 @@ EXECUTE, DEALLOCATE and DESCRIBE INPUT/OUTPUT (the serving tier),
 materialized views, EXPLAIN (TYPE DISTRIBUTED), EXPLAIN ANALYZE under
 execution_mode "compiled", writes to file connectors and streamed
 writes (exec/writer.py), float32_compute, the plan node SpatialJoin,
-DECIMAL aggregates, and the aggregates that return sketch states or
+and the aggregates that return sketch states or
 other host-built values (map_union_sum, approx_most_frequent,
 reduce_agg, approx_set, merge, qdigest_agg, tdigest_agg, min_by /
 max_by with three arguments, the array and weighted
@@ -89,6 +99,7 @@ degradation and adaptive partial aggregation.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 import time
@@ -104,12 +115,14 @@ from presto_tpu_torch.batch import (Batch, Column, Dictionary,
                                     decode_host_column, to_numpy, upload)
 from presto_tpu_torch.exec import collections as CL
 from presto_tpu_torch.exec import compile_cache as CC
+from presto_tpu_torch.exec import dec128 as D128
 from presto_tpu_torch.exec import kernels as K
 from presto_tpu_torch.exec.colval import (StaticFallback, static_pass,
                                           translate_codes)
 from presto_tpu_torch.exec.compiler import (EvalContext, eval_expr,
                                             eval_predicate, to_column)
 from presto_tpu_torch.exec.window import execute_window
+from presto_tpu_torch.functions import decimals as DEC
 from presto_tpu_torch.functions.scalar import (_colval_from_pylist,
                                                torch_dtype)
 from presto_tpu_torch.plan import ir
@@ -559,6 +572,12 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
             plan_statement(session, stmt))
     if entry is None:
         plan = plan_statement(session, stmt)
+        if _plan_has_long_decimal(plan.root):
+            # long-decimal limbs do not pack through the compiled fetch:
+            # the dynamic executor carries them exactly, as the
+            # reference's does
+            cache.put(key, "DYNAMIC")
+            return Executor(session, monitor=mon).run(plan)
         # the build's counters (the scalar subqueries' dynamic runs and
         # the static program's decisions) go into every run's stats,
         # memo hits included, as the reference's do
@@ -584,7 +603,7 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
                                        in zip(scan_nodes, batches)},
                           sort_stats=counts)
             ex.ctx.scalar_results = scalar_results
-            with static_pass():
+            with static_pass(ex.guards):
                 out = ex.exec_node(plan.root)
             if bound is not None and out.capacity > 4 * bound:
                 out = _compact_batch(out, bound)
@@ -630,6 +649,23 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
         t.nbytes for t in (exe.keep.tensors.values() if exe.keep else ()))
     cache.put(key, entry, held, exe)
     return result
+
+
+def _plan_has_long_decimal(node) -> bool:
+    """Whether any node of the plan outputs a long decimal (reference:
+    _plan_has_long_decimal)."""
+    for _s, t in node.outputs():
+        if DEC.is_long(t):
+            return True
+    for f in dataclasses.fields(node):
+        v = getattr(node, f.name)
+        if isinstance(v, P.PlanNode) and _plan_has_long_decimal(v):
+            return True
+        if isinstance(v, list) and any(
+                isinstance(x, P.PlanNode) and _plan_has_long_decimal(x)
+                for x in v):
+            return True
+    return False
 
 
 def plan_statement(session, stmt) -> P.QueryPlan:
@@ -1355,8 +1391,6 @@ class Executor:
                 f"aggregate {a.fn} is not ported to presto_tpu_torch")
         col = to_column(eval_expr(a.args[0], b, self.ctx), b.capacity,
                         self.device)
-        if col.type.is_decimal:
-            raise NotImplementedError("DECIMAL aggregates are not ported")
         valid = mask if col.valid is None else (mask & col.valid)
         cnt = K.segment_sum(valid.to(torch.int32), gid, n_groups,
                             order).to(torch.int64)
@@ -1436,6 +1470,14 @@ class Executor:
             return Column(torch.exp(s / cnt.clamp_min(1)), nonempty,
                           T.DOUBLE)
         if a.fn == "sum":
+            if DEC.is_long(a.type):
+                # sum(DECIMAL(p, s)) is DECIMAL(38, s): exact Int128
+                # accumulation (dec128.segment_sum128)
+                limbs = col.data if col.data.ndim == 2 \
+                    else D128.from_int64(col.data)
+                return Column(D128.segment_sum128(limbs, valid, gid,
+                                                  n_groups, order),
+                              nonempty, a.type)
             x = torch.where(valid, col.data, torch.zeros_like(col.data))
             s = seg_sum(x)
             if a.type.is_integer:
@@ -1451,13 +1493,15 @@ class Executor:
                 d = cnt.clamp_min(1)
                 return Column(torch.sign(s) * (s.abs() // d), nonempty,
                               a.type)
-            x = torch.where(valid, col.data.to(torch.float64), 0.0)
+            # a decimal's average is a DOUBLE, as the reference's is
+            x = torch.where(valid, _f64_values(col), 0.0)
             return Column(seg_sum(x) / cnt.clamp_min(1), nonempty, T.DOUBLE)
         if a.fn in _VARIANCE_AGGS:
             # the reference's moments: var_pop = E[x^2] - E[x]^2 from two
             # grouped sums in segment_sum's fixed order, the sample
             # variants scaled by n / (n - 1) and NULL below two rows
-            x = torch.where(valid, col.data.to(torch.float64), 0.0)
+            # over a decimal's unscaled values, as the reference's are
+            x = torch.where(valid, _f64_values(col, scaled=False), 0.0)
             s1 = seg_sum(x)
             s2 = seg_sum(x * x)
             nf = cnt.clamp_min(1).to(torch.float64)
@@ -1490,6 +1534,10 @@ class Executor:
             return Column(r, nonempty, T.DOUBLE)
         if a.fn in ("bitwise_and_agg", "bitwise_or_agg"):
             return _bitwise_agg(a.fn, col, valid, gid, n_groups, nonempty)
+        if col.data.ndim == 2:  # long-decimal limbs
+            return Column(D128.segment_minmax128(col.data, valid, gid,
+                                                 n_groups, a.fn == "min"),
+                          nonempty, a.type)
         ext = K._reduce_identity(col.data.dtype, a.fn == "min")
         x = torch.where(valid, col.data,
                         torch.full_like(col.data, ext))
@@ -1556,8 +1604,8 @@ class Executor:
         xv = to_column(eval_expr(a.args[1], b, self.ctx), b.capacity,
                        self.device)
         both = valid if xv.valid is None else (valid & xv.valid)
-        y = torch.where(both, col.data.to(torch.float64), 0.0)
-        x = torch.where(both, xv.data.to(torch.float64), 0.0)
+        y = torch.where(both, _f64_values(col), 0.0)
+        x = torch.where(both, _f64_values(xv), 0.0)
         n = seg_sum(both.to(torch.int32)).to(torch.float64)
         sx, sy = seg_sum(x), seg_sum(y)
         sxy, sxx, syy = seg_sum(x * y), seg_sum(x * x), seg_sum(y * y)
@@ -2248,6 +2296,17 @@ class Executor:
             except W.WriteError as e:
                 raise ExecutionError(str(e)) from e
         return b
+
+
+def _f64_values(col: Column, scaled: bool = True) -> torch.Tensor:
+    """A numeric column's values as float64: a decimal's divided by
+    10^scale unless `scaled` is False (long limbs through
+    dec128.to_float64)."""
+    x = D128.to_float64(col.data) if col.data.ndim == 2 \
+        else col.data.to(torch.float64)
+    if scaled and col.type.is_decimal:
+        x = DEC.true_div(x, 10 ** col.type.decimal_scale)
+    return x
 
 
 def _python_values(a: np.ndarray) -> list:

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Column, Dictionary, upload
+from presto_tpu_torch.exec import dec128 as D128
 from presto_tpu_torch.exec import gather as G
 from presto_tpu_torch.exec.colval import translate_codes
 
@@ -53,6 +54,16 @@ def key_sentinel(key: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 
+def refuse_limbs(d: torch.Tensor) -> None:
+    """Long-decimal limbs are no grouping or join key and no window
+    frame operand: the reference raises this there, broadcasting the
+    rows' flags against the (n, 2) limbs, and so does the port."""
+    if d.ndim == 2:
+        n = d.shape[0]
+        raise ValueError("Incompatible shapes for broadcasting: "
+                         f"shapes=[({n},), ({n}, 2), ()]")
+
+
 def pack_keys(cols: List[Column], sel: torch.Tensor,
               extra_cols: Optional[List[Column]] = None):
     """Pack key columns into a single integer key per row — int32 when
@@ -63,6 +74,7 @@ def pack_keys(cols: List[Column], sel: torch.Tensor,
     62 bits and the key is a 64-bit hash instead."""
     def _minmax(col):
         d = _orderable_int(col)
+        refuse_limbs(d)
         if d.shape[0] == 0:
             return I64_MAX, I64_MIN
         v = _valid_arr(col)
@@ -221,8 +233,8 @@ def _orderable_int(c: Column) -> torch.Tensor:
 
 
 def _valid_arr(c: Column) -> torch.Tensor:
-    if c.valid is None:
-        return torch.ones(c.data.shape, dtype=torch.bool,
+    if c.valid is None:  # one flag a row, for long-decimal limbs too
+        return torch.ones(c.data.shape[:1], dtype=torch.bool,
                           device=c.data.device)
     return c.valid
 
@@ -831,7 +843,7 @@ def concat_batches(batches: List[Batch]) -> Batch:
         if any(p.valid is not None for p in parts):
             valid = torch.cat([
                 p.valid if p.valid is not None
-                else torch.ones(p.data.shape, dtype=torch.bool,
+                else torch.ones(p.data.shape[:1], dtype=torch.bool,
                                 device=p.data.device)
                 for p in parts])
         else:
@@ -963,6 +975,14 @@ def sort_perm(batch: Batch,
             # a null-flag operand per key instead of in-band sentinels
             operands.append(torch.where(valid, int(nf), int(not nf))
                             .to(torch.int32))
+        if col.data.ndim == 2:
+            # long decimal (Int128 limbs): the signed hi limb, then the
+            # biased lo limb; DESC by bitwise NOT, an exact
+            # order-reversing bijection on int64 (negation would tie
+            # I64_MIN and I64_MIN + 1)
+            for d in D128.sort_operands(col.data):
+                operands.append(torch.where(valid, ~d if not asc else d, 0))
+            continue
         d = _sort_operand_native(col)
         if not asc:
             d = ~d  # order-reversing bijection; negation wraps the min

@@ -80,6 +80,9 @@ def _adjacent_change(cols: List[Column], n: int,
     rest = torch.zeros(max(n - 1, 0), dtype=torch.bool, device=device)
     for c in cols:
         d = c.data
+        if d.ndim == 2:  # long-decimal limbs: the reference raises this
+            raise ValueError("Incompatible shapes for broadcasting: "
+                             f"shapes=[({n - 1},), ({n - 1}, 2)]")
         diff = d[1:] != d[:-1]
         v = c.valid
         if v is not None:
@@ -392,6 +395,7 @@ def _frame_aggregate(ctx, b, call):
     cnt = torch.where(nonempty, cnt, 0)
     if fn == "count":
         return _int_col(cnt, call.type)
+    K.refuse_limbs(d)
 
     if fn in ("sum", "avg", "stddev", "stddev_samp", "stddev_pop",
               "variance", "var_samp", "var_pop"):

@@ -6,10 +6,14 @@ scalar_ext.py; array_sort and array_join of scalar_ext2.py; day_of_week,
 day_of_year and week_of_year of scalar_ext.py and from_unixtime and
 to_unixtime of datetime_tz.py agree with scalar.py's for the types
 ported).  Ported, 141 names:
-- arithmetic (add, sub, mul, div, mod, neg) over the non-decimal numeric
-  types, DATE +- INTERVAL, the six comparisons (numeric and temporal;
-  strings against a literal, within one dictionary or across two, whose
-  dictionaries then merge), three-valued AND / OR / NOT, numeric CASTs,
+- arithmetic (add, sub, mul, div, mod, neg) over the numeric types
+  (DECIMAL's add, sub, mul, div and neg through functions/decimals.py:
+  short decimals as scaled int64, long ones as Int128 limbs), DATE +-
+  INTERVAL, the six comparisons (numeric, decimal across scales and
+  temporal; strings against a literal, within one dictionary or across
+  two, whose dictionaries then merge), three-valued AND / OR / NOT,
+  CASTs between the numeric types, DECIMAL included, from numbers,
+  booleans, decimals and dates to VARCHAR and from VARCHAR to numbers,
   IS NULL, COALESCE, NULLIF, IF, CASE, LIKE;
 - strings: SUBSTRING / SUBSTR, UPPER, LOWER, TRIM, LTRIM, RTRIM,
   REVERSE, REPLACE, LENGTH, STRPOS, POSITION, STARTS_WITH, ENDS_WITH,
@@ -41,7 +45,7 @@ ported).  Ported, 141 names:
 Not ported: the T-digest and HLL sketch names (CARDINALITY of a
 sketch raises), the $hll_reg and $hll_rho of distributed
 approx_distinct, its trigonometric family (sin .. exp2, which
-scalar_ext.py registers again), DECIMAL arithmetic, and the modules
+scalar_ext.py registers again), `mod` of decimals, and the modules
 scalar_ext.py, the rest of scalar_ext2.py, datetime_tz.py,
 geospatial.py and ml.py.  The planner resolves only registered names,
 so any other function raises NotImplementedError with its name
@@ -87,6 +91,7 @@ import torch
 from presto_tpu_torch import session_ctx
 from presto_tpu_torch import types as T
 from presto_tpu_torch.batch import Dictionary, upload
+from presto_tpu_torch.functions import decimals as DEC
 from presto_tpu_torch.exec.colval import (ColVal, LambdaVal, all_valid,
                                           in_static_pass, refuse_host_read,
                                           translate_codes)
@@ -233,7 +238,9 @@ def _resolve_arith(name):
         if a.is_numeric and b.is_numeric:
             ct = T.common_super_type(a, b)
             if ct is not None and ct.is_decimal:
-                return None  # decimal arithmetic is not ported
+                if name == "div":
+                    return T.DOUBLE  # decimal division promotes
+                return DEC.decimal_result_type(name, a, b)
             return ct
         return None
 
@@ -264,6 +271,13 @@ def _emit_arith(name):
         if b.type.name in _INTERVALS and a.type.name in _TEMPORAL:
             return _date_plus_interval(name, a, b, valid)
         out_t = T.common_super_type(a.type, b.type)
+        if out_t is not None and out_t.is_decimal:
+            if name != "div":
+                return DEC.emit_decimal_arith(
+                    name, a, b, DEC.decimal_result_type(name, a.type, b.type),
+                    valid)
+            x, y = (DEC.decimal_to_double(v).data for v in (a, b))
+            return ColVal(DEC.true_div(x, y), valid, T.DOUBLE)
         x, y = a.data, b.data
         if name == "add":
             r = x + y
@@ -369,8 +383,8 @@ register("mod", _resolve_mod, _emit_mod)
 
 register("neg",
          lambda args: args[0] if len(args) == 1 and args[0].is_numeric
-         and not args[0].is_decimal else None,
-         lambda args: ColVal(-args[0].data, args[0].valid, args[0].type))
+         else None,
+         lambda args: DEC.emit_neg(args[0]))
 
 
 # ---- comparisons ----------------------------------------------------------
@@ -442,6 +456,9 @@ def _emit_cmp(name):
         a, b = args
         if a.type.is_string or b.type.is_string:
             return _string_compare(name, a, b)
+        if DEC.is_long(a.type) or DEC.is_long(b.type):
+            return DEC.emit_long_compare(name, a, b, _PYOPS[name],
+                                         all_valid(a, b))
         return ColVal(_PYOPS[name](a.data, b.data), all_valid(a, b),
                       T.BOOLEAN)
 
@@ -1275,11 +1292,13 @@ register("e", lambda args: T.DOUBLE if not args else None,
 
 def _emit_truncate(args):
     """truncate(x[, d]): toward zero at d decimal digits; an integer
-    argument comes back as it is."""
+    argument comes back as it is, a decimal keeps its scale."""
     a = args[0]
     if a.type.is_integer:
         return a
     d = int(_constant("truncate", args[1])) if len(args) > 1 else 0
+    if a.type.is_decimal:
+        return DEC.emit_truncate(a, d)
     scale = 10.0 ** d
     if _is_tensor(a.data):
         return ColVal(torch.trunc(a.data * scale) / scale, a.valid, a.type)
@@ -1287,7 +1306,8 @@ def _emit_truncate(args):
                   a.type)
 
 
-register("truncate", _resolve_numeric1, _emit_truncate)
+register("truncate", lambda args: args[0] if args[0].is_numeric else None,
+         _emit_truncate)
 
 
 def _emit_width_bucket(args):
@@ -2871,8 +2891,8 @@ def _container_same_elements(a: T.Type, b: T.Type) -> bool:
 
 
 def _render_varchar(x, frm: T.Type) -> str:
-    """A value's text (reference: _render_varchar) for the types a
-    collection cast renders."""
+    """A value's text (reference: _render_varchar): booleans, numbers,
+    decimals and dates."""
     if frm.name == "BOOLEAN":
         return "true" if x else "false"
     if frm.is_integer:
@@ -2896,11 +2916,13 @@ def _render_varchar(x, frm: T.Type) -> str:
         if "." not in mant:
             mant += ".0"
         return f"{mant}E{int(exp)}"
+    if frm.is_decimal:
+        return DEC.render(int(x), frm.decimal_scale)
     if frm.name == "DATE":
         return (datetime.date(1970, 1, 1)
                 + datetime.timedelta(days=int(x))).isoformat()
     raise NotImplementedError(
-        f"CAST of {frm} to VARCHAR inside a collection is not ported")
+        f"CAST of {frm} to VARCHAR is not ported to presto_tpu_torch")
 
 
 def _py_cast_scalar(x, ft: T.Type, tt: T.Type):
@@ -2958,6 +2980,93 @@ def _cast_collection(v: ColVal, to: T.Type) -> ColVal:
 # ---- casts ----------------------------------------------------------------
 
 
+def _cast_to_varchar(v: ColVal) -> ColVal:
+    """Every value's text (_render_varchar), rendered on the host: a
+    column is read back (in the static pass that falls back, as the
+    reference's trace does) and becomes a sorted dictionary."""
+    frm = v.type
+    if not _is_tensor(v.data):
+        return ColVal(_render_varchar(v.data, frm), v.valid, T.VARCHAR)
+    refuse_host_read("CAST to VARCHAR")
+    if v.data.ndim == 0:
+        return ColVal(_render_varchar(v.data.item(), frm), v.valid,
+                      T.VARCHAR)
+    vals = [_render_varchar(x, frm) for x in v.data.cpu().numpy().tolist()]
+    uniq, inv = np.unique(np.asarray(vals, dtype=str), return_inverse=True)
+    return ColVal(upload(inv.astype(np.int32), v.data.device), v.valid,
+                  T.VARCHAR, Dictionary(uniq.astype(object)))
+
+
+def _parse_number(x, to: T.Type, safe: bool):
+    """A string's float value (None: a TRY_CAST failure), checked
+    against a short decimal's int64 unscaled range."""
+    try:
+        f = float(x)
+    except ValueError:
+        if safe:
+            return None
+        raise
+    if to.is_decimal and abs(f) * (10 ** to.decimal_scale) \
+            >= T.DECIMAL_UNSCALED_LIMIT:
+        if safe:
+            return None
+        raise ValueError(
+            f"DECIMAL overflow: '{x}' exceeds 19 significant digits")
+    return f
+
+
+def _cast_from_string(v: ColVal, to: T.Type, safe: bool) -> ColVal:
+    """VARCHAR -> a number (reference: emit_cast's parse through a
+    dictionary table): a long decimal parses exactly into limbs, every
+    other number through float64; an entry that does not parse is NULL
+    under TRY_CAST and raises otherwise."""
+    if not to.is_numeric:
+        raise NotImplementedError(
+            f"CAST({v.type} AS {to}) is not ported to presto_tpu_torch")
+    null = ColVal(False, False, T.UNKNOWN)
+    if isinstance(v.data, str):
+        if DEC.is_long(to):
+            unscaled = DEC.parse_dec128(v.data, to, safe)
+            if unscaled is None:
+                return emit_cast(null, to, safe)
+            return ColVal(unscaled, v.valid, to)
+        val = _parse_number(v.data, to, safe)
+        if val is None:
+            return emit_cast(null, to, safe)
+        if to.is_integer:
+            if val != val:  # CAST('NaN' AS INTEGER) has no value
+                return emit_cast(null, to, safe)
+            return ColVal(int(val), v.valid, to)
+        if to.is_decimal:
+            return DEC.emit_cast_decimal(ColVal(val, v.valid, T.DOUBLE), to,
+                                         safe)
+        return ColVal(val, v.valid, to)
+    entries = v.dictionary.values
+    bad = np.zeros(max(len(entries), 1), dtype=bool)
+    parsed = []
+    for i, x in enumerate(entries):
+        r = DEC.parse_dec128(x, to, safe) if DEC.is_long(to) \
+            else _parse_number(x, to, safe)
+        if r is None:  # a failure, kept apart from a genuine NaN
+            bad[i] = True
+            r = 0
+        parsed.append(r)
+    valid = v.valid
+    if bad.any():
+        valid = _and_not(valid, _lookup(v.data, bad))
+    if DEC.is_long(to):
+        from presto_tpu_torch.exec import dec128 as D128
+
+        table = D128.from_host_ints(parsed or [0])
+        codes = _clip_codes(v.data, len(table))
+        if not _is_tensor(codes):
+            return ColVal(D128.to_host_ints(table[codes])[0], valid, to)
+        return ColVal(upload(table, codes.device)[codes.long()], valid, to)
+    data = _lookup(v.data, np.asarray(parsed or [0.0], dtype=np.float64))
+    return emit_cast(ColVal(data, valid, T.DOUBLE), to, safe)
+
+
+
 def emit_cast(v: ColVal, to: T.Type, safe: bool = False) -> ColVal:
     frm = v.type
     if frm == to:
@@ -2969,6 +3078,10 @@ def emit_cast(v: ColVal, to: T.Type, safe: bool = False) -> ColVal:
             return _one_entry((), False, to)
         return ColVal("" if to.is_string else to.numpy_dtype().type(0).item(),
                       False, to)
+    if to.is_string and not frm.is_string:
+        return _cast_to_varchar(v)
+    if frm.is_string and not to.is_string:
+        return _cast_from_string(v, to, safe)
     if frm.name == "DATE" and to.name == "TIMESTAMP":
         d = v.data.to(torch.int64) if _is_tensor(v.data) else int(v.data)
         return ColVal(d * _US_PER_DAY, v.valid, T.TIMESTAMP)
@@ -2976,9 +3089,10 @@ def emit_cast(v: ColVal, to: T.Type, safe: bool = False) -> ColVal:
         d = v.data // _US_PER_DAY
         return ColVal(d.to(torch.int32) if _is_tensor(d) else int(d),
                       v.valid, T.DATE)
+    if to.is_decimal or frm.is_decimal:
+        return DEC.emit_cast_decimal(v, to, safe)
     ok = (frm.is_numeric or frm.name == "BOOLEAN") \
-        and (to.is_numeric or to.name == "BOOLEAN") \
-        and not frm.is_decimal and not to.is_decimal
+        and (to.is_numeric or to.name == "BOOLEAN")
     if not ok:
         raise NotImplementedError(
             f"CAST({frm} AS {to}) is not ported to presto_tpu_torch")
