@@ -137,11 +137,31 @@ def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class UploadLog:
-    """The device tensors one compiled query uploaded, by content."""
+    """The device tensors one compiled query uploaded, by content, and
+    the host draws of its volatile functions, in order."""
 
     def __init__(self):
         self.tensors: Dict[tuple, torch.Tensor] = {}
         self.capturing = False
+        self.draws: list = []
+        self.drawn = 0  # draws the capture has taken
+
+
+def volatile_draw(make):
+    """make() of a volatile function (its random values), logged while a
+    compiled query is built for a CUDA device: the eager pass draws and
+    logs, the capture takes the eager pass's draws in order, so that its
+    uploads are the ones the eager pass made.  Elsewhere a fresh draw."""
+    log = getattr(_uploads, "log", None)
+    if log is None:
+        return make()
+    if log.capturing:
+        value = log.draws[log.drawn]
+        log.drawn += 1
+        return value
+    value = make()
+    log.draws.append(value)
+    return value
 
 
 @contextlib.contextmanager

@@ -11,6 +11,7 @@ from typing import Dict
 
 import torch
 
+from presto_tpu_torch import session_ctx
 from presto_tpu_torch.batch import Batch, Column, Dictionary
 from presto_tpu_torch.exec.colval import ColVal, LambdaVal
 from presto_tpu_torch.functions import decimals
@@ -26,6 +27,9 @@ class EvalContext:
 
 
 def eval_expr(expr: ir.RowExpr, batch: Batch, ctx: EvalContext) -> ColVal:
+    # the volatile functions (random()) draw a value per row, and their
+    # emitters see only the arguments
+    session_ctx.set_batch_capacity(batch.capacity)
     if isinstance(expr, ir.Ref):
         c = batch.columns[expr.name]
         return ColVal(c.data, c.valid, c.type, c.dictionary)
@@ -86,8 +90,11 @@ def to_column(v: ColVal, capacity: int, device: torch.device) -> Column:
             return Column(codes, _expand_valid(v.valid, capacity, device),
                           v.type, Dictionary(vals))
         dt = scalar_fns.torch_dtype(v.type)
-        data = torch.full((capacity,), data.item() if isinstance(
-            data, torch.Tensor) else data, dtype=dt, device=device)
+        if isinstance(data, torch.Tensor):  # a constant computed on device
+            data = data.to(device=device, dtype=dt).reshape(1) \
+                .repeat(capacity)
+        else:
+            data = torch.full((capacity,), data, dtype=dt, device=device)
     return Column(data, _expand_valid(v.valid, capacity, device), v.type,
                   v.dictionary)
 

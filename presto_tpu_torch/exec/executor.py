@@ -2336,7 +2336,7 @@ def _log2(x: torch.Tensor) -> torch.Tensor:
     """log2 as jnp.log2 computes it, ln(x) / ln(2): entropy of one value
     cancels to exactly 0 this way, where torch.log2's rounding leaves an
     ulp."""
-    return torch.log(x) / math.log(2.0)
+    return DEC.true_div(torch.log(x), math.log(2.0))
 
 
 def _at_group(values: torch.Tensor, gid: torch.Tensor,

@@ -38,6 +38,7 @@ from presto_tpu_torch.batch import Batch, Column, Dictionary, upload
 from presto_tpu_torch.exec import dec128 as D128
 from presto_tpu_torch.exec import gather as G
 from presto_tpu_torch.exec.colval import translate_codes
+from presto_tpu_torch.functions.decimals import true_div
 
 I64_MIN = np.iinfo(np.int64).min
 I64_MAX = np.iinfo(np.int64).max
@@ -1283,9 +1284,9 @@ def hll_estimate(M: torch.Tensor) -> torch.Tensor:
         pow2 = _NEG_POW2[key] = upload(
             np.asarray([2.0 ** -k for k in range(65)]), M.device)
     alpha = 0.7213 / (1.0 + 1.079 / m)
-    E = alpha * m * m / pow2[M.clamp(0, 64)].sum(dim=1)
+    E = true_div(alpha * m * m, pow2[M.clamp(0, 64)].sum(dim=1))
     zeros = (M == 0).sum(dim=1)
-    linear = m * torch.log(m / zeros.clamp_min(1).to(torch.float64))
+    linear = m * torch.log(true_div(float(m), zeros.clamp_min(1)))
     est = torch.where((E <= 2.5 * m) & (zeros > 0), linear, E)
     return torch.round(est).to(torch.int64)
 

@@ -70,14 +70,17 @@ def true_div(x, y):
     scalar's reciprocal, and a scalar by a tensor through the tensor's
     reciprocal, either one ulp off at times (5.0 / 3 gives
     1.6666666666666665 so), so a scalar side becomes a 0-d tensor on the
-    other's device."""
+    other's device.  A 0-d CPU tensor beside a CUDA tensor is a host
+    scalar to torch as well: it moves to the other's device."""
     if not _is_tensor(x) and not _is_tensor(y):
         with np.errstate(divide="ignore", invalid="ignore"):
             return (np.float64(x) / np.float64(y)).item()
-    ref = x if _is_tensor(x) else y
-    x, y = (v.to(torch.float64) if _is_tensor(v) else torch.full(
-        (), float(v), dtype=torch.float64, device=ref.device)
-        for v in (x, y))
+    dev = next((v.device for v in (x, y)
+                if _is_tensor(v) and v.device.type != "cpu"),
+               (x if _is_tensor(x) else y).device)
+    x, y = (v.to(device=dev if v.ndim == 0 else v.device,
+                 dtype=torch.float64) if _is_tensor(v) else torch.full(
+        (), float(v), dtype=torch.float64, device=dev) for v in (x, y))
     return torch.div(x, y)
 
 
@@ -544,3 +547,108 @@ def emit_truncate(a: ColVal, d: int) -> ColVal:
     if not _is_tensor(x):
         x = int(x)
     return ColVal(_sign(x) * (_abs(x) // s) * s, a.valid, a.type)
+
+
+# ---- decimal math: abs, sign, floor, ceil, round, mod -------------------------
+# The SQL values, held to Python's decimal in the tests.  The reference
+# applies its integer kernels to the unscaled integers here (ROADMAP C,
+# "Reference behaviours the port does not copy"); the result types are
+# the reference's (the argument's type; mod's below).
+
+
+def _pow10_limbs(like: torch.Tensor, s: int) -> torch.Tensor:
+    return D128.scale_up(D128._one(like), s)
+
+
+def emit_abs(a: ColVal) -> ColVal:
+    x = a.data
+    if is_long(a.type) and _is_tensor(x):
+        neg = x[..., D128.HI] < 0
+        return ColVal(torch.where(neg[..., None], D128.neg(x), x), a.valid,
+                      a.type)
+    return ColVal(_abs(x), a.valid, a.type)
+
+
+def emit_sign(a: ColVal) -> ColVal:
+    """-1, 0 or 1 at the argument's scale."""
+    s, x = a.type.decimal_scale, a.data
+    if is_long(a.type) and _is_tensor(x):
+        sig = torch.where(x[..., D128.HI] < 0, -1,
+                          (x != 0).any(-1).to(torch.int64))
+        return ColVal(D128.scale_up(D128.from_int64(sig), s), a.valid,
+                      a.type)
+    return ColVal(_sign(x) * 10 ** s, a.valid, a.type)
+
+
+def emit_floor_ceil(a: ColVal, up: bool) -> ColVal:
+    """floor or ceil at the argument's scale: the truncation, moved one
+    unit down (floor of a negative) or up (ceil of a positive) where a
+    fraction was cut."""
+    s, x = a.type.decimal_scale, a.data
+    if s == 0:
+        return a
+    if is_long(a.type) and _is_tensor(x):
+        t = emit_truncate(a, 0).data
+        unit = _pow10_limbs(x, s)
+        if up:
+            r = torch.where(D128.lt(t, x)[..., None], D128.add(t, unit), t)
+        else:
+            r = torch.where(D128.lt(x, t)[..., None], D128.sub(t, unit), t)
+        return ColVal(r, a.valid, a.type)
+    f = 10 ** s
+    if not _is_tensor(x):
+        x = int(x)
+    return ColVal((-((-x) // f) if up else x // f) * f, a.valid, a.type)
+
+
+def emit_round(a: ColVal, d: int) -> ColVal:
+    """round(x, d) half away from zero, the argument's scale kept."""
+    s, x = a.type.decimal_scale, a.data
+    keep = s - d
+    if keep <= 0:
+        return a
+    if is_long(a.type) and _is_tensor(x):
+        return ColVal(D128.scale_up(D128.scale_down_round(x, keep), keep),
+                      a.valid, a.type)
+    f = 10 ** keep
+    if not _is_tensor(x):
+        x = int(x)
+    return ColVal(_sign(x) * ((_abs(x) + f // 2) // f) * f, a.valid, a.type)
+
+
+def mod_result_type(at: T.Type, bt: T.Type) -> T.Type:
+    """Presto's DECIMAL mod type: the smaller integral part and the
+    larger scale (an integer operand as decimal(18, 0))."""
+    da = at if at.is_decimal else T.decimal(18, 0)
+    db = bt if bt.is_decimal else T.decimal(18, 0)
+    sa, sb = da.decimal_scale, db.decimal_scale
+    s = max(sa, sb)
+    p = min(da.decimal_precision - sa, db.decimal_precision - sb) + s
+    return T.decimal(min(p, 38), s)
+
+
+def emit_mod(a: ColVal, b: ColVal) -> ColVal:
+    """x mod y with the sign of x, exact on the unscaled integers at the
+    larger scale; NULL for a zero divisor, as the integer mod."""
+    if is_long(a.type) or is_long(b.type):
+        raise NotImplementedError(
+            "mod of long decimals is not ported to presto_tpu_torch")
+    out_t = mod_result_type(a.type, b.type)
+    so = out_t.decimal_scale
+    x = rescale_dec(a.data.to(torch.int64) if _is_tensor(a.data)
+                    else int(a.data), dec_scale(a.type), so, a.valid)
+    y = rescale_dec(b.data.to(torch.int64) if _is_tensor(b.data)
+                    else int(b.data), dec_scale(b.type), so, b.valid)
+    zero = y == 0
+    if _is_tensor(y):
+        safe = torch.where(zero, torch.ones_like(y), y)
+    else:
+        safe = 1 if zero else y
+    r = _sign(x) * (_abs(x) % _abs(safe))
+    valid = a.valid
+    for v in (b.valid, ~zero if _is_tensor(zero) else not zero):
+        if v is not None:
+            valid = v if valid is None else valid & v
+    if is_long(out_t):
+        r = D128.from_int64(r) if _is_tensor(r) else r
+    return ColVal(r, valid, out_t)

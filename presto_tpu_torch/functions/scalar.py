@@ -1,55 +1,65 @@
 """Scalar function registry: SQL-level signature resolution + torch emission.
 
-Reference: presto_tpu/functions/scalar.py (with the overrides of its
-other modules that change what these names compute: the integer `mod` of
-scalar_ext.py; array_sort and array_join of scalar_ext2.py; day_of_week,
-day_of_year and week_of_year of scalar_ext.py and from_unixtime and
-to_unixtime of datetime_tz.py agree with scalar.py's for the types
-ported).  Ported, 141 names:
+Reference: presto_tpu/functions/scalar.py, with the modules it imports
+at its end (the last registration of a name wins, as there).  This
+module holds the core and imports functions/scalar_ext.py and
+scalar_ext2.py at its end, in the reference's order.  294 names:
 - arithmetic (add, sub, mul, div, mod, neg) over the numeric types
-  (DECIMAL's add, sub, mul, div and neg through functions/decimals.py:
-  short decimals as scaled int64, long ones as Int128 limbs), DATE +-
-  INTERVAL, the six comparisons (numeric, decimal across scales and
-  temporal; strings against a literal, within one dictionary or across
-  two, whose dictionaries then merge), three-valued AND / OR / NOT,
-  CASTs between the numeric types, DECIMAL included, from numbers,
-  booleans, decimals and dates to VARCHAR and from VARCHAR to numbers,
-  IS NULL, COALESCE, NULLIF, IF, CASE, LIKE;
+  (DECIMAL's through functions/decimals.py: short decimals as scaled
+  int64, long ones as Int128 limbs), DATE and TIMESTAMP +- INTERVAL,
+  the six comparisons (numeric, decimal across scales and temporal;
+  strings against a literal, within one dictionary or across two;
+  ARRAY and ROW values pairwise, scalar_ext2.py), IS [NOT] DISTINCT
+  FROM, three-valued AND / OR / NOT, CASTs between the numeric types,
+  DECIMAL included, from numbers, booleans, decimals and dates to
+  VARCHAR and from VARCHAR to numbers, IS NULL, COALESCE, NULLIF, IF,
+  CASE, LIKE;
 - strings: SUBSTRING / SUBSTR, UPPER, LOWER, TRIM, LTRIM, RTRIM,
   REVERSE, REPLACE, LENGTH, STRPOS, POSITION, STARTS_WITH, ENDS_WITH,
   CONTAINS_STR, LPAD, RPAD, REPEAT, SPLIT_PART, CODEPOINT, CHR (of a
   constant), CONCAT and `||`; REGEXP_LIKE, REGEXP_EXTRACT and
-  REGEXP_REPLACE (Python's re; `$n` group references);
-- math: ABS, ROUND, TRUNCATE, FLOOR, CEIL / CEILING, SIGN, SQRT, EXP,
-  LN, LOG10, LOG(base, x), POWER / POW, ATAN2, PI, E, WIDTH_BUCKET,
+  REGEXP_REPLACE (Python's re; `$n` group references; a lambda
+  replacement in scalar_ext2.py); scalar_ext.py's distances, codecs,
+  hashes, URL and regexp long tail and scalar_ext2.py's strrpos,
+  split_to_map, word_stem and color functions;
+- math: ABS, ROUND, TRUNCATE, FLOOR, CEIL / CEILING, SIGN and MOD
+  (DECIMAL too: the SQL values, functions/decimals.py), SQRT, EXP, LN,
+  LOG10, LOG(base, x), POWER / POW, ATAN2, PI, E, WIDTH_BUCKET,
   GREATEST, LEAST; bitwise AND, OR, XOR, NOT and the shifts;
+  scalar_ext.py's trigonometric family, CDFs, bit_count and
+  scalar_ext2.py's inverse CDFs and cosine_similarity;
 - dates: the EXTRACT family (year, month, day, quarter, day of week,
   day of year, week), DATE(text), DATE_ADD, DATE_DIFF, DATE_TRUNC,
   LAST_DAY_OF_MONTH, DAY_OF_WEEK / DOW, DAY_OF_YEAR / DOY, WEEK_OF_YEAR
-  / WEEK, FROM_UNIXTIME (one argument), TO_UNIXTIME;
+  / WEEK, FROM_UNIXTIME (one argument), TO_UNIXTIME; scalar_ext.py's
+  zone-less fields, formats and parsers over DATE and TIMESTAMP;
 - JSON over VARCHAR or JSON dictionaries: JSON_EXTRACT,
   JSON_EXTRACT_SCALAR, JSON_FORMAT, JSON_PARSE, JSON_ARRAY_LENGTH,
-  JSON_SIZE, IS_JSON_SCALAR.
-- collections, 38 names: ARRAY constructor, ELEMENT_AT, subscript,
-  CARDINALITY, CONTAINS, ARRAY_MIN, ARRAY_MAX, ARRAY_POSITION,
-  ARRAY_DISTINCT, SLICE, FLATTEN, ARRAY_REMOVE, ARRAY_UNION,
-  ARRAY_INTERSECT, ARRAY_EXCEPT, ARRAYS_OVERLAP, SEQUENCE, SPLIT,
-  ARRAY_SORT (NULLs last, and with a comparator lambda) and ARRAY_JOIN
-  (with a NULL replacement) as scalar_ext2.py registers them last; the
-  lambdas TRANSFORM, FILTER, ANY_MATCH, ALL_MATCH, NONE_MATCH,
-  ZIP_WITH, REDUCE; MAP, MAP_KEYS, MAP_VALUES, MAP_ENTRIES, MAP_CONCAT,
+  JSON_SIZE, IS_JSON_SCALAR, and scalar_ext.py's json_array_get and
+  json_array_contains;
+- collections: ARRAY constructor, ELEMENT_AT, subscript, CARDINALITY,
+  CONTAINS, ARRAY_MIN, ARRAY_MAX, ARRAY_POSITION, ARRAY_DISTINCT,
+  SLICE, FLATTEN, ARRAY_REMOVE, ARRAY_UNION, ARRAY_INTERSECT,
+  ARRAY_EXCEPT, ARRAYS_OVERLAP, SEQUENCE, SPLIT, ARRAY_SORT (NULLs
+  last, and with a comparator lambda) and ARRAY_JOIN (with a NULL
+  replacement) as scalar_ext2.py registers them last; the lambdas
+  TRANSFORM, FILTER, ANY_MATCH, ALL_MATCH, NONE_MATCH, ZIP_WITH,
+  REDUCE; MAP, MAP_KEYS, MAP_VALUES, MAP_ENTRIES, MAP_CONCAT,
   MAP_FROM_ENTRIES, MAP_FILTER, TRANSFORM_VALUES, TRANSFORM_KEYS; ROW
   and ROW_FIELD (field access by name on a CAST ROW); ARRAY || ARRAY;
   CASTs between two ARRAY, MAP or ROW types of one kind and CAST(NULL
-  AS a collection).
-Not ported: the T-digest and HLL sketch names (CARDINALITY of a
+  AS a collection); the array and map long tail of scalar_ext.py and
+  scalar_ext2.py;
+- the volatile functions random / rand, uuid and shuffle
+  (scalar_ext2.py), which TABLESAMPLE reaches.
+Not ported: the T-digest and HLL sketch readers (CARDINALITY of a
 sketch raises), the $hll_reg and $hll_rho of distributed
-approx_distinct, its trigonometric family (sin .. exp2, which
-scalar_ext.py registers again), `mod` of decimals, and the modules
-scalar_ext.py, the rest of scalar_ext2.py, datetime_tz.py,
-geospatial.py and ml.py.  The planner resolves only registered names,
-so any other function raises NotImplementedError with its name
-(plan/planner.py `_call`).
+approx_distinct, and the modules datetime_tz.py (at_timezone,
+with_timezone, now and the current_* names, timezone_hour/minute, and
+its zone-aware wrappers: a TIMESTAMP WITH TIME ZONE or TIME argument
+of a date function raises), geospatial.py and ml.py.  The planner
+resolves only registered names, so any other function raises
+NotImplementedError with its name (plan/planner.py `_call`).
 
 String and collection functions are host transforms over the dictionary
 (one Python call per dictionary entry, never per row), kept beside the
@@ -71,7 +81,10 @@ AND/OR/IS NULL/COALESCE/NULLIF/IF/CASE, which implement SQL
 three-valued logic, and integer `mod`, whose result is NULL for a zero
 divisor.  Where torch and XLA differ, the reference's values are kept:
 shift counts outside [0, 63] give 0, float -> int conversions give 0
-for NaN and saturate, sign keeps -0.0 and NaN, log10 is ln(x) / ln(10).
+for NaN and saturate, sign keeps -0.0 and NaN, log10 is ln(x) times
+(1 / ln(10)) rounded.  No tensor is divided by a host number: on a
+card torch divides through the reciprocal, one ulp off at times, so a
+host operand becomes a 0-d tensor first (decimals.true_div).
 """
 
 from __future__ import annotations
@@ -248,6 +261,8 @@ def _resolve_arith(name):
 
 
 def _date_plus_interval(name, a: ColVal, b: ColVal, valid) -> ColVal:
+    if a.type.name == "TIMESTAMP":
+        return _timestamp_plus_interval(name, a, b, valid)
     if a.type.name != "DATE":
         raise NotImplementedError(
             f"{a.type} +- INTERVAL is not ported to presto_tpu_torch")
@@ -260,6 +275,21 @@ def _date_plus_interval(name, a: ColVal, b: ColVal, valid) -> ColVal:
                       valid, T.DATE)
     months = b.data if name == "add" else -b.data
     return ColVal(add_months(x, months), valid, T.DATE)
+
+
+def _timestamp_plus_interval(name, a: ColVal, b: ColVal, valid) -> ColVal:
+    """TIMESTAMP +- INTERVAL: micros added for a day-time interval; for a
+    year-month one the date part moves by months (add_months) and the
+    time of day stays."""
+    x = a.data.to(torch.int64) if _is_tensor(a.data) else int(a.data)
+    delta = b.data if name == "add" else -b.data
+    if b.type.name == "INTERVAL_DAY_TIME":
+        return ColVal(x + delta, valid, T.TIMESTAMP)
+    days = x // _US_PER_DAY
+    moved = add_months(days, delta)
+    moved = moved.to(torch.int64) if _is_tensor(moved) else int(moved)
+    return ColVal(moved * _US_PER_DAY + (x - days * _US_PER_DAY), valid,
+                  T.TIMESTAMP)
 
 
 def _emit_arith(name):
@@ -286,7 +316,12 @@ def _emit_arith(name):
         elif name == "mul":
             r = x * y
         elif name == "div":
-            r = _int_div(x, y) if out_t.is_integer else x / y
+            if out_t.is_integer:
+                r = _int_div(x, y)
+            else:
+                r = DEC.true_div(x, y)
+                if _is_tensor(r):
+                    r = r.to(torch_dtype(out_t))
         else:
             raise AssertionError(name)
         return ColVal(r, valid, out_t)
@@ -352,8 +387,10 @@ def _int_mod(x, y):
 
 
 def _resolve_mod(args):
-    if len(args) == 2 and all(a.is_numeric and not a.is_decimal
-                              for a in args):
+    if len(args) == 2 and all(a.is_numeric for a in args):
+        if any(a.is_decimal for a in args) \
+                and not any(a.is_floating for a in args):
+            return DEC.mod_result_type(*args)
         if all(a.is_integer for a in args):
             return T.common_super_type(*args)
         return T.DOUBLE
@@ -363,6 +400,9 @@ def _resolve_mod(args):
 def _emit_mod(args):
     a, b = args
     t = _resolve_mod([a.type, b.type])
+    if t.is_decimal:
+        return DEC.emit_mod(a, b)
+    a, b = DEC.decimal_to_double(a), DEC.decimal_to_double(b)
     x, y = a.data, b.data
     if not t.is_integer:
         if _is_tensor(x) or _is_tensor(y):
@@ -936,6 +976,8 @@ for _f in ("YEAR", "MONTH", "DAY", "QUARTER"):
 
 def _emit_abs(args):
     a = args[0]
+    if a.type.is_decimal:
+        return DEC.emit_abs(a)
     return ColVal(a.data.abs() if _is_tensor(a.data) else abs(a.data),
                   a.valid, a.type)
 
@@ -948,10 +990,13 @@ def _emit_round(args):
     if a.type.is_integer:
         return a
     d = int(args[1].data) if len(args) > 1 else 0
+    if a.type.is_decimal:
+        return DEC.emit_round(a, d)
     scale = 10.0 ** d
     x = a.data
     if _is_tensor(x):
-        r = torch.sign(x) * torch.floor(x.abs() * scale + 0.5) / scale
+        r = DEC.true_div(torch.sign(x) * torch.floor(x.abs() * scale + 0.5),
+                         scale)
     else:
         x = float(x)
         r = float(np.sign(x) * np.floor(abs(x) * scale + 0.5) / scale)
@@ -959,8 +1004,7 @@ def _emit_round(args):
 
 
 def _resolve_numeric1(args):
-    return args[0] if args[0].is_numeric and not args[0].is_decimal \
-        else None
+    return args[0] if args[0].is_numeric else None
 
 
 register("abs",
@@ -1214,30 +1258,34 @@ def _double1(tfn, nfn):
 register("sqrt", *_double1(torch.sqrt, np.sqrt))
 register("exp", *_double1(torch.exp, np.exp))
 register("ln", *_double1(torch.log, np.log))
-# ln(x) / ln(10), as jnp.log10 computes it
-register("log10", *_double1(lambda x: torch.log(x) / math.log(10.0),
-                            lambda x: np.log(x) / math.log(10.0)))
+# ln(x) times 1 / ln(10) rounded, as jnp.log10 computes it
+_INV_LN10 = 0.4342944819032518
+register("log10", *_double1(lambda x: torch.log(x) * _INV_LN10,
+                            lambda x: np.log(x) * _INV_LN10))
 
 
-def _same_type1(tfn, nfn):
+def _same_type1(tfn, nfn, up):
     """numeric -> its own type; an integer argument comes back as it is
-    (as jnp.floor and jnp.ceil leave integers)."""
+    (as jnp.floor and jnp.ceil leave integers), a decimal one is
+    DEC.emit_floor_ceil's."""
     def emit(args):
         a = args[0]
         if a.type.is_integer:
             return a
+        if a.type.is_decimal:
+            return DEC.emit_floor_ceil(a, up)
         if _is_tensor(a.data):
             return ColVal(tfn(a.data), a.valid, a.type)
         with np.errstate(all="ignore"):
             return ColVal(float(nfn(np.float64(a.data))), a.valid, a.type)
 
     return (lambda args: args[0] if len(args) == 1 and args[0].is_numeric
-            and not args[0].is_decimal else None), emit
+            else None), emit
 
 
-register("floor", *_same_type1(torch.floor, np.floor))
-register("ceil", *_same_type1(torch.ceil, np.ceil))
-register("ceiling", *_same_type1(torch.ceil, np.ceil))
+register("floor", *_same_type1(torch.floor, np.floor, False))
+register("ceil", *_same_type1(torch.ceil, np.ceil, True))
+register("ceiling", *_same_type1(torch.ceil, np.ceil, True))
 
 
 def _emit_sign(args):
@@ -1245,6 +1293,8 @@ def _emit_sign(args):
     as -1.0 or 1.0, a zero and NaN returned as they are (-0.0 stays)."""
     a = args[0]
     x = a.data
+    if a.type.is_decimal:
+        return DEC.emit_sign(a)
     if a.type.is_integer:
         r = torch.sign(x) if _is_tensor(x) else (x > 0) - (x < 0)
     elif _is_tensor(x):
@@ -1257,7 +1307,7 @@ def _emit_sign(args):
 
 register("sign",
          lambda args: args[0] if len(args) == 1 and args[0].is_numeric
-         and not args[0].is_decimal else None,
+         else None,
          _emit_sign)
 
 
@@ -1282,7 +1332,8 @@ register("power", *_double2(torch.pow, np.power))
 register("pow", *_double2(torch.pow, np.power))
 register("atan2", *_double2(torch.atan2, np.arctan2))
 # log(base, value) = ln(value) / ln(base)
-register("log", *_double2(lambda b, x: torch.log(x) / torch.log(b),
+register("log", *_double2(lambda b, x: DEC.true_div(torch.log(x),
+                                                     torch.log(b)),
                           lambda b, x: np.log(x) / np.log(b)))
 register("pi", lambda args: T.DOUBLE if not args else None,
          lambda args: ColVal(float(np.pi), None, T.DOUBLE))
@@ -1301,7 +1352,8 @@ def _emit_truncate(args):
         return DEC.emit_truncate(a, d)
     scale = 10.0 ** d
     if _is_tensor(a.data):
-        return ColVal(torch.trunc(a.data * scale) / scale, a.valid, a.type)
+        return ColVal(DEC.true_div(torch.trunc(a.data * scale), scale),
+                      a.valid, a.type)
     return ColVal(float(np.trunc(float(a.data) * scale) / scale), a.valid,
                   a.type)
 
@@ -1315,7 +1367,7 @@ def _emit_width_bucket(args):
     clipped into [0, n + 1], NaN in bucket 0 (XLA's conversion)."""
     x = _f64(args[0].data)
     lo, hi, n = (a.data for a in args[1:])
-    raw = (x - lo) / (hi - lo) * n
+    raw = DEC.true_div(x - lo, hi - lo) * n
     if _is_tensor(raw):
         r = (torch.floor(raw) + 1).clamp_min(0.0)
         r = torch.minimum(r, n.to(torch.float64) + 1) if _is_tensor(n) \
@@ -1611,7 +1663,7 @@ register("from_unixtime", _resolve_from_unixtime,
 register("to_unixtime",
          lambda args: T.DOUBLE if args and args[0].name in (
              "TIMESTAMP", "TIMESTAMP_TZ") else None,
-         lambda args: ColVal(_scalar(_f64(args[0].data) / 1e6),
+         lambda args: ColVal(DEC.true_div(_f64(args[0].data), 1e6),
                              args[0].valid, T.DOUBLE))
 
 
@@ -3108,3 +3160,9 @@ def emit_cast(v: ColVal, to: T.Type, safe: bool = False) -> ColVal:
     else:
         data = bool(data)
     return ColVal(data, v.valid, to)
+
+
+# the extended batches register last, as in the reference (scalar.py's
+# closing imports), so that their registrations of a name win
+from presto_tpu_torch.functions import scalar_ext as _scalar_ext  # noqa: E402,F401,E501
+from presto_tpu_torch.functions import scalar_ext2 as _scalar_ext2  # noqa: E402,F401,E501

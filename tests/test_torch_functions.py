@@ -257,13 +257,13 @@ def test_static_pass_reads_nothing_back(name):
 
 
 #: names of presto_tpu's functions (and aggregates) that the port still
-#: leaves out: the trigonometric family, scalar_ext.py's array
-#: functions, sketch states and the host aggregates of later slices
+#: leaves out: geospatial.py's and datetime_tz.py's functions, sketch
+#: states and the host aggregates of later slices
 LEFT_OUT = {
-    "array_sum": "SELECT array_sum(split(s, '-')) FROM t",
+    "st_point": "SELECT st_point(x, x) FROM t",
     "map_union_sum": ("SELECT map_union_sum(h) FROM "
                       "(SELECT histogram(s) AS h FROM t)"),
-    "sin": "SELECT sin(x) FROM t",
+    "at_timezone": "SELECT at_timezone(ts, 'UTC') FROM t",
     "reduce_agg": ("SELECT reduce_agg(i, 0, (a, b) -> a + b, "
                    "(a, b) -> a + b) FROM t"),
     "approx_most_frequent": "SELECT approx_most_frequent(3, s, 100) FROM t",

@@ -142,7 +142,7 @@ def test_unported_modes_raise(prop, port_catalog):
     # not
     ("CREATE MATERIALIZED VIEW t AS SELECT l_orderkey FROM lineitem",
      "CreateMaterializedView"),
-    ("SELECT cos(l_discount) FROM lineitem", "cos"),
+    ("SELECT st_point(l_discount, l_tax) FROM lineitem", "st_point"),
 ])
 def test_unported_nodes_and_functions_raise_with_their_name(sql, name,
                                                             port_catalog):
