@@ -149,11 +149,25 @@ values (FX_REFERENCE_SF1), E1's sine sums against their exact values
 line (E1 must launch fused_group_sums, E4 block_gather).  The decimals
 phase also holds E10's strings on the card to the CPU's and presto_tpu's
 (`division_strings`).
+The zones_sketches phase runs presto_tpu_torch/zone_sketch_queries.py
+(Z1 to Z5: zone conversions over orders and lineitem, a join filtered
+by a zoned wall clock, zoned scalars and a session-zone script; K1 to
+K6: approx_set, t-digests, q-digests, array and weighted
+approx_percentile, min_by / max_by with a count, approx_most_frequent,
+reduce_agg, map_union_sum) at SF1 the same way, each record against
+presto_tpu's SF1 values (ZS_REFERENCE_SF1; blobs by their SHA-256),
+and Z6's session constants against their properties; a `zones` line
+names each zone's TZif file and its SHA-256 (a zone found nowhere fails
+the phase), one `zones_sketches` line a query and mode, a
+`zones_sketches_kernels` line (Z1, Z2 and K4 must launch
+fused_group_sums, Z3 or K5 block_gather) and the phase's seconds beside
+its 60 s target (`zones_sketches_total`).
 segment_sum is held to bit identity in ten calls and to the correctly
 rounded sums on the inputs of Q15 and Q3; the integer
 division fault C1, a SELECT without FROM and a DISTINCT aggregate run on
-the card against the CPU; a profile of each query gives its device busy
-and idle shares.  No check reads a time.
+the card against the CPU; a profile of each flagship TPC-H query (Q1,
+Q3, Q6, Q18) gives its device busy and idle shares.  No check reads a
+time.
 
 Every phase prints one JSON line.  A phase that fails prints one JSON
 line with its name, its query, the exception and its traceback's tail
@@ -229,6 +243,9 @@ SLEEP_CYCLES_PER_CALL = 200_000
 # summary: those whose bound is at least this (ms)
 BG_MIN_COMPARED_MS = 0.02
 SLICE_QUERIES = tuple(range(1, 23))
+# the TPC-H queries profiled warm in the dynamic executor (busy and idle
+# shares)
+PROFILED_QUERIES = SLICE_QUERIES
 DYNAMIC_RUNS = 3  # runs of each query in the dynamic executor
 COMPILED_REPLAYS = 3  # replays of each query's graph after its first run
 # TPC-DS at a cut depth (the functions_ext phase's time): a cold and a
@@ -666,11 +683,11 @@ DS_GRAPH_REPORT = (22, 29, 4)
 # replays whose top device operations the summary lists
 DS_TOP_REPLAYS = 3
 # the queries profiled in both executors (busy and idle shares, top
-# kernels): DS_GRAPH_REPORT's and the slowest of P11's runs (q14, q64,
-# q4's dynamic reruns) and of P16-a's replays; the other queries' lines
-# carry their CUDA-event and host times only (the phase's depth, cut for
-# the functions_ext phase's time)
-DS_PROFILED = (4, 14, 22, 29, 64, 23, 24, 72, 78, 95)
+# kernels): DS_GRAPH_REPORT's and the slowest of P11's runs (q14); the
+# other queries' lines carry their CUDA-event and host times only (the
+# phase's depth, cut for the functions_ext and zones_sketches phases'
+# time: q64, q23, q24, q72, q78 and q95 were profiled before)
+DS_PROFILED = (4, 14, 22, 29)
 # presto_tpu's values for the function corpus at SF1 on the CPU, in each
 # executor (`python -m tests.test_torch_functions_corpus 1 NAME`, one
 # query a process): rows in order (the compiled rows only where they
@@ -4044,6 +4061,725 @@ FX_E1_SIN_SF1 = [["A", "F", 379.9671732848458],
                  ["N", "O", 2460.803195312635],
                  ["R", "F", -0.6824484686475433]]
 
+#: presto_tpu's records of the time-zone and sketch corpus at SF1, each
+#: fact once (zone_sketch_queries.compact_reference), from `JAX_PLATFORMS=cpu
+#: python -m tests.torch_zone_sketch_common 1 <ID> <cache dir>`, one query
+#: a process ("Z5" for the script), with this machine's
+#: /usr/share/zoneinfo (the `zones` line gives each file's SHA-256)
+ZS_REFERENCE_SF1 = {'auto': {'K1a': {},
+          'K1b': {},
+          'K2': {},
+          'K3': {},
+          'K4': {},
+          'K5': {},
+          'K6': {},
+          'K6b': {},
+          'Z1': {},
+          'Z2': {},
+          'Z3': {},
+          'Z4': {},
+          'Z4b': {'counters': [3, 0, 0, 0, 0, 0, 0],
+                  'memo': ['executable'],
+                  'mode': 'compiled',
+                  'rows': [[18, 1500000, 413171118835.99976]]},
+          'Z5a': {},
+          'Z5b': {'memo': ['executable'], 'mode': 'compiled'},
+          'Z5c': {'memo': ['executable'], 'mode': 'compiled'},
+          'Z5d': {}},
+ 'compiled': {'K1a': {'counters': None,
+                      'error': ['StaticFallback',
+                                'approx_set is dynamic-mode only'],
+                      'mode': None,
+                      'rows': None,
+                      'types': None},
+              'K1b': {'counters': None,
+                      'error': ['StaticFallback',
+                                'approx_set is dynamic-mode only'],
+                      'mode': None,
+                      'rows': None,
+                      'types': None},
+              'K2': {'counters': None,
+                     'error': ['StaticFallback',
+                               'tdigest_agg is dynamic-mode only'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'K3': {'counters': None,
+                     'error': ['StaticFallback',
+                               'qdigest_agg is dynamic-mode only'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'K4': {'counters': None,
+                     'error': ['StaticFallback',
+                               'array/weighted approx_percentile is '
+                               'dynamic-mode only'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'K5': {'counters': None,
+                     'error': ['StaticFallback',
+                               'min_by is dynamic-mode only'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'K6': {'counters': None,
+                     'error': ['StaticFallback',
+                               'reduce_agg is dynamic-mode only'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'K6b': {'counters': None,
+                      'error': ['StaticFallback',
+                                'map_agg is dynamic-mode only'],
+                      'mode': None,
+                      'rows': None,
+                      'types': None},
+              'Z1': {'counters': None,
+                     'error': ['StaticFallback',
+                               'The numpy.ndarray conversion method '
+                               '__array__() was called on traced array with '
+                               'shape int32[1500000]'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'Z2': {'counters': None,
+                     'error': ['StaticFallback',
+                               'The numpy.ndarray conversion method '
+                               '__array__() was called on traced array with '
+                               'shape int32[6000601]'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'Z3': {'counters': None,
+                     'error': ['StaticFallback',
+                               'The numpy.ndarray conversion method '
+                               '__array__() was called on traced array with '
+                               'shape int32[6000601]'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'Z4': {'counters': None,
+                     'error': ['StaticFallback',
+                               'Abstract tracer value encountered where '
+                               'concrete value is expected: traced array '
+                               'with shape int64[]'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'Z4b': {'counters': [3, 0, 0, 0, 0, 0, 0],
+                      'memo': ['executable'],
+                      'mode': 'compiled',
+                      'rows': [[18, 1500000, 413171118835.99976]]},
+              'Z5a': {},
+              'Z5b': {'memo': ['executable'], 'mode': 'compiled'},
+              'Z5c': {'memo': ['executable'], 'mode': 'compiled'},
+              'Z5d': {'counters': None,
+                      'error': ['StaticFallback',
+                                'The numpy.ndarray conversion method '
+                                '__array__() was called on traced array with '
+                                'shape int32[1500000]'],
+                      'mode': None,
+                      'rows': None,
+                      'types': None}},
+ 'dynamic': {'K1a': {'counters': [2, 1, 0, 0, 0, 0, 0],
+                     'error': None,
+                     'memo': [],
+                     'mode': 'dynamic',
+                     'rows': [['1-URGENT', 90333,
+                               'sha256:96daac3a091ab3bd43e5dd440292b9c43237e2fa2fb9b35d0b2fa0ffcb44106c'],
+                              ['2-HIGH', 90469,
+                               'sha256:7e23263cd7a2791f70971215c8676b1a0bf02daff7bfcd325c50449425da6acf'],
+                              ['3-MEDIUM', 92923,
+                               'sha256:e3859db9a741c54b43ac1029ca5b597ba8447262096dd4a29a1481fe2babec20'],
+                              ['4-NOT SPECIFIED', 92530,
+                               'sha256:7872a92e7fac6528bef558a30ea0593f8bc8e97a655de2d0fddfc2d56063df39'],
+                              ['5-LOW', 90985,
+                               'sha256:2071d5725a9e301476bb51828c72d636f29c0e0adde30f8ae212cb989010d908']],
+                     'types': ['VARCHAR', 'BIGINT', 'VARCHAR']},
+             'K1b': {'counters': [2, 0, 0, 0, 0, 0, 0],
+                     'error': None,
+                     'memo': [],
+                     'mode': 'dynamic',
+                     'rows': [[99920, 0]],
+                     'types': ['BIGINT', 'BIGINT']},
+             'K2': {'counters': [2, 1, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [['A', 25.504470810429773,
+                              [5.531780123234409, 45.480154964373035],
+                              0.49078714011746744, 12.959683344102288,
+                              [[1626.9691976423092, 3526.295288013344,
+                                5697.405266160179, 7892.524971078437,
+                                10094.536269366607, 12298.031053880673,
+                                14475.663743064995, 16654.61228327163,
+                                18803.483045096753, 20948.525190299537,
+                                23071.177707800336, 25169.476338627836,
+                                27240.995895633845, 29295.338683560985,
+                                31312.259092504697, 33304.59961471573,
+                                35263.48190756356, 37181.94418081002,
+                                39068.23591624541, 40919.280266809554,
+                                42716.51377955137, 44474.215599051066,
+                                46206.67100852559, 47898.50345191304,
+                                49569.544552239706, 51230.174344645544,
+                                52899.77123580905, 54595.50398648017,
+                                56325.489612656755, 58093.03908549311,
+                                59932.676407641164, 61806.30041982964,
+                                63706.60221168523, 65647.3180673203,
+                                67621.09828452194, 69624.60502002646,
+                                71667.52723043312, 73716.95873086515,
+                                75788.60594822581, 77897.4821933113,
+                                80044.94995022703, 82234.54290169897,
+                                84450.00025112768, 86682.54412363392,
+                                88891.58530376352, 91162.43833828924,
+                                93528.8164402678, 95905.3817402398,
+                                98702.40795278172, 101931.07471965952,
+                                104949.50000000001],
+                               [37664.0, 112842.0, 187575.0, 261569.0,
+                                334533.0, 406175.0, 476206.0, 544368.0,
+                                610378.0, 673990.0, 734936.0, 792965.0,
+                                847880.0, 899434.0, 947465.0, 991735.0,
+                                1032102.0, 1068403.0, 1100453.0, 1128183.0,
+                                1151470.0, 1170209.0, 1184323.0, 1193741.0,
+                                1198509.0, 1198519.0, 1193793.0, 1184338.0,
+                                1170203.0, 1151484.0, 1128242.0, 1100518.0,
+                                1068416.0, 1032147.0, 991741.0, 947493.0,
+                                899480.0, 847932.0, 793023.0, 734971.0,
+                                674059.0, 610401.0, 544424.0, 476262.0,
+                                406270.0, 334625.0, 261677.0, 187704.0,
+                                113007.0, 37829.0, 50.0],
+                               100.0, 903.0, 104949.50000000001, 38175716.0],
+                              65338.905483004186],
+                             ['N', 25.48728604675503,
+                              [5.52339315198953, 45.4851261195677],
+                              0.4911144501042686, 12.94983651428874,
+                              [[1623.0449992063661, 3521.1340690395014,
+                                5696.294492513052, 7889.064832054105,
+                                10083.301483275676, 12280.654663510339,
+                                14475.623969722268, 16648.841851914272,
+                                18804.204014054827, 20936.148469264972,
+                                23059.798678535433, 25160.785269928012,
+                                27230.379623661553, 29276.89475784857,
+                                31298.053653533196, 33289.51605941494,
+                                35243.70267370527, 37165.51534636269,
+                                39059.4160740602, 40915.78498627178,
+                                42727.48897532228, 44487.61900798006,
+                                46211.678375907344, 47904.44868639024,
+                                49574.25281796598, 51238.56392654655,
+                                52911.27032971889, 54613.34901651471,
+                                56348.13264178488, 58120.35238232391,
+                                59933.12937010529, 61786.04327414923,
+                                63693.85655589992, 65637.21218599938,
+                                67613.74395432815, 69613.52638328263,
+                                71657.2944837953, 73730.20484690368,
+                                75839.19750250342, 77953.62923449957,
+                                80098.48068315444, 82283.34209920875,
+                                84458.92450326764, 86677.91104257035,
+                                88948.49186090761, 91224.24066947198,
+                                93574.9510470521, 96063.92948559603,
+                                98783.45567348876, 101849.25393873769,
+                                104799.50000000001],
+                               [75602.0, 226508.0, 376522.0, 525050.0,
+                                671507.0, 815315.0, 955883.0, 1092718.0,
+                                1225205.0, 1352873.0, 1475189.0, 1591703.0,
+                                1701925.0, 1805440.0, 1901833.0, 1990712.0,
+                                2071728.0, 2144574.0, 2208964.0, 2264638.0,
+                                2311332.0, 2348945.0, 2377241.0, 2396222.0,
+                                2405760.0, 2405722.0, 2396224.0, 2377290.0,
+                                2348946.0, 2311352.0, 2264648.0, 2208983.0,
+                                2144595.0, 2071748.0, 1990773.0, 1901860.0,
+                                1805455.0, 1701998.0, 1591798.0, 1475244.0,
+                                1352915.0, 1225295.0, 1092782.0, 956003.0,
+                                815387.0, 671604.0, 525122.0, 376669.0,
+                                226663.0, 75740.0, 50.0],
+                               100.0, 901.0, 104799.50000000001, 76628255.0],
+                              65327.63560642383],
+                             ['R', 25.473605988974857,
+                              [5.504346141758424, 45.46606682316469],
+                              0.49129422033845405, 12.931856211976127,
+                              [[1617.66763991819, 3519.5671117257907,
+                                5682.623237791464, 7877.131044810964,
+                                10070.243386455724, 12268.850508974274,
+                                14448.48302991209, 16641.593939705817,
+                                18795.950957500245, 20932.451062453616,
+                                23060.72410919493, 25160.53478245344,
+                                27227.734129547804, 29280.774143311886,
+                                31306.604874312063, 33295.51094723149,
+                                35258.655000591316, 37191.41451377497,
+                                39080.05693297386, 40931.43661469698,
+                                42735.19376454507, 44502.46220877066,
+                                46229.04785379266, 47913.37855303704,
+                                49584.44966554364, 51250.30808767379,
+                                52920.225931983565, 54618.6848951693,
+                                56352.25095356554, 58119.51325280215,
+                                59925.07462668465, 61773.61075820473,
+                                63669.692916303924, 65615.02907597086,
+                                67596.83620209804, 69616.68223437444,
+                                71659.89215600674, 73740.96812977306,
+                                75817.32383253823, 77904.5596500895,
+                                80040.83250693168, 82221.32913451809,
+                                84416.59665706825, 86636.07004387978,
+                                88898.51473860227, 91194.27928831543,
+                                93499.35353836675, 95977.17558282692,
+                                98724.8420074921, 101926.10896094967,
+                                104899.50000000001],
+                               [37647.0, 112794.0, 187492.0, 261454.0,
+                                334385.0, 405993.0, 475994.0, 544132.0,
+                                610120.0, 673667.0, 734594.0, 792612.0,
+                                847502.0, 899032.0, 947028.0, 991310.0,
+                                1031638.0, 1067911.0, 1099971.0, 1127707.0,
+                                1150981.0, 1169705.0, 1183786.0, 1193237.0,
+                                1197944.0, 1197986.0, 1193240.0, 1183814.0,
+                                1169736.0, 1150980.0, 1127706.0, 1099980.0,
+                                1067934.0, 1031699.0, 991350.0, 947084.0,
+                                899102.0, 847571.0, 792647.0, 734645.0,
+                                673720.0, 610215.0, 544175.0, 476074.0,
+                                406086.0, 334474.0, 261567.0, 187620.0,
+                                112917.0, 37823.0, 50.0],
+                               100.0, 905.0, 104899.50000000001, 38158831.0],
+                              65306.05893983318]],
+                    'types': ['VARCHAR', 'DOUBLE', 'ARRAY(DOUBLE)', 'DOUBLE',
+                              'DOUBLE',
+                              "ROW(('means', Type(name='ARRAY', "
+                              "params=(Type(name='DOUBLE', "
+                              "params=()),))),('weights', Type(name='ARRAY', "
+                              "params=(Type(name='DOUBLE', "
+                              "params=()),))),('compression', "
+                              "Type(name='DOUBLE', params=())),('min', "
+                              "Type(name='DOUBLE', params=())),('max', "
+                              "Type(name='DOUBLE', params=())),('sum', "
+                              "Type(name='DOUBLE', params=())))",
+                              'DOUBLE']},
+             'K3': {'counters': [2, 1, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [['F', 0.04999999999999999, 0.09999999999999998,
+                              0.5405354182879153, 3033927,
+                              'sha256:4677fa5c0e2d4ec2b49afb3804ac1ad1fd4622c6127e41597fa8b7f989584a0f'],
+                             ['O', 0.04999999999999999, 0.09999999999999999,
+                              0.5439930373205819, 2966674,
+                              'sha256:6d69134e2eaacb0ec2dab109c45422dcec3d26b67dd1dbf984237c468cda3089']],
+                    'types': ['VARCHAR', 'DOUBLE', 'DOUBLE', 'DOUBLE',
+                              'BIGINT', 'VARCHAR']},
+             'K4': {'counters': [2, 1, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [['A', 'F', [6.0, 26.0, 46.0], 0.05, 38175716.0,
+                              1497115],
+                             ['N', 'F', [5.0, 25.0, 45.0], 0.05, 997717.0,
+                              39234],
+                             ['N', 'O', [6.0, 25.0, 46.0], 0.05, 75630538.0,
+                              2966674],
+                             ['R', 'F', [5.0, 25.0, 45.0], 0.05, 38158831.0,
+                              1497578]],
+                    'types': ['VARCHAR', 'VARCHAR', 'ARRAY(DOUBLE)', 'DOUBLE',
+                              'DOUBLE', 'BIGINT']},
+             'K5': {'counters': [5, 1, 0, 0, 1, 1, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [['1-URGENT', [4625222, 4507041, 637382], [1, 2],
+                              [['MAIL', 172066], ['REG AIR', 171783],
+                               ['TRUCK', 171739]]],
+                             ['2-HIGH', [2538887, 5876036, 1347654], [1, 2],
+                              [['AIR', 172379], ['FOB', 172327],
+                               ['SHIP', 172767]]],
+                             ['3-MEDIUM', [1105608, 2622660, 5150758], [1, 2],
+                              [['AIR', 171972], ['FOB', 172090],
+                               ['MAIL', 172205]]],
+                             ['4-NOT SPECIFIED', [3799300, 86472, 869058],
+                              [1, 2],
+                              [['MAIL', 171077], ['SHIP', 171147],
+                               ['TRUCK', 170987]]],
+                             ['5-LOW', [790050, 2110433, 2935779], [1, 2],
+                              [['AIR', 171927], ['FOB', 171624],
+                               ['RAIL', 171564]]]],
+                    'types': ['VARCHAR', 'ARRAY(BIGINT)', 'ARRAY(INTEGER)',
+                              'MAP(VARCHAR,BIGINT)']},
+             'K6': {'counters': [2, 1, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [['F', 198085489505.0, 719489],
+                             ['O', 193807695808.33002, 703440],
+                             ['P', 21277933522.65, 77071]],
+                    'types': ['VARCHAR', 'DOUBLE', 'BIGINT']},
+             'K6b': {'counters': [2, 2, 0, 0, 0, 0, 0],
+                     'error': None,
+                     'memo': [],
+                     'mode': 'dynamic',
+                     'rows': [[[['F', 719489], ['O', 703440], ['P', 77071]]]],
+                     'types': ['MAP(VARCHAR,BIGINT)']},
+             'Z1': {'counters': [2, 1, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [[22, 839324, 231430393705.63992,
+                              275734.2738985659],
+                             [23, 660676, 181740725130.33997,
+                              275082.9833842004]],
+                    'types': ['BIGINT', 'BIGINT', 'DOUBLE', 'DOUBLE']},
+             'Z2': {'counters': [2, 1, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [[1992, 1, '1992', 10, 719415000000000, 80030,
+                              3051849488.35, 0.05004035986505059],
+                             [1992, 1, '1992', 11, 725461200000000, 30318,
+                              1156349453.4500015, 0.050121050201200675],
+                             [1992, 2, '1992', 10, 719501400000000, 80197,
+                              3068765284.860004, 0.04998640846914472],
+                             [1992, 2, '1992', 11, 725547600000000, 30210,
+                              1154288100.7699995, 0.04979576299238659],
+                             [1992, 3, '1992', 10, 719587800000000, 80819,
+                              3083420243.200001, 0.050051349311424284],
+                             [1992, 3, '1992', 11, 725634000000000, 30461,
+                              1159732400.6899996, 0.049834870818423534],
+                             [1992, 4, '1992', 10, 719674200000000, 80499,
+                              3073318853.7299995, 0.04994645896222319],
+                             [1992, 4, '1992', 11, 725720400000000, 30378,
+                              1165656161.8499992, 0.04972249654355135],
+                             [1992, 5, '1992', 10, 719760600000000, 80334,
+                              3062048211.25, 0.04987091393432425],
+                             [1992, 5, '1992', 11, 725202000000000, 28488,
+                              1090806137.4899998, 0.0501302302723953],
+                             [1992, 6, '1992', 10, 719847000000000, 80713,
+                              3082843183.0200005, 0.050038283795671074],
+                             [1992, 6, '1992', 11, 725288400000000, 28653,
+                              1099278883.7599998, 0.05026803476075801],
+                             [1992, 7, '1992', 10, 719933400000000, 81103,
+                              3098569067.460002, 0.05000986400009874],
+                             [1992, 7, '1992', 11, 725374800000000, 28595,
+                              1097392916.9799995, 0.04996188144780554],
+                             [1993, 1, '1993', 10, 751469400000000, 85858,
+                              3273897346.3500037, 0.05001793659297911],
+                             [1993, 1, '1993', 11, 756910800000000, 45397,
+                              1737654099.579999, 0.05006057669008962],
+                             [1993, 2, '1993', 10, 751555800000000, 86117,
+                              3294500853.0000005, 0.049991871523624845],
+                             [1993, 2, '1993', 11, 756997200000000, 45088,
+                              1724331548.3300006, 0.050254169623846774],
+                             [1993, 3, '1993', 10, 751642200000000, 86053,
+                              3295685361.949998, 0.05000499692050249],
+                             [1993, 3, '1993', 11, 757083600000000, 45129,
+                              1729955033.079997, 0.04979481043231622],
+                             [1993, 4, '1993', 10, 751728600000000, 85426,
+                              3270086384.539999, 0.049885866129749726],
+                             [1993, 4, '1993', 11, 757170000000000, 45183,
+                              1728418523.4799998, 0.0502467742292455],
+                             [1993, 5, '1993', 10, 751815000000000, 86362,
+                              3291592396.9399986, 0.05002385308353215],
+                             [1993, 5, '1993', 11, 757256400000000, 47727,
+                              1829289547.2900014, 0.04986527542062153],
+                             [1993, 6, '1993', 10, 751901400000000, 85788,
+                              3282200036.640001, 0.05010735767240171],
+                             [1993, 6, '1993', 11, 756738000000000, 45326,
+                              1743637350.1300004, 0.050110753210078046],
+                             [1993, 7, '1993', 10, 751987800000000, 85754,
+                              3290224122.0900035, 0.049891317023112586],
+                             [1993, 7, '1993', 11, 756824400000000, 45564,
+                              1742343301.3499992, 0.049976955491177234],
+                             [1994, 1, '1994', 10, 782919000000000, 85866,
+                              3293246626.1000013, 0.05003493815945776],
+                             [1994, 1, '1994', 11, 788360400000000, 45036,
+                              1710072752.9099987, 0.050084821032063326],
+                             [1994, 2, '1994', 10, 783005400000000, 85578,
+                              3271963092.63, 0.049881862160835726],
+                             [1994, 2, '1994', 11, 788446800000000, 45379,
+                              1737671386.8200011, 0.05001432380616581],
+                             [1994, 3, '1994', 10, 783091800000000, 85469,
+                              3266714189.919999, 0.050079093004481115],
+                             [1994, 3, '1994', 11, 788533200000000, 45220,
+                              1729104230.09, 0.05021959310039805],
+                             [1994, 4, '1994', 10, 783178200000000, 85507,
+                              3259145693.420002, 0.05010350029822121],
+                             [1994, 4, '1994', 11, 788619600000000, 45358,
+                              1729483619.0999975, 0.050063715331363876],
+                             [1994, 5, '1994', 10, 783264600000000, 85220,
+                              3255260707.529994, 0.04998908706876323],
+                             [1994, 5, '1994', 11, 788706000000000, 44991,
+                              1722960006.1499984, 0.049952879464781864],
+                             [1994, 6, '1994', 10, 783351000000000, 85576,
+                              3270654865.400004, 0.050072216509301666],
+                             [1994, 6, '1994', 11, 788792400000000, 48096,
+                              1841583471.69, 0.04974446939454422],
+                             [1994, 7, '1994', 10, 783437400000000, 85647,
+                              3260509847.8100014, 0.04982521279204173],
+                             [1994, 7, '1994', 11, 788274000000000, 45460,
+                              1743592762.6399977, 0.04990585129784427],
+                             [1995, 1, '1995', 10, 814368600000000, 85944,
+                              3280874645.699998, 0.05004968351484688],
+                             [1995, 1, '1995', 11, 819810000000000, 45108,
+                              1727433811.7899985, 0.0500873459253347],
+                             [1995, 2, '1995', 10, 814455000000000, 85861,
+                              3285446383.4699984, 0.04991870581521291],
+                             [1995, 2, '1995', 11, 819896400000000, 45498,
+                              1752005010.1200006, 0.05012923644995384],
+                             [1995, 3, '1995', 10, 814541400000000, 85903,
+                              3278253117.3199983, 0.049969267662363384],
+                             [1995, 3, '1995', 11, 819982800000000, 45610,
+                              1734914340.5000005, 0.05010392457794343],
+                             [1995, 4, '1995', 10, 814627800000000, 86277,
+                              3299738646.329997, 0.05011532621672053],
+                             [1995, 4, '1995', 11, 820069200000000, 44985,
+                              1718395003.7199988, 0.050222074024674886],
+                             [1995, 5, '1995', 10, 814714200000000, 86078,
+                              3296635767.07, 0.0500225376983666],
+                             [1995, 5, '1995', 11, 820155600000000, 45528,
+                              1732359341.3099997, 0.04993608328940435],
+                             [1995, 6, '1995', 10, 814800600000000, 86177,
+                              3294501798.6600027, 0.04987606902073636],
+                             [1995, 6, '1995', 11, 820242000000000, 45420,
+                              1733621343.0499983, 0.05018383971818579],
+                             [1995, 7, '1995', 10, 814887000000000, 86052,
+                              3287319499.3300033, 0.05003114395946639],
+                             [1995, 7, '1995', 11, 820328400000000, 47934,
+                              1834819683.3999991, 0.05018108232152544],
+                             [1996, 1, '1996', 10, 845818200000000, 75411,
+                              2892825236.16, 0.04992242511039502],
+                             [1996, 1, '1996', 11, 851864400000000, 58619,
+                              2242890573.3400006, 0.05028983776591206],
+                             [1996, 2, '1996', 10, 845904600000000, 75545,
+                              2886187459.45, 0.05005043351644716],
+                             [1996, 2, '1996', 11, 851950800000000, 58319,
+                              2228870323.1400003, 0.049877569917179704],
+                             [1996, 3, '1996', 10, 845991000000000, 75576,
+                              2895033149.6600018, 0.050009659151053196],
+                             [1996, 3, '1996', 11, 851432400000000, 56139,
+                              2144143541.1500018, 0.05014855982472075],
+                             [1996, 4, '1996', 10, 846077400000000, 75409,
+                              2879245520.9900002, 0.050006365287962984],
+                             [1996, 4, '1996', 11, 851518800000000, 55768,
+                              2126843289.5499995, 0.04995194376703484],
+                             [1996, 5, '1996', 10, 846163800000000, 75695,
+                              2889227892.6900015, 0.04997806988572557],
+                             [1996, 5, '1996', 11, 851605200000000, 55604,
+                              2124627170.6600015, 0.05010700669016616],
+                             [1996, 6, '1996', 10, 846250200000000, 75909,
+                              2911637984.9699965, 0.05001172456493958],
+                             [1996, 6, '1996', 11, 851691600000000, 55512,
+                              2116459121.9000003, 0.049962170341547825],
+                             [1996, 7, '1996', 10, 846336600000000, 75656,
+                              2889117130.269996, 0.04996193295971236],
+                             [1996, 7, '1996', 11, 851778000000000, 55488,
+                              2120419740.7599995, 0.05005748990772774],
+                             [1997, 1, '1997', 10, 877267800000000, 75802,
+                              2906718077.0699987, 0.050137727236748336],
+                             [1997, 1, '1997', 11, 883314000000000, 55778,
+                              2131479694.8599973, 0.05007978055864323],
+                             [1997, 2, '1997', 10, 877354200000000, 75995,
+                              2890088812.400001, 0.04999342061977762],
+                             [1997, 2, '1997', 11, 883400400000000, 55976,
+                              2140525638.26, 0.05020187223095615],
+                             [1997, 3, '1997', 10, 877440600000000, 76111,
+                              2919185591.8800015, 0.04997687587865092],
+                             [1997, 3, '1997', 11, 883486800000000, 58612,
+                              2236551806.130002, 0.04998037944448235],
+                             [1997, 4, '1997', 10, 877527000000000, 75868,
+                              2885563150.71, 0.05001753044761958],
+                             [1997, 4, '1997', 11, 882968400000000, 55908,
+                              2135250385.64, 0.04991450239679476],
+                             [1997, 5, '1997', 10, 877613400000000, 75929,
+                              2907026215.0700006, 0.049960357702590594],
+                             [1997, 5, '1997', 11, 883054800000000, 55670,
+                              2125069773.9100006, 0.049912340578408425],
+                             [1997, 6, '1997', 10, 877699800000000, 75576,
+                              2898401437.8200006, 0.04992762252566957],
+                             [1997, 6, '1997', 11, 883141200000000, 55739,
+                              2132840985.9100008, 0.050050413534509015],
+                             [1997, 7, '1997', 10, 877786200000000, 75541,
+                              2883345218.5499997, 0.050248739095325706],
+                             [1997, 7, '1997', 11, 883227600000000, 55998,
+                              2146119913.55, 0.050246080217150636],
+                             [1998, 1, '1998', 10, 908717400000000, 58005,
+                              2222331932.4500012, 0.05018050168088961],
+                             [1998, 1, '1998', 11, 909320400000000, 30159,
+                              1150133984.7300005, 0.04993600583573724],
+                             [1998, 2, '1998', 10, 908803800000000, 57619,
+                              2206180982.000001, 0.04979312379597011],
+                             [1998, 2, '1998', 11, 909406800000000, 30321,
+                              1159097737.0799987, 0.04973054978397808],
+                             [1998, 3, '1998', 10, 908890200000000, 56819,
+                              2175047721.3700004, 0.0497939069677397],
+                             [1998, 3, '1998', 11, 909493200000000, 30387,
+                              1162916678.869999, 0.049824266956264164],
+                             [1998, 4, '1998', 10, 908976600000000, 56407,
+                              2156162600.6800013, 0.05004556172106295],
+                             [1998, 4, '1998', 11, 909579600000000, 33173,
+                              1267591981.82, 0.05008078859313294],
+                             [1998, 5, '1998', 10, 909063000000000, 56567,
+                              2169244099.2600026, 0.04998903954602501],
+                             [1998, 5, '1998', 11, 909666000000000, 32974,
+                              1261432403.2400005, 0.04981470249287314],
+                             [1998, 6, '1998', 10, 909149400000000, 55871,
+                              2136218615.8200002, 0.05016520198313969],
+                             [1998, 6, '1998', 11, 909752400000000, 32888,
+                              1253641205.1200001, 0.05013926052055463],
+                             [1998, 7, '1998', 10, 909235800000000, 55531,
+                              2116002515.32, 0.04988294826313229],
+                             [1998, 7, '1998', 11, 909838800000000, 32379,
+                              1237148493.3599985, 0.05016986318292721]],
+                    'types': ['BIGINT', 'BIGINT', 'VARCHAR', 'BIGINT',
+                              'TIMESTAMP WITH TIME ZONE', 'BIGINT', 'DOUBLE',
+                              'DOUBLE']},
+             'Z3': {'counters': [5, 1, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [['1-URGENT', 355057, 13567133403.950018],
+                             ['2-HIGH', 354339, 13528931244.339996],
+                             ['3-MEDIUM', 353857, 13511057525.580006],
+                             ['4-NOT SPECIFIED', 352390, 13495527472.769999],
+                             ['5-LOW', 354023, 13563044336.95999]],
+                    'types': ['VARCHAR', 'BIGINT', 'DOUBLE']},
+             'Z4': {'counters': [0, 0, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [[1590992100000000, 1590992100000000,
+                              1591025400000000,
+                              '2020-06-01 17:30:00.000 Asia/Kolkata', -3, -30,
+                              0, 18414, 84600000000, 1591000200.25,
+                              '10:00:00.000+05:30',
+                              '2020-06-01 21:00:00.000 Asia/Tokyo',
+                              '1969-12-31 19:30:00.000 -04:30',
+                              '2020-03-08 01:30:00.000 America/New_York',
+                              1604208600.0,
+                              '2020-03-08 03:30:00.000 America/New_York',
+                              '2020-02-29 12:00:00.000 America/New_York']],
+                    'types': ['TIMESTAMP WITH TIME ZONE',
+                              'TIMESTAMP WITH TIME ZONE',
+                              'TIMESTAMP WITH TIME ZONE', 'VARCHAR', 'BIGINT',
+                              'BIGINT', 'BIGINT', 'DATE', 'TIME', 'DOUBLE',
+                              'VARCHAR', 'VARCHAR', 'VARCHAR', 'VARCHAR',
+                              'DOUBLE', 'VARCHAR', 'VARCHAR']},
+             'Z4b': {'counters': [2, 1, 0, 0, 0, 0, 0],
+                     'error': None,
+                     'memo': [],
+                     'mode': 'dynamic',
+                     'rows': [[18, 1500000, 413171118835.9798]],
+                     'types': ['BIGINT', 'BIGINT', 'DOUBLE']},
+             'Z5a': {'counters': [0, 0, 0, 0, 0, 0, 0],
+                     'error': None,
+                     'memo': [],
+                     'mode': '',
+                     'rows': [[True]],
+                     'types': ['BOOLEAN']},
+             'Z5b': {'counters': [0, 0, 0, 0, 0, 0, 0],
+                     'error': None,
+                     'memo': [],
+                     'mode': 'dynamic',
+                     'rows': [['Asia/Tokyo']],
+                     'types': ['VARCHAR']},
+             'Z5c': {'counters': [0, 0, 0, 0, 0, 0, 0],
+                     'error': None,
+                     'memo': [],
+                     'mode': 'dynamic',
+                     'rows': [['2020-06-01 12:00:00.000 Asia/Tokyo', True]],
+                     'types': ['VARCHAR', 'BOOLEAN']},
+             'Z5d': {'counters': [0, 0, 0, 0, 0, 0, 0],
+                     'error': None,
+                     'memo': [],
+                     'mode': 'dynamic',
+                     'rows': [[690985, 8035]],
+                     'types': ['BIGINT', 'DATE']}}}
+
+#: K2's weighted-digest columns at SF1 (destructure_tdigest(w),
+#: value_at_quantile(w, 0.75)): presto_tpu's t-digest over the generated
+#: columns (`python -m tests.torch_zone_sketch_common weighted 1`, which
+#: first checks the port's l_returnflag, l_extendedprice and l_quantity
+#: bit for bit against presto_tpu's host generator), in place of
+#: presto_tpu's records, whose SF1 scan gives some prices one ulp off,
+#: which reorders equal prices and moves the weighted centroids
+#: (ROADMAP C)
+ZS_K2_WEIGHTED_SF1 = [['A',
+  [[1626.9691976423092, 3526.2952880133453, 5697.405266160174,
+    7892.524971078435, 10094.536269366592, 12298.031053880684,
+    14475.663743064988, 16654.612283271632, 18803.48304509675,
+    20948.525190299544, 23071.177707800336, 25169.476338627832,
+    27240.995895633838, 29295.338683561007, 31312.259092504686,
+    33304.59961471571, 35263.48190756356, 37181.94418080993,
+    39068.23591624541, 40919.280266809576, 42716.513779551395,
+    44474.21559905105, 46206.67100852557, 47898.50345191303,
+    49569.54455223968, 51230.16672109845, 52899.763505324176,
+    54595.50398648017, 56325.48961265673, 58093.0390854931, 59932.67640764118,
+    61806.300419829655, 63706.60221168522, 65647.31806732032,
+    67621.09828452198, 69624.60502002649, 71667.52723043314,
+    73716.95873086514, 75788.60594822583, 77897.48219331128,
+    80044.94995022705, 82234.54290169897, 84450.00025112767,
+    86682.54412363394, 88891.58530376351, 91162.43833828924, 93528.8164402678,
+    95905.3817402398, 98702.40795278172, 101931.07471965952,
+    104949.49999999999],
+   [37664.0, 112842.0, 187575.0, 261569.0, 334533.0, 406175.0, 476206.0,
+    544368.0, 610378.0, 673990.0, 734936.0, 792965.0, 847880.0, 899434.0,
+    947465.0, 991735.0, 1032102.0, 1068403.0, 1100453.0, 1128183.0, 1151470.0,
+    1170209.0, 1184323.0, 1193741.0, 1198509.0, 1198508.0, 1193804.0,
+    1184338.0, 1170203.0, 1151484.0, 1128242.0, 1100518.0, 1068416.0,
+    1032147.0, 991741.0, 947493.0, 899480.0, 847932.0, 793023.0, 734971.0,
+    674059.0, 610401.0, 544424.0, 476262.0, 406270.0, 334625.0, 261677.0,
+    187704.0, 113007.0, 37829.0, 50.0],
+   100.0, 903.0, 104949.49999999999, 38175716.0],
+  65338.90548300419],
+ ['N',
+  [[1623.0449992063661, 3521.1340690395004, 5696.294492513051,
+    7889.064832054094, 10083.30148327568, 12280.654663510339,
+    14475.623969722277, 16648.841851914294, 18804.204014054812,
+    20936.148469264976, 23059.79867853544, 25160.785269928012,
+    27230.379623661545, 29276.89475784857, 31298.05052685658,
+    33289.51304423321, 35243.702673705266, 37165.51534636265,
+    39059.416074060166, 40915.78498627175, 42727.48897532233,
+    44487.6190079801, 46211.67837590723, 47904.44868639022, 49574.25281796602,
+    51238.56392654658, 52911.270329718885, 54613.349016514665,
+    56348.132641784854, 58120.352382323916, 59933.129370105285,
+    61786.043274149204, 63693.85655589992, 65637.2121859994,
+    67613.74395432808, 69613.52208905313, 71657.289951353, 73730.2048469037,
+    75839.19750250352, 77953.6292344996, 80098.48068315443, 82283.34209920875,
+    84458.92450326761, 86677.91104257037, 88948.49186090763,
+    91224.24066947201, 93574.95104705212, 96063.92948559603,
+    98783.45567348876, 101849.25393873767, 104799.49999999999],
+   [75602.0, 226508.0, 376522.0, 525050.0, 671507.0, 815315.0, 955883.0,
+    1092718.0, 1225205.0, 1352873.0, 1475189.0, 1591703.0, 1701925.0,
+    1805440.0, 1901827.0, 1990718.0, 2071728.0, 2144574.0, 2208964.0,
+    2264638.0, 2311332.0, 2348945.0, 2377241.0, 2396222.0, 2405760.0,
+    2405722.0, 2396224.0, 2377290.0, 2348946.0, 2311352.0, 2264648.0,
+    2208983.0, 2144595.0, 2071748.0, 1990773.0, 1901852.0, 1805463.0,
+    1701998.0, 1591798.0, 1475244.0, 1352915.0, 1225295.0, 1092782.0,
+    956003.0, 815387.0, 671604.0, 525122.0, 376669.0, 226663.0, 75740.0,
+    50.0],
+   100.0, 901.0, 104799.49999999999, 76628255.0],
+  65327.63560642384],
+ ['R',
+  [[1617.66763991819, 3519.5671117257916, 5682.623237791466,
+    7877.1310448109625, 10070.243386455733, 12268.850508974256,
+    14448.483029912093, 16641.59393970581, 18795.95095750025,
+    20932.451062453616, 23060.72410919496, 25160.534782453466,
+    27227.73412954783, 29280.77414331187, 31306.60487431207,
+    33295.510947231494, 35258.65500059132, 37191.414513774966,
+    39080.056932973814, 40931.41739475548, 42735.1480197486,
+    44502.41063557006, 46228.99510175448, 47913.32032881269,
+    49584.39828413003, 51250.23626006931, 52920.14460648985,
+    54618.628238791614, 56352.19414305293, 58119.48321132835,
+    59925.07462668463, 61773.61075820472, 63669.69291630391,
+    65615.02907597087, 67596.83620209801, 69616.68223437443, 71659.8921560067,
+    73740.96812977309, 75817.32383253823, 77904.5596500895, 80040.83250693166,
+    82221.32913451809, 84416.59665706826, 86636.07004387978,
+    88898.51473860227, 91194.27928831542, 93499.35353836673,
+    95977.17558282694, 98724.8420074921, 101926.10896094967,
+    104899.49999999999],
+   [37647.0, 112794.0, 187492.0, 261454.0, 334385.0, 405993.0, 475994.0,
+    544132.0, 610120.0, 673667.0, 734594.0, 792612.0, 847502.0, 899032.0,
+    947028.0, 991310.0, 1031638.0, 1067911.0, 1099971.0, 1127683.0, 1150970.0,
+    1169706.0, 1183781.0, 1193232.0, 1197958.0, 1197942.0, 1193273.0,
+    1183818.0, 1169734.0, 1151019.0, 1127706.0, 1099980.0, 1067934.0,
+    1031699.0, 991350.0, 947084.0, 899102.0, 847571.0, 792647.0, 734645.0,
+    673720.0, 610215.0, 544175.0, 476074.0, 406086.0, 334474.0, 261567.0,
+    187620.0, 112917.0, 37823.0, 50.0],
+   100.0, 905.0, 104899.49999999999, 38158831.0],
+  65306.05893983319]]
+
 REFERENCE_COUNTERS = {SF: REFERENCE_COUNTERS_SF1, DS_CPU_CHECK_SF: {}}
 REFERENCE_MEMO = {SF: REFERENCE_MEMO_SF1, DS_CPU_CHECK_SF: {}}
 for _sf, _refs in ((SF, DS_REFERENCE_SF1),
@@ -5446,6 +6182,12 @@ def phase_slice(capture):
             counters, launches, by_query)
     emit({"phase": "functions_ext_total",
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    guarded("zones_sketches", None, phase_zones_sketches, cats[SF],
+            capture, counters, launches, by_query)
+    emit({"phase": "zones_sketches_total", "card": card_line(),
+          "seconds": time.perf_counter() - t0,
+          "target_seconds": ZS_TARGET_SECONDS})
     torch.cuda.synchronize()
     emit({"phase": "slice", "launches": launches,
           "launches_by_query": by_query})
@@ -5471,7 +6213,7 @@ def phase_slice(capture):
                 *segment_inputs.pop(qid))
     guarded("surface", None, phase_surface, sessions)
     guarded("memo_bound", None, phase_memo_bound, sessions)
-    for qid in SLICE_QUERIES:
+    for qid in PROFILED_QUERIES:
         guarded("profile", label(qid), phase_profile,
                 sessions["dynamic", SF], qid, QUERIES[qid])
     for name in counters:
@@ -6264,6 +7006,8 @@ def corpus_verdict(phase, runs, differs, counters, launches, by_query,
                              for g in r.values()) / 1e3
                       for m, r in runs.items()}, **kernels_line})
     if bad:
+        emit({"phase": f"{phase}_differences",
+              "ids": [b.split(":")[0] for b in bad]})
         raise AssertionError("; ".join(bad[:5]))
     missing = [s for s in fused_ids if s not in fgs_in]
     if missing:
@@ -6509,6 +7253,130 @@ def phase_functions_ext(cat, capture, counters, launches, by_query):
                           for m, r in runs.items()})
 
 
+# ---------------------------------------------------------------------------
+# the zones_sketches phase: the time-zone and sketch corpus at SF1
+# ---------------------------------------------------------------------------
+
+ZS_MODES = ("dynamic", "auto", "compiled")
+#: the phase's budget on the card (its `zones_sketches_total` line)
+ZS_TARGET_SECONDS = 60.0
+#: runs of Z6 (the session constants) a mode
+ZS_VOLATILE_RUNS = 2
+#: the queries profiled warm after the "dynamic" pass (busy and idle)
+ZS_PROFILED = ("Z1", "Z2")
+#: the SHA-256 of each zone's TZif file where ZS_REFERENCE_SF1 was
+#: frozen (/usr/share/zoneinfo); the `zones` line says which files match
+ZS_ZONE_SHA256 = {
+    "America/New_York":
+        "e9ed07d7bee0c76a9d442d091ef1f01668fee7c4f26014c0a868b19fe6c18a95",
+    "Asia/Kolkata":
+        "e90c341036cb7203200e293cb3b513267e104a39a594f35e195254e6bc0a17cf",
+    "Australia/Lord_Howe":
+        "2ee7f42f1fe2247ba1de465de0bc518dfdfab4b179fb05b650531534a353ee08",
+    "Europe/Berlin":
+        "5ee475f71a0fc1a32faeb849f8c39c6e7aa66d6d41ec742b97b3a7436b3b0701",
+    "Asia/Kathmandu":
+        "4d4796eeb0d289f3934ac371be8f628086197c621311951ffb4123825c910d6b",
+    "Asia/Tokyo":
+        "a02b9e66044dc5c35c5f76467627fdcba4aee1cc958606b85c777095cad82ceb",
+}
+
+
+def zone_files() -> dict:
+    """Each named zone of the corpus: where its TZif file was found (a
+    zoneinfo directory or the tzdata wheel), its SHA-256 and whether that
+    is the frozen records' file (ZS_ZONE_SHA256).  A zone that resolves
+    nowhere fails the phase: nothing falls back to UTC."""
+    import hashlib
+
+    from presto_tpu_torch import zone_sketch_queries as ZQ
+    from presto_tpu_torch.functions import tzdb
+
+    out = {}
+    for zone in ZQ.ZONES:
+        path = tzdb.tzif_path(zone)
+        if path is None:
+            raise AssertionError(f"no TZif file for {zone}")
+        with open(path, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        root = path[:-len(zone)].rstrip("/")
+        out[zone] = {"found_in": "tzdata wheel" if "tzdata" in root
+                     else root, "sha256": digest,
+                     "as_frozen": digest == ZS_ZONE_SHA256.get(zone)}
+    return out
+
+
+def zs_volatile(tables, mode) -> list:
+    """Z6 in a fresh session (UTC) on the card: ZS_VOLATILE_RUNS runs held
+    to their properties (zone_sketch_queries.volatile_faults) and a new
+    memo entry each run outside "dynamic"; returns the faults."""
+    import presto_tpu_torch
+    from presto_tpu_torch import zone_sketch_queries as ZQ
+
+    session = presto_tpu_torch.connect(_fresh_catalog(tables),
+                                       device="cuda", execution_mode=mode)
+    sql = ZQ.VOLATILE["Z6"]
+    t0 = int(time.time() * 1e6)
+    rows = [session.sql(sql).rows for _ in range(ZS_VOLATILE_RUNS)]
+    bad = ZQ.volatile_faults(rows, t0, int(time.time() * 1e6))
+    memo = [] if mode == "dynamic" else ["executable"] * ZS_VOLATILE_RUNS
+    if ZQ.memo_state(session, sql) != memo:
+        bad.append(f"Z6 memo {ZQ.memo_state(session, sql)}")
+    return [f"{mode} Z6: {b}" for b in bad]
+
+
+def phase_zones_sketches(cat, capture, counters, launches, by_query):
+    """The time-zone and sketch corpus at SF1 on the card over the TPC-H
+    tables of `cat`, in "dynamic", "auto" and "compiled", each in a fresh
+    session under the Capture (corpus_run: the queries, then Z5's
+    script), each record held to presto_tpu's SF1 values
+    (ZS_REFERENCE_SF1: rows, blobs by their SHA-256, types, errors,
+    execution mode, counters and memo entries; K2's weighted digest to
+    ZS_K2_WEIGHTED_SF1), and Z6 to its
+    properties (zs_volatile); ZS_PROFILED profiled warm in "dynamic"
+    (device busy and idle).  A `zones` line first (zone_files), one
+    `zones_sketches` line a query and mode, and a
+    `zones_sketches_kernels` line (corpus_verdict): Z1, Z2 and K4 must
+    launch fused_group_sums, Z3 or K5 block_gather."""
+    from presto_tpu_torch import zone_sketch_queries as ZQ
+    from presto_tpu_torch.exec.executor import SORT_STATS_KEYS
+
+    emit({"phase": "zones", "files": zone_files()})
+    tables = list(cat.tables.values())
+    statements = list(ZQ.QUERIES.items()) + ZQ.SCRIPT
+    runs, bad = {}, []
+    for mode in ZS_MODES:
+        session, runs[mode] = corpus_run(
+            tables, mode, capture, counters, statements,
+            lambda s, _sid, sql: ZQ.record(s, sql, SORT_STATS_KEYS))
+        if mode == "dynamic":
+            for sid in ZS_PROFILED:
+                runs[mode][sid]["profile"] = profile_run(
+                    session, ZQ.QUERIES[sid], top=4, host_top=4)
+        del session
+        bad += zs_volatile(tables, mode)
+    want = {mode: ZQ.expand_reference(ZS_REFERENCE_SF1, mode)
+            for mode in ZS_MODES}
+    for ref in want.values():
+        rows = ref["K2"]["rows"]
+        if rows is None:
+            continue
+        if [r[0] for r in rows] != [w[0] for w in ZS_K2_WEIGHTED_SF1]:
+            raise AssertionError("K2's groups are not ZS_K2_WEIGHTED_SF1's")
+        held = []
+        for r, w in zip(rows, ZS_K2_WEIGHTED_SF1):
+            r = list(r)
+            for c, v in zip(ZQ.K2_WEIGHTED_COLUMNS, w[1:]):
+                r[c] = v
+            held.append(r)
+        ref["K2"] = {**ref["K2"], "rows": held}
+    corpus_verdict("zones_sketches", runs,
+                   lambda mode, sid, rec: ZQ.mismatch(
+                       sid, rec, want[mode][sid], QUERY_RTOL),
+                   counters, launches, by_query, ZQ.FUSED_IDS,
+                   ZQ.GATHER_IDS, bad)
+
+
 def division_strings(cat):
     """E10's strings (a DOUBLE column divided by 3, its round, truncate
     and log10, as VARCHAR) on the card in "dynamic" and "auto" against
@@ -6557,11 +7425,13 @@ def profile_run(session, sql, top=8, host_top=0):
     """Where one warm run's time goes: wall time, summed device kernel
     time (so the device's busy and idle shares of the wall) and the
     kernels that took most of it, from torch.profiler; with host_top,
-    also the host operations of most self time."""
+    also the host operations of most self time; and the seconds the
+    profile took."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -6591,6 +7461,8 @@ def profile_run(session, sql, top=8, host_top=0):
         ops.sort(key=lambda e: -e.self_cpu_time_total)
         row["host_top"] = [[e.key[:60], e.count, e.self_cpu_time_total / 1e3]
                            for e in ops[:host_top]]
+    # the whole profile's cost, the profiler's own work included
+    row["profile_seconds"] = time.perf_counter() - t0
     return row
 
 

@@ -77,7 +77,9 @@ def rows_by_group(gid: np.ndarray, take: np.ndarray, n_groups: int):
     them)."""
     rows = np.flatnonzero(take & (gid >= 0) & (gid < n_groups))
     g = gid[rows]
-    order = np.argsort(g, kind="stable")
+    # numpy sorts 16-bit keys stably by radix
+    order = np.argsort(g.astype(np.uint16) if n_groups <= 1 << 16 else g,
+                       kind="stable")
     rows, g = rows[order], g[order]
     starts = np.searchsorted(g, np.arange(n_groups + 1))
     return rows, g, starts

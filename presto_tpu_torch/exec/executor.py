@@ -48,8 +48,13 @@ regr_intercept, skewness, kurtosis, entropy, bitwise_and_agg and
 bitwise_or_agg; and the eight that return a collection a group
 (COLLECTION_AGGS: array_agg, DISTINCT too, map_agg, multimap_agg,
 histogram, numeric_histogram, map_union, set_agg, set_union), built on
-the host from the rows (exec/collections.py) in the dynamic executor
-alone: the static one raises StaticFallback, as the reference's does.
+the host from the rows (exec/collections.py), and those whose states
+are sketches or other host values (HOST_AGGS: approx_set, merge,
+qdigest_agg, tdigest_agg, map_union_sum, approx_most_frequent,
+reduce_agg; min_by / max_by with a count; approx_percentile over an
+ARRAY of percentiles or with a weight), built on the host from the rows
+(exec/host_aggs.py), all in the dynamic executor alone: the static one
+raises StaticFallback, as the reference's does.
 
 DECIMAL values (functions/decimals.py, exec/dec128.py): a short decimal
 is a scaled int64, a long one (precision over 18) (n, 2) Int128 limbs.
@@ -84,14 +89,10 @@ EXECUTE, DEALLOCATE and DESCRIBE INPUT/OUTPUT (the serving tier),
 materialized views, EXPLAIN (TYPE DISTRIBUTED), EXPLAIN ANALYZE under
 execution_mode "compiled", writes to file connectors and streamed
 writes (exec/writer.py), float32_compute, the plan node SpatialJoin,
-and the aggregates that return sketch states or
-other host-built values (map_union_sum, approx_most_frequent,
-reduce_agg, approx_set, merge, qdigest_agg, tdigest_agg, min_by /
-max_by with three arguments, the array and weighted
-approx_percentile, learn_* and classification_*, and the $hll_* /
-$kll_* states of chunked and distributed execution). Not ported
-either, and
-changing no result: sort-order materialization (it serves chunked
+and the aggregates of functions/ml.py (learn_*, classification_*,
+evaluate_classifier_predictions) and the $hll_* / $kll_* states of
+chunked and distributed execution.  Not ported either, and changing no
+result: sort-order materialization (it serves chunked
 execution), runtime-domain stripe pruning (df_splits_pruned: its tables
 are not ported), the host summaries of the cluster side channel, spill
 degradation and adaptive partial aggregation.
@@ -116,14 +117,18 @@ from presto_tpu_torch.batch import (Batch, Column, Dictionary,
 from presto_tpu_torch.exec import collections as CL
 from presto_tpu_torch.exec import compile_cache as CC
 from presto_tpu_torch.exec import dec128 as D128
+from presto_tpu_torch.exec import host_aggs as HA
 from presto_tpu_torch.exec import kernels as K
-from presto_tpu_torch.exec.colval import (StaticFallback, static_pass,
-                                          translate_codes)
+from presto_tpu_torch.exec.colval import (LambdaVal, StaticFallback,
+                                          static_pass, translate_codes)
 from presto_tpu_torch.exec.compiler import (EvalContext, eval_expr,
-                                            eval_predicate, to_column)
+                                            eval_predicate, python_value,
+                                            to_column)
 from presto_tpu_torch.exec.window import execute_window
 from presto_tpu_torch.functions import decimals as DEC
+from presto_tpu_torch.functions import tdigest as TD
 from presto_tpu_torch.functions.scalar import (_colval_from_pylist,
+                                               _pylist_from_colval,
                                                torch_dtype)
 from presto_tpu_torch.plan import ir
 from presto_tpu_torch.plan import nodes as P
@@ -162,6 +167,13 @@ COLLECTION_AGGS = frozenset((
     "array_agg", "map_agg", "multimap_agg", "histogram",
     "numeric_histogram", "map_union", "set_agg", "set_union"))
 
+#: the aggregates whose states are sketches (serialized blobs) or other
+#: host values, built on the host from the rows (exec/host_aggs.py) in
+#: the dynamic executor alone, as COLLECTION_AGGS are
+HOST_AGGS = frozenset((
+    "approx_set", "merge", "qdigest_agg", "tdigest_agg", "map_union_sum",
+    "approx_most_frequent", "reduce_agg"))
+
 #: every aggregate _agg_column computes
 PORTED_AGGS = frozenset((
     "count", "count_if", "sum", "avg", "min", "max", *_VARIANCE_AGGS,
@@ -169,7 +181,7 @@ PORTED_AGGS = frozenset((
     "approx_percentile", "min_by", "max_by", "geometric_mean",
     "arbitrary", "any_value", "bool_and", "every", "bool_or",
     *_BIVARIATE_AGGS, "skewness", "kurtosis", "entropy",
-    "bitwise_and_agg", "bitwise_or_agg", *COLLECTION_AGGS))
+    "bitwise_and_agg", "bitwise_or_agg", *COLLECTION_AGGS, *HOST_AGGS))
 
 
 def _merge_sort_stats(stats, counts: dict) -> None:
@@ -1384,9 +1396,9 @@ class Executor:
             return Column(K.segment_sum(m.to(torch.int32), gid, n_groups,
                                         order).to(torch.int64),
                           None, T.BIGINT)
-        if a.fn not in PORTED_AGGS or (a.fn in ("min_by", "max_by")
-                                       and len(a.args) != 2):
-            # the collection, sketch-state and host aggregates
+        if a.fn not in PORTED_AGGS:
+            # learn_*, classification_* and
+            # evaluate_classifier_predictions (functions/ml.py)
             raise NotImplementedError(
                 f"aggregate {a.fn} is not ported to presto_tpu_torch")
         col = to_column(eval_expr(a.args[0], b, self.ctx), b.capacity,
@@ -1404,6 +1416,11 @@ class Executor:
                 raise StaticFallback(f"{a.fn} is dynamic-mode only")
             return self._collection_agg(b, a, order, col, mask, valid,
                                         nonempty)
+        if a.fn in HOST_AGGS or (a.fn in ("min_by", "max_by")
+                                 and len(a.args) == 3):
+            if self.static:
+                raise StaticFallback(f"{a.fn} is dynamic-mode only")
+            return self._host_agg(b, a, order, col, mask, valid, nonempty)
         if a.fn == "count":
             return Column(cnt, None, T.BIGINT)
         if a.fn == "approx_distinct":
@@ -1429,12 +1446,19 @@ class Executor:
             return Column(seg_sum(torch.where(valid, h, 0)), nonempty,
                           T.BIGINT)
         if a.fn == "approx_percentile":
+            if a.type.name == "ARRAY" or len(a.args) >= 3:
+                # an ARRAY of percentiles or a weight: exact, on the host
+                if self.static:
+                    raise StaticFallback(
+                        "array/weighted approx_percentile is "
+                        "dynamic-mode only")
+                return self._approx_percentile_host(b, a, order, col,
+                                                    valid, nonempty)
             p = eval_expr(a.args[1], b, self.ctx).data
-            if isinstance(p, torch.Tensor) or len(a.args) > 2 \
-                    or a.type.name == "ARRAY":
+            if isinstance(p, torch.Tensor):
                 raise NotImplementedError(
-                    "approx_percentile is ported for one constant "
-                    "percentile without a weight")
+                    "approx_percentile over a percentile column is not "
+                    "ported")
             vals, ok = K.group_percentile(col.data, valid, gid, n_groups,
                                           float(p), order)
             return Column(vals.to(col.data.dtype), ok, a.type,
@@ -1585,6 +1609,102 @@ class Executor:
             tuples = build(gid, vh, data, col.dictionary, n_groups)
         return CL.tuples_to_dict_column(tuples, nonempty, a.type,
                                         self.device)
+
+    def _host_agg(self, b: Batch, a: ir.AggCall, order: K.GroupOrder,
+                  col: Column, mask, valid, nonempty) -> Column:
+        """The sketch-state and host aggregates, from the rows read back
+        to the host (exec/host_aggs.py; reference: the sketch branch of
+        _agg_column and _agg_column_host)."""
+        n_groups = order.n_groups
+        gid = order.gid.cpu().numpy()
+        data = col.data.cpu().numpy()
+        vh = valid.cpu().numpy()
+        sel = b.sel.cpu().numpy()
+        cap = b.capacity
+
+        def const(e):
+            # a constant argument: its first row where the planner
+            # projected it into a column, as the reference reads it
+            return python_value(eval_expr(e, b, self.ctx))
+
+        def host_column(e):
+            c = to_column(eval_expr(e, b, self.ctx), cap, self.device)
+            ok = np.ones(cap, bool) if c.valid is None \
+                else c.valid.cpu().numpy()
+            return c, c.data.cpu().numpy(), ok
+
+        if a.fn == "approx_set":
+            out = HA.approx_set(gid, vh, data, col.dictionary, col.type,
+                                n_groups)
+        elif a.fn == "qdigest_agg":
+            out = HA.qdigest_agg(gid, vh, data, col.type, n_groups)
+        elif a.fn == "tdigest_agg":
+            w = None
+            if len(a.args) >= 2:  # a weight column; its NULLs are read
+                w = host_column(a.args[1])[1].astype(np.float64)
+            compression = TD.DEFAULT_COMPRESSION
+            if len(a.args) >= 3:
+                cv = eval_expr(a.args[2], b, self.ctx)
+                if isinstance(cv.data, torch.Tensor) and cv.data.ndim > 0:
+                    raise NotImplementedError(
+                        "tdigest_agg compression must be a constant")
+                compression = float(python_value(cv))
+            out = HA.tdigest_agg(gid, vh, data, col.type, w, compression,
+                                 n_groups)
+        elif a.fn == "merge":
+            out = HA.merge(gid, vh, data, col.dictionary, a.type, n_groups)
+        elif a.fn == "map_union_sum":
+            out = HA.map_union_sum(gid, vh, data, col.dictionary, n_groups)
+        elif a.fn == "approx_most_frequent":
+            # (buckets, value, capacity): the value's rows under the
+            # batch's selection (the reference reads b.sel here)
+            buckets = int(const(a.args[0]))
+            vcol, vdata, vok = host_column(a.args[1])
+            out, ok = HA.approx_most_frequent(
+                gid, sel & vok, vdata, vcol.dictionary, buckets, n_groups)
+            return CL.tuples_to_dict_column(out, upload(ok, self.device),
+                                            a.type, self.device)
+        elif a.fn in ("min_by", "max_by"):
+            ycol, ydata, yok = host_column(a.args[1])
+            n = int(const(a.args[2]))
+            xok = np.ones(cap, bool) if col.valid is None \
+                else col.valid.cpu().numpy()
+            out = HA.min_max_by_n(gid, sel & vh & yok, data, col.dictionary,
+                                  xok, ydata, ycol.dictionary, n,
+                                  a.fn == "min_by", n_groups)
+        else:  # reduce_agg(value, init, input_fn, combine_fn)
+            _v, init_e, in_e, comb_e = a.args
+            lam = [LambdaVal(e.params, e.param_types, e.body, self.ctx,
+                             e.type) for e in (in_e, comb_e)]
+            init = _pylist_from_colval(eval_expr(init_e, b, self.ctx), 1)[0]
+            states = HA.reduce_agg(gid, vh, data, col.dictionary, col.type,
+                                   init, lam[0], lam[1], a.type, n_groups)
+            return to_column(_colval_from_pylist(states, a.type),
+                             n_groups, self.device)
+        return CL.tuples_to_dict_column(out, nonempty, a.type, self.device)
+
+    def _approx_percentile_host(self, b: Batch, a: ir.AggCall,
+                                order: K.GroupOrder, col: Column, valid,
+                                nonempty) -> Column:
+        """approx_percentile over an ARRAY of percentiles or with a
+        weight (reference: _approx_percentile_host): exact per group on
+        the host."""
+        has_weight = len(a.args) >= 3
+        pv = eval_expr(a.args[2 if has_weight else 1], b, self.ctx)
+        array_out = pv.dictionary is not None  # an ARRAY of percentiles
+        ps = list(python_value(pv)) if array_out \
+            else [float(python_value(pv))]
+        w = np.ones(b.capacity)
+        if has_weight:
+            wcol = to_column(eval_expr(a.args[1], b, self.ctx), b.capacity,
+                             self.device)
+            w = wcol.data.cpu().numpy().astype(np.float64)
+        outs = HA.approx_percentile(order.gid.cpu().numpy(),
+                                    valid.cpu().numpy(),
+                                    col.data.cpu().numpy(), col.type, w, ps,
+                                    order.n_groups)
+        return HA.percentile_column(outs, array_out, a.type, nonempty,
+                                    self.device)
 
     @staticmethod
     def _last_row(hit, order: K.GroupOrder, capacity: int):

@@ -2,8 +2,9 @@
 
 Reference: presto_tpu/functions/scalar.py, with the modules it imports
 at its end (the last registration of a name wins, as there).  This
-module holds the core and imports functions/scalar_ext.py and
-scalar_ext2.py at its end, in the reference's order.  294 names:
+module holds the core and imports functions/scalar_ext.py,
+scalar_ext2.py and datetime_tz.py at its end, in the reference's
+order.  312 names:
 - arithmetic (add, sub, mul, div, mod, neg) over the numeric types
   (DECIMAL's through functions/decimals.py: short decimals as scaled
   int64, long ones as Int128 limbs), DATE and TIMESTAMP +- INTERVAL,
@@ -51,15 +52,24 @@ scalar_ext2.py at its end, in the reference's order.  294 names:
   AS a collection); the array and map long tail of scalar_ext.py and
   scalar_ext2.py;
 - the volatile functions random / rand, uuid and shuffle
-  (scalar_ext2.py), which TABLESAMPLE reaches.
-Not ported: the T-digest and HLL sketch readers (CARDINALITY of a
-sketch raises), the $hll_reg and $hll_rho of distributed
-approx_distinct, and the modules datetime_tz.py (at_timezone,
-with_timezone, now and the current_* names, timezone_hour/minute, and
-its zone-aware wrappers: a TIMESTAMP WITH TIME ZONE or TIME argument
-of a date function raises), geospatial.py and ml.py.  The planner
-resolves only registered names, so any other function raises
-NotImplementedError with its name (plan/planner.py `_call`).
+  (scalar_ext2.py), which TABLESAMPLE reaches;
+- time zones (functions/datetime_tz.py over tzdb.py): at_timezone,
+  with_timezone, now, current_timestamp, current_date, current_time,
+  localtime, localtimestamp, current_timezone, current_user,
+  timezone_hour / timezone_minute, TO_UNIXTIME and FROM_UNIXTIME with
+  a zone or an offset, the date functions over a TIMESTAMP WITH TIME
+  ZONE (on its zone's wall clock), TIME fields, TIMESTAMP WITH TIME
+  ZONE +- INTERVAL, and the CASTs among TIMESTAMP WITH TIME ZONE, TIME,
+  TIME WITH TIME ZONE, TIMESTAMP, DATE and VARCHAR;
+- sketches (functions/sketches.py, tdigest.py): CARDINALITY of an HLL,
+  P4HLL or QDIGEST, EMPTY_APPROX_SET, VALUE_AT_QUANTILE,
+  VALUES_AT_QUANTILES, QUANTILE_AT_VALUE, SCALE_TDIGEST,
+  DESTRUCTURE_TDIGEST, and the CASTs of a sketch to and from VARBINARY
+  (its bytes) and VARCHAR (base64).
+Not ported: the $hll_reg and $hll_rho of distributed approx_distinct,
+and the modules geospatial.py and ml.py.  The planner resolves only
+registered names, so any other function raises NotImplementedError
+with its name (plan/planner.py `_call`).
 
 String and collection functions are host transforms over the dictionary
 (one Python call per dictionary entry, never per row), kept beside the
@@ -89,6 +99,8 @@ host operand becomes a 0-d tensor first (decimals.true_div).
 
 from __future__ import annotations
 
+import base64
+import binascii
 import datetime
 import functools
 import itertools
@@ -96,6 +108,7 @@ import json
 import math
 import operator
 import re
+import struct
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -133,6 +146,18 @@ def torch_dtype(t: T.Type) -> torch.dtype:
 
 def _is_tensor(x) -> bool:
     return isinstance(x, torch.Tensor)
+
+
+def device_int64(x) -> torch.Tensor:
+    """A value as an int64 tensor: a Python scalar as a 0-d tensor on
+    the session's device.  Where the reference computes with jnp on a
+    constant, its value is a device array that its static trace cannot
+    read back (a CAST to VARCHAR falls back there); the port keeps such
+    values on the device too, so that both pick the same mode."""
+    if _is_tensor(x):
+        return x.to(torch.int64)
+    return torch.full((), int(x), dtype=torch.int64,
+                      device=session_ctx.device())
 
 
 def _where(cond, a, b):
@@ -263,9 +288,11 @@ def _resolve_arith(name):
 def _date_plus_interval(name, a: ColVal, b: ColVal, valid) -> ColVal:
     if a.type.name == "TIMESTAMP":
         return _timestamp_plus_interval(name, a, b, valid)
-    if a.type.name != "DATE":
-        raise NotImplementedError(
-            f"{a.type} +- INTERVAL is not ported to presto_tpu_torch")
+    if a.type.name == "TIMESTAMP_TZ":
+        return _tstz_plus_interval(name, a, b, valid)
+    if a.type.name == "TIME":  # a day-time interval, modulo one day
+        r = _timestamp_plus_interval(name, a, b, valid)
+        return ColVal(r.data % _US_PER_DAY, valid, T.TIME)
     x = a.data.to(torch.int64) if _is_tensor(a.data) else int(a.data)
     if b.type.name == "INTERVAL_DAY_TIME":
         delta = b.data if name == "add" else -b.data  # micros
@@ -281,15 +308,30 @@ def _timestamp_plus_interval(name, a: ColVal, b: ColVal, valid) -> ColVal:
     """TIMESTAMP +- INTERVAL: micros added for a day-time interval; for a
     year-month one the date part moves by months (add_months) and the
     time of day stays."""
-    x = a.data.to(torch.int64) if _is_tensor(a.data) else int(a.data)
+    x = device_int64(a.data)  # on the device, as the reference's jnp is
     delta = b.data if name == "add" else -b.data
     if b.type.name == "INTERVAL_DAY_TIME":
         return ColVal(x + delta, valid, T.TIMESTAMP)
     days = x // _US_PER_DAY
-    moved = add_months(days, delta)
-    moved = moved.to(torch.int64) if _is_tensor(moved) else int(moved)
+    moved = add_months(days, delta).to(torch.int64)
     return ColVal(moved * _US_PER_DAY + (x - days * _US_PER_DAY), valid,
                   T.TIMESTAMP)
+
+
+def _tstz_plus_interval(name, a: ColVal, b: ColVal, valid) -> ColVal:
+    """TIMESTAMP WITH TIME ZONE +- INTERVAL: a day-time interval adds
+    micros to the instant (reference DateTimeOperators: fixed millis,
+    across a DST change too); a year-month one moves the wall clock's
+    date (functions/datetime_tz.py) and resolves it in the zone again."""
+    from presto_tpu_torch.functions import datetime_tz as DTZ
+
+    if b.type.name == "INTERVAL_DAY_TIME":
+        r = _timestamp_plus_interval(name, a, b, valid)
+    else:
+        r = DTZ._delocalize(
+            _timestamp_plus_interval(name, DTZ._localize(a), b, valid),
+            a.type.tz or "UTC")
+    return ColVal(r.data, valid, a.type)
 
 
 def _emit_arith(name):
@@ -1649,15 +1691,8 @@ for _names, _f in ((("day_of_week", "dow"), _day_of_week),
         register(_n, *_date_field(_f))
 
 
-def _resolve_from_unixtime(args):
-    if len(args) > 1:
-        raise NotImplementedError(
-            "from_unixtime with a time zone is not ported to "
-            "presto_tpu_torch")
-    return T.TIMESTAMP if args[0].is_numeric else None
-
-
-register("from_unixtime", _resolve_from_unixtime,
+register("from_unixtime",
+         lambda args: T.TIMESTAMP if args[0].is_numeric else None,
          lambda args: ColVal(_f64_to_i64(_f64(args[0].data) * 1e6),
                              args[0].valid, T.TIMESTAMP))
 register("to_unixtime",
@@ -2326,7 +2361,10 @@ def _result_tables(vals: list, rt: T.Type) -> tuple:
         return (*_string_dictionary(["" if v is None else v for v in vals]),
                 null)
     if rt.name in ("HLL", "P4HLL", "QDIGEST", "TDIGEST"):
-        raise NotImplementedError(f"{rt.name} values are not ported")
+        # serialized sketches: a dictionary of the entries' blobs
+        obj = np.empty(len(vals), dtype=object)
+        obj[:] = [b"" if v is None else bytes(v) for v in vals]
+        return np.arange(len(vals), dtype=np.int32), Dictionary(obj), null
     return np.asarray([0 if v is None else v for v in vals],
                       dtype=rt.numpy_dtype()), None, null
 
@@ -2763,14 +2801,14 @@ register("subscript", _resolve_element_at, _emit_element_at)
 
 
 def _resolve_cardinality(args):
-    if args and args[0].name in ("HLL", "P4HLL", "QDIGEST"):
-        raise NotImplementedError(
-            f"cardinality of {args[0].name} sketches is not ported")
-    return T.BIGINT if args and args[0].name in ("ARRAY", "MAP") else None
+    return T.BIGINT if args and args[0].name in (
+        "ARRAY", "MAP", "HLL", "P4HLL", "QDIGEST") else None
 
 
 def _emit_cardinality(args):
     col = args[0]
+    if col.type.name in ("HLL", "P4HLL", "QDIGEST"):
+        return _sketch_cardinality(args)
     return _from_tables(col, T.BIGINT, _kept(
         col, ("cardinality",), lambda: _result_tables(
             [len(t) for t in _arr_entries(col)], T.BIGINT)))
@@ -2973,8 +3011,29 @@ def _render_varchar(x, frm: T.Type) -> str:
     if frm.name == "DATE":
         return (datetime.date(1970, 1, 1)
                 + datetime.timedelta(days=int(x))).isoformat()
+    if frm.name == "TIMESTAMP":  # int64 microseconds since epoch
+        return _micros_text(int(x), "%Y-%m-%d %H:%M:%S.%f")
+    if frm.name == "TIMESTAMP_TZ":  # UTC micros; zone in the type
+        from presto_tpu_torch.functions import tzdb
+
+        zone = frm.tz or session_ctx.current_zone()
+        local = tzdb.rules(zone).utc_to_local_scalar(int(x))
+        return _micros_text(local, "%Y-%m-%d %H:%M:%S.%f") + " " + zone
+    if frm.name == "TIME":  # micros since midnight
+        return _micros_text(int(x), "%H:%M:%S.%f")
+    if frm.name == "TIME_TZ":
+        off = int(frm.tz or 0)
+        sign = "-" if off < 0 else "+"
+        return (_micros_text(int(x), "%H:%M:%S.%f")
+                + f"{sign}{abs(off) // 60:02d}:{abs(off) % 60:02d}")
     raise NotImplementedError(
         f"CAST of {frm} to VARCHAR is not ported to presto_tpu_torch")
+
+
+def _micros_text(us: int, fmt: str) -> str:
+    """Micros since the epoch (or midnight) as text, to milliseconds."""
+    t = datetime.datetime(1970, 1, 1) + datetime.timedelta(microseconds=us)
+    return t.strftime(fmt)[:-3]
 
 
 def _py_cast_scalar(x, ft: T.Type, tt: T.Type):
@@ -3067,11 +3126,27 @@ def _parse_number(x, to: T.Type, safe: bool):
     return f
 
 
+def _timestamp_micros(s: str) -> int:
+    """A TIMESTAMP text ('2020-01-01 10:00:00[.fff]') as micros."""
+    t = str(s).strip()
+    if " " in t and "T" not in t:
+        t = t.replace(" ", "T", 1)
+    return int((np.datetime64(t) - np.datetime64("1970-01-01T00:00:00"))
+               / np.timedelta64(1, "us"))
+
+
 def _cast_from_string(v: ColVal, to: T.Type, safe: bool) -> ColVal:
     """VARCHAR -> a number (reference: emit_cast's parse through a
     dictionary table): a long decimal parses exactly into limbs, every
     other number through float64; an entry that does not parse is NULL
     under TRY_CAST and raises otherwise."""
+    if to.name in ("DATE", "TIMESTAMP"):
+        from presto_tpu_torch.functions import datetime_tz as DTZ
+
+        parse = _to_days if to.name == "DATE" else _timestamp_micros
+        return DTZ.host_parse_lut(v, parse, to, safe,
+                                  np.int32 if to.name == "DATE"
+                                  else np.int64)
     if not to.is_numeric:
         raise NotImplementedError(
             f"CAST({v.type} AS {to}) is not ported to presto_tpu_torch")
@@ -3119,6 +3194,39 @@ def _cast_from_string(v: ColVal, to: T.Type, safe: bool) -> ColVal:
 
 
 
+_ZONED = ("TIMESTAMP_TZ", "TIME", "TIME_TZ")
+_SKETCHES = ("HLL", "P4HLL", "QDIGEST", "TDIGEST")
+
+
+def _cast_sketch(v: ColVal, to: T.Type) -> Optional[ColVal]:
+    """CASTs of serialized sketches (reference: emit_cast's sketch arms):
+    an HLL and a P4HLL retag each other (the blobs are always dense), a
+    sketch and VARBINARY retag each other (the raw bytes), a sketch
+    renders to VARCHAR as base64 and parses from it (an entry that does
+    not decode is NULL for its rows)."""
+    frm = v.type
+    if frm.name in ("HLL", "P4HLL") and to.name in ("HLL", "P4HLL"):
+        return ColVal(v.data, v.valid, to, v.dictionary)
+    if frm.name in _SKETCHES and to.name == "VARBINARY":
+        return ColVal(v.data, v.valid, T.VARBINARY, v.dictionary)
+    if frm.name == "VARBINARY" and to.name in _SKETCHES:
+        return ColVal(v.data, v.valid, to, v.dictionary)
+    if frm.name in _SKETCHES and to.is_string:
+        vals = [base64.b64encode(b).decode("ascii")
+                for b in _arr_entries(v)] or [""]
+        return _from_tables(v, T.VARCHAR, (*_string_dictionary(vals), None))
+    if frm.is_string and to.name in _SKETCHES:
+        v = _literal_dictionary(v)
+        out = []
+        for x in v.dictionary.values:
+            try:
+                out.append(base64.b64decode(str(x), validate=True))
+            except (binascii.Error, ValueError):
+                out.append(None)
+        return _from_tables(v, to, _result_tables(out, to))
+    return None
+
+
 def emit_cast(v: ColVal, to: T.Type, safe: bool = False) -> ColVal:
     frm = v.type
     if frm == to:
@@ -3130,6 +3238,16 @@ def emit_cast(v: ColVal, to: T.Type, safe: bool = False) -> ColVal:
             return _one_entry((), False, to)
         return ColVal("" if to.is_string else to.numpy_dtype().type(0).item(),
                       False, to)
+    if frm.name in _ZONED or to.name in _ZONED:
+        from presto_tpu_torch.functions import datetime_tz as DTZ
+
+        r = DTZ.emit_cast_tz(v, to, safe)
+        if r is not None:
+            return r  # None: the generic arms below (a VARCHAR render)
+    if frm.name in _SKETCHES or to.name in _SKETCHES:
+        r = _cast_sketch(v, to)
+        if r is not None:
+            return r
     if to.is_string and not frm.is_string:
         return _cast_to_varchar(v)
     if frm.is_string and not to.is_string:
@@ -3138,9 +3256,8 @@ def emit_cast(v: ColVal, to: T.Type, safe: bool = False) -> ColVal:
         d = v.data.to(torch.int64) if _is_tensor(v.data) else int(v.data)
         return ColVal(d * _US_PER_DAY, v.valid, T.TIMESTAMP)
     if frm.name == "TIMESTAMP" and to.name == "DATE":
-        d = v.data // _US_PER_DAY
-        return ColVal(d.to(torch.int32) if _is_tensor(d) else int(d),
-                      v.valid, T.DATE)
+        d = device_int64(v.data) // _US_PER_DAY  # as the reference's jnp
+        return ColVal(d.to(torch.int32), v.valid, T.DATE)
     if to.is_decimal or frm.is_decimal:
         return DEC.emit_cast_decimal(v, to, safe)
     ok = (frm.is_numeric or frm.name == "BOOLEAN") \
@@ -3162,7 +3279,147 @@ def emit_cast(v: ColVal, to: T.Type, safe: bool = False) -> ColVal:
     return ColVal(data, v.valid, to)
 
 
+# ---- sketch functions (HLL / QDIGEST / TDIGEST) -----------------------------
+# Reference: presto_tpu/functions/scalar.py `_register_sketch_fns` (after
+# HyperLogLogFunctions.java and QuantileDigestFunctions.java).  A sketch
+# column is codes into a dictionary of serialized blobs
+# (functions/sketches.py, tdigest.py); each function runs once per
+# dictionary entry on the host and its results reach the device as one
+# table (`_from_tables`).
+
+
+def _sketch_dict_fn(name, fn, rt_fn):
+    """The emit of fn(blob, *constant arguments) once per dictionary
+    entry; an entry whose blob does not parse gives NULL."""
+    def emit(args):
+        col = args[0]
+        if col.dictionary is None and isinstance(col.data,
+                                                 (bytes, bytearray)):
+            # a scalar blob: the one-entry dictionary form
+            col = _one_entry(bytes(col.data), col.valid, col.type)
+        extra = [_const_arg(name, a) for a in args[1:]]
+        vals = []
+        for blob in _arr_entries(col):
+            try:
+                vals.append(fn(blob, *extra))
+            except (ValueError, IndexError, TypeError, struct.error):
+                vals.append(None)  # a malformed sketch: NULL for its rows
+        rt = rt_fn([a.type for a in args])
+        return _from_tables(col, rt, _result_tables(vals, rt))
+
+    return emit
+
+
+def _sketch_cardinality(args):
+    from presto_tpu_torch.functions import sketches as SK
+
+    if args[0].type.name == "QDIGEST":
+        fn = lambda blob: int(SK.qd_parse(blob)[1])  # noqa: E731
+    else:
+        fn = SK.hll_cardinality
+    return _sketch_dict_fn("cardinality", fn, lambda a: T.BIGINT)(args)
+
+
+def _emit_empty_approx_set(args):
+    from presto_tpu_torch.functions import sketches as SK
+
+    return _one_entry(SK.hll_empty(), None, T.HLL)
+
+
+register("empty_approx_set", lambda args: T.HLL if not args else None,
+         _emit_empty_approx_set)
+
+_DIGESTS = ("QDIGEST", "TDIGEST")
+
+
+def _value_at(tname):
+    """value_at_quantile of one blob of a TDIGEST or QDIGEST column."""
+    from presto_tpu_torch.functions import sketches as SK
+    from presto_tpu_torch.functions import tdigest as TD
+
+    if tname == "TDIGEST":
+        return lambda blob, q: TD.tdigest_value_at_quantile(blob, float(q))
+    return lambda blob, q: SK.qdigest_value_at_quantile(blob, float(q))
+
+
+def _resolve_value_at_quantile(args):
+    if not args or args[0].name not in _DIGESTS:
+        return None
+    if not args[0].params or args[0].params[0].is_floating:
+        return T.DOUBLE
+    return args[0].params[0]
+
+
+def _emit_value_at_quantile(args):
+    return _sketch_dict_fn(
+        "value_at_quantile", _value_at(args[0].type.name),
+        lambda a: T.DOUBLE if a[0].params and a[0].params[0].is_floating
+        else (a[0].params[0] if a[0].params else T.DOUBLE))(args)
+
+
+def _emit_values_at_quantiles(args):
+    one = _value_at(args[0].type.name)
+    return _sketch_dict_fn(
+        "values_at_quantiles", lambda blob, qs: tuple(one(blob, q)
+                                                      for q in qs),
+        lambda a: T.array_of(T.DOUBLE))(args)
+
+
+def _emit_quantile_at_value(args):
+    from presto_tpu_torch.functions import sketches as SK
+    from presto_tpu_torch.functions import tdigest as TD
+
+    if args[0].type.name == "TDIGEST":
+        fn = lambda blob, v: TD.tdigest_quantile_at_value(  # noqa: E731
+            blob, float(v))
+    else:
+        fn = lambda blob, v: SK.qdigest_quantile_at_value(  # noqa: E731
+            blob, float(v))
+    return _sketch_dict_fn("quantile_at_value", fn,
+                           lambda a: T.DOUBLE)(args)
+
+
+def _scale_tdigest(blob, f):
+    from presto_tpu_torch.functions import tdigest as TD
+
+    return TD.tdigest_scale(blob, float(f))
+
+
+def _destructure_tdigest(blob):
+    from presto_tpu_torch.functions import tdigest as TD
+
+    return tuple(tuple(p) if isinstance(p, list) else p
+                 for p in TD.tdigest_destructure(blob))
+
+
+_TDIGEST_ROW = T.row_of([("means", T.array_of(T.DOUBLE)),
+                         ("weights", T.array_of(T.DOUBLE)),
+                         ("compression", T.DOUBLE), ("min", T.DOUBLE),
+                         ("max", T.DOUBLE), ("sum", T.DOUBLE)])
+
+register("value_at_quantile", _resolve_value_at_quantile,
+         _emit_value_at_quantile)
+register("values_at_quantiles",
+         lambda args: (T.array_of(T.DOUBLE) if args
+                       and args[0].name in _DIGESTS else None),
+         _emit_values_at_quantiles)
+register("quantile_at_value",
+         lambda args: (T.DOUBLE if args and args[0].name in _DIGESTS
+                       else None),
+         _emit_quantile_at_value)
+register("scale_tdigest",
+         lambda args: args[0] if args and args[0].name == "TDIGEST"
+         else None,
+         _sketch_dict_fn("scale_tdigest", _scale_tdigest, lambda a: a[0]))
+register("destructure_tdigest",
+         lambda args: _TDIGEST_ROW if args and args[0].name == "TDIGEST"
+         else None,
+         _sketch_dict_fn("destructure_tdigest", _destructure_tdigest,
+                         lambda a: _TDIGEST_ROW))
+
+
 # the extended batches register last, as in the reference (scalar.py's
 # closing imports), so that their registrations of a name win
 from presto_tpu_torch.functions import scalar_ext as _scalar_ext  # noqa: E402,F401,E501
 from presto_tpu_torch.functions import scalar_ext2 as _scalar_ext2  # noqa: E402,F401,E501
+from presto_tpu_torch.functions import datetime_tz as _datetime_tz  # noqa: E402,F401,E501

@@ -19,9 +19,9 @@ whose last registration is this module's in the reference, is
 functions/scalar.py's.  Functions that format or convert column values
 through Python (`to_base`, `date_format`, `to_big_endian_64`, ...) read
 the column back to the host, as the reference does, so their static
-pass falls back (`colval.refuse_host_read`).  A TIMESTAMP WITH TIME ZONE
-or TIME argument of the date functions raises NotImplementedError: the
-zone-aware wrappers come with functions/datetime_tz.py.
+pass falls back (`colval.refuse_host_read`).  A TIMESTAMP WITH TIME
+ZONE argument of the date functions reaches them on its zone's wall
+clock through functions/datetime_tz.py's wrappers, which register last.
 """
 
 from __future__ import annotations
@@ -851,18 +851,6 @@ register("url_decode", *_str_transform("url_decode", _url.unquote_plus))
 _US_PER_DAY = 86_400_000_000
 
 
-def _zoneless(name):
-    """The resolve of a date function: DATE and TIMESTAMP only."""
-    def check(t):
-        if t.name in ("TIMESTAMP_TZ", "TIME", "TIME_TZ"):
-            raise NotImplementedError(
-                f"{name} of {t} waits for functions/datetime_tz.py, "
-                "which is not ported to presto_tpu_torch")
-        return t.is_temporal
-
-    return check
-
-
 def _ts_micros(v: ColVal):
     """TIMESTAMP micros; a DATE widens to midnight."""
     d = v.data
@@ -872,8 +860,8 @@ def _ts_micros(v: ColVal):
 
 
 def _time_field(name, div, mod):
-    ok = _zoneless(name)
-    return (lambda args: T.BIGINT if args and ok(args[0]) else None,
+    return (lambda args: T.BIGINT if args and args[0].is_temporal
+            else None,
             lambda args: ColVal(_ts_micros(args[0]) // div % mod,
                                 args[0].valid, T.BIGINT))
 
@@ -894,8 +882,8 @@ def _iso_week_year(days):
 
 
 def _day_field(name, fn):
-    ok = _zoneless(name)
-    return (lambda args: T.BIGINT if args and ok(args[0]) else None,
+    return (lambda args: T.BIGINT if args and args[0].is_temporal
+            else None,
             lambda args: ColVal(fn(_days64(args[0])), args[0].valid,
                                 T.BIGINT))
 
@@ -986,9 +974,8 @@ def _temporal_text(name, to_strftime):
         v = args[0]
         return per([ColVal(_ts_micros(v), v.valid, T.TIMESTAMP), args[1]])
 
-    ok = _zoneless(name)
-    return (lambda args: T.VARCHAR if len(args) == 2 and ok(args[0])
-            else None), emit
+    return (lambda args: T.VARCHAR if len(args) == 2
+            and args[0].is_temporal else None), emit
 
 
 register("date_format", *_temporal_text("date_format", _mysql_to_strftime))
@@ -1009,9 +996,8 @@ def _emit_to_iso8601(args):
     return _per_value("to_iso8601", conv, T.VARCHAR)(args)
 
 
-_iso_ok = _zoneless("to_iso8601")
 register("to_iso8601",
-         lambda args: T.VARCHAR if args and _iso_ok(args[0]) else None,
+         lambda args: T.VARCHAR if args and args[0].is_temporal else None,
          _emit_to_iso8601)
 
 

@@ -1504,8 +1504,14 @@ def _literal_to_ir(e: ast.Literal) -> ir.Lit:
         # `TIMESTAMP '2020-01-01 00:00:00 America/New_York'` -> WITH
         # TIME ZONE, wall clock resolved via the zone's rules (DST
         # ambiguity picks the earlier offset, like java.time)
-        raise NotImplementedError(
-            f"TIMESTAMP literal with a time zone ({text!r}) is not ported")
+        from presto_tpu_torch.functions import tzdb
+
+        try:
+            r = tzdb.rules(zone)
+        except ValueError:
+            raise SemanticError(
+                f"invalid TIMESTAMP literal {text!r}: unknown zone")
+        return ir.Lit(r.local_to_utc_scalar(local_us), T.timestamp_tz(zone))
     if e.type_hint == "time":
         text = str(e.value).strip()
         import re as _re

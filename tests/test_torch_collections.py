@@ -208,7 +208,8 @@ def test_every_name_is_registered_and_probed():
     assert len(COLLECTION_NAMES) == len(set(COLLECTION_NAMES)) == 38
     # 103 core names, these 38, and the 153 of functions/scalar_ext.py
     # and scalar_ext2.py
-    assert len(S.REGISTRY) == 103 + 38 + 153
+    # and 18 of a later slice (datetime_tz.py's and the sketch readers)
+    assert len(S.REGISTRY) == 103 + 38 + 153 + 18
 
 
 #: probes that run as one compiled program in "auto" in both packages
@@ -371,10 +372,14 @@ def test_unnest_of_a_non_array_is_a_semantic_error(sessions):
 
 
 def test_sketch_cardinality_raises_not_ported():
+    """A later slice ported the sketch readers (functions/sketches.py):
+    cardinality of an HLL, P4HLL or QDIGEST now resolves to BIGINT, and
+    of a TDIGEST it resolves to nothing, as in the reference."""
     from presto_tpu_torch.functions.scalar import lookup
 
-    with pytest.raises(NotImplementedError, match="HLL"):
-        lookup("cardinality").resolve([T.HLL])
+    for t in (T.HLL, T.P4HLL, T.qdigest_of(T.DOUBLE)):
+        assert lookup("cardinality").resolve([t]) == T.BIGINT
+    assert lookup("cardinality").resolve([T.tdigest_of(T.DOUBLE)]) is None
 
 
 # ---- hazard (a): the canonical orders of tuple dictionaries ---------------

@@ -143,9 +143,21 @@ def test_unported_modes_raise(prop, port_catalog):
     ("CREATE MATERIALIZED VIEW t AS SELECT l_orderkey FROM lineitem",
      "CreateMaterializedView"),
     ("SELECT st_point(l_discount, l_tax) FROM lineitem", "st_point"),
+    ("SELECT evaluate_classifier_predictions(l_shipmode, l_shipmode) "
+     "FROM lineitem", "evaluate_classifier_predictions"),
 ])
 def test_unported_nodes_and_functions_raise_with_their_name(sql, name,
                                                             port_catalog):
     s = presto_tpu_torch.connect(port_catalog, device="cpu")
+    if name in PORTED_SINCE:
+        assert s.sql(sql).rows == PORTED_SINCE[name]
+        return
     with pytest.raises(NotImplementedError, match=name):
         s.sql(sql)
+
+
+#: names that a later slice ported (exec/host_aggs.py), with presto_tpu's
+#: rows at SF0.01
+PORTED_SINCE = {
+    "approx_most_frequent": [((("FOB", 8607), ("RAIL", 8579),
+                               ("TRUCK", 8644)),)]}
