@@ -210,6 +210,13 @@ QUERY_RTOL = 1e-9    # sums/averages across packages, devices, orders
 FGS_SHAPES = [(15, 6_000_601, 4, 0), (8, 1_000_003, 4096, 0),
               (4, 1_000_000, 16, 0), (4, 1_000_000, 17, 0),
               (5, 1_000_000, 3, 1), (2, 8_191, 1, 0), (3, 0, 4, 0)]
+# the f32-input entry (float32_compute's rows): Q1's compiled shape at
+# SF1, its dynamic one at each misalignment a float row can have, both
+# paths' edges, and the shapes below one 16-byte vector a row
+FGS_SHAPES_F32 = [(15, 6_000_601, 16, 0), (15, 6_000_601, 4, 1),
+                  (4, 1_000_000, 16, 2), (4, 1_000_001, 17, 3),
+                  (8, 1_000_003, 4096, 1), (5, 1_000_000, 3, 0),
+                  (2, 3, 1, 0), (3, 0, 4, 0)]
 FGS_REPEATS = 10  # launches a shape whose outputs must be bit-identical
 # block_gather shapes (source rows n, words w, indices m, how the sorted
 # indices are drawn): the main path's four gathers at SF1 (Q3's orders
@@ -683,11 +690,12 @@ DS_GRAPH_REPORT = (22, 29, 4)
 # replays whose top device operations the summary lists
 DS_TOP_REPLAYS = 3
 # the queries profiled in both executors (busy and idle shares, top
-# kernels): DS_GRAPH_REPORT's and the slowest of P11's runs (q14); the
-# other queries' lines carry their CUDA-event and host times only (the
-# phase's depth, cut for the functions_ext and zones_sketches phases'
-# time: q64, q23, q24, q72, q78 and q95 were profiled before)
-DS_PROFILED = (4, 14, 22, 29)
+# kernels): DS_GRAPH_REPORT's; the other queries' lines carry their
+# CUDA-event and host times only (the phase's depth, cut for the
+# functions_ext, zones_sketches and geo_ml_f32 phases' time: q64, q23,
+# q24, q72, q78, q95 and then q14 and q4, whose profiles took 26.4 s and
+# 13.5 s, were profiled before)
+DS_PROFILED = (22, 29)
 # presto_tpu's values for the function corpus at SF1 on the CPU, in each
 # executor (`python -m tests.test_torch_functions_corpus 1 NAME`, one
 # query a process): rows in order (the compiled rows only where they
@@ -4780,6 +4788,830 @@ ZS_K2_WEIGHTED_SF1 = [['A',
    100.0, 905.0, 104899.49999999999, 38158831.0],
   65306.05893983319]]
 
+#: presto_tpu's SF1 records of TPC-H Q1, Q3, Q6 and Q18 under
+#: float32_compute in "dynamic" and "compiled" (`JAX_PLATFORMS=cpu python
+#: -m tests.torch_geo_ml_common f32 1 Q <cache dir>`, one query a process;
+#: geo_ml_queries.compact_reference's form)
+F32_REFERENCE_SF1 = {'compiled': {'Q1': {'counters': [0, 1, 0, 0, 0, 0, 0],
+                     'memo': ['executable'],
+                     'mode': 'compiled'},
+              'Q18': {'counters': [7, 4, 0, 0, 4, 4, 0],
+                      'memo': ['executable'],
+                      'mode': 'compiled'},
+              'Q3': {'counters': [4, 2, 0, 0, 2, 2, 0],
+                     'memo': ['executable'],
+                     'mode': 'compiled'},
+              'Q6': {'memo': ['executable'], 'mode': 'compiled'}},
+ 'dynamic': {'Q1': {'counters': [2, 1, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [['A',
+                              'F',
+                              38175716.0,
+                              57244104191.89667,
+                              54380485079.60889,
+                              56555691940.16077,
+                              25.499521412850715,
+                              38236.27723447876,
+                              0.05002616372316135,
+                              1497115],
+                             ['N',
+                              'F',
+                              997717.0,
+                              1496531023.6170654,
+                              1422159974.116394,
+                              1478932813.0843506,
+                              25.429907733088648,
+                              38143.72798126792,
+                              0.04979558552989877,
+                              39234],
+                             ['N',
+                              'O',
+                              74647007.0,
+                              111937609237.32422,
+                              106339179987.42511,
+                              110591674932.00677,
+                              25.49094906967111,
+                              38225.18826574491,
+                              0.050023593374726255,
+                              2928373],
+                             ['R',
+                              'F',
+                              38158831.0,
+                              57232240755.833374,
+                              54372266221.09808,
+                              56548239639.6579,
+                              25.480362959391766,
+                              38216.534134337824,
+                              0.049983927448793236,
+                              1497578]],
+                    'types': ['VARCHAR',
+                              'VARCHAR',
+                              'DOUBLE',
+                              'DOUBLE',
+                              'DOUBLE',
+                              'DOUBLE',
+                              'DOUBLE',
+                              'DOUBLE',
+                              'DOUBLE',
+                              'BIGINT']},
+             'Q18': {'counters': [11, 3, 1, 0, 4, 4, 7500090],
+                     'error': None,
+                     'memo': [],
+                     'mode': 'dynamic',
+                     'rows': [['Customer#000051242',
+                               51242,
+                               5631618,
+                               9144,
+                               549072.0625,
+                               305.0],
+                              ['Customer#000103718',
+                               103718,
+                               587844,
+                               9304,
+                               543416.125,
+                               310.0],
+                              ['Customer#000090776',
+                               90776,
+                               1443112,
+                               8062,
+                               525181.125,
+                               309.0],
+                              ['Customer#000044053',
+                               44053,
+                               2214690,
+                               10136,
+                               516285.34375,
+                               310.0],
+                              ['Customer#000090877',
+                               90877,
+                               4845704,
+                               8509,
+                               501237.28125,
+                               302.0],
+                              ['Customer#000114593',
+                               114593,
+                               4543938,
+                               8718,
+                               499704.46875,
+                               309.0],
+                              ['Customer#000022078',
+                               22078,
+                               608903,
+                               9900,
+                               496791.875,
+                               306.0],
+                              ['Customer#000040091',
+                               40091,
+                               3458788,
+                               9118,
+                               496637.34375,
+                               309.0],
+                              ['Customer#000043895',
+                               43895,
+                               1628997,
+                               9739,
+                               474452.375,
+                               302.0],
+                              ['Customer#000117746',
+                               117746,
+                               1032229,
+                               10347,
+                               469396.34375,
+                               305.0],
+                              ['Customer#000077156',
+                               77156,
+                               691816,
+                               9420,
+                               448743.15625,
+                               303.0],
+                              ['Customer#000044318',
+                               44318,
+                               5239397,
+                               9478,
+                               448460.21875,
+                               311.0],
+                              ['Customer#000006425',
+                               6425,
+                               3428551,
+                               9328,
+                               440416.6875,
+                               302.0],
+                              ['Customer#000025184',
+                               25184,
+                               4978145,
+                               9080,
+                               433412.625,
+                               311.0],
+                              ['Customer#000091514',
+                               91514,
+                               378469,
+                               9222,
+                               430690.15625,
+                               304.0],
+                              ['Customer#000118574',
+                               118574,
+                               814885,
+                               9721,
+                               429294.5,
+                               303.0],
+                              ['Customer#000099872',
+                               99872,
+                               1080580,
+                               9966,
+                               410705.5625,
+                               309.0],
+                              ['Customer#000054523',
+                               54523,
+                               2054053,
+                               9267,
+                               409750.28125,
+                               306.0],
+                              ['Customer#000110849',
+                               110849,
+                               1810632,
+                               9386,
+                               396152.46875,
+                               301.0],
+                              ['Customer#000014897',
+                               14897,
+                               692705,
+                               9784,
+                               385693.0,
+                               301.0],
+                              ['Customer#000143360',
+                               143360,
+                               2012966,
+                               9275,
+                               372866.4375,
+                               302.0],
+                              ['Customer#000006730',
+                               6730,
+                               1455432,
+                               9526,
+                               368658.34375,
+                               308.0],
+                              ['Customer#000010109',
+                               10109,
+                               5862754,
+                               8835,
+                               342439.15625,
+                               304.0],
+                              ['Customer#000115169',
+                               115169,
+                               4399906,
+                               8677,
+                               337801.0625,
+                               301.0],
+                              ['Customer#000093863',
+                               93863,
+                               4626658,
+                               8828,
+                               328607.28125,
+                               301.0],
+                              ['Customer#000020246',
+                               20246,
+                               402628,
+                               9720,
+                               320473.1875,
+                               308.0],
+                              ['Customer#000076327',
+                               76327,
+                               4734116,
+                               9941,
+                               318386.03125,
+                               313.0],
+                              ['Customer#000036173',
+                               36173,
+                               3236102,
+                               8235,
+                               313647.40625,
+                               309.0],
+                              ['Customer#000125753',
+                               125753,
+                               2464387,
+                               9776,
+                               306293.21875,
+                               302.0],
+                              ['Customer#000050960',
+                               50960,
+                               1357222,
+                               8081,
+                               300183.40625,
+                               305.0],
+                              ['Customer#000136943',
+                               136943,
+                               5560870,
+                               8880,
+                               298344.75,
+                               302.0],
+                              ['Customer#000066944',
+                               66944,
+                               5174950,
+                               8237,
+                               292593.84375,
+                               305.0],
+                              ['Customer#000069727',
+                               69727,
+                               875814,
+                               9701,
+                               289690.84375,
+                               303.0],
+                              ['Customer#000142148',
+                               142148,
+                               5125474,
+                               8617,
+                               286523.9375,
+                               323.0],
+                              ['Customer#000081184',
+                               81184,
+                               1665698,
+                               10307,
+                               277102.21875,
+                               302.0],
+                              ['Customer#000129566',
+                               129566,
+                               5130598,
+                               10263,
+                               267973.03125,
+                               301.0],
+                              ['Customer#000053366',
+                               53366,
+                               1201256,
+                               9111,
+                               262790.875,
+                               302.0],
+                              ['Customer#000069704',
+                               69704,
+                               462689,
+                               9400,
+                               261514.734375,
+                               306.0],
+                              ['Customer#000112082',
+                               112082,
+                               926757,
+                               9456,
+                               253631.375,
+                               302.0],
+                              ['Customer#000080141',
+                               80141,
+                               3955783,
+                               10158,
+                               225068.046875,
+                               301.0],
+                              ['Customer#000028556',
+                               28556,
+                               5992930,
+                               9138,
+                               207941.515625,
+                               321.0],
+                              ['Customer#000137560',
+                               137560,
+                               4734626,
+                               9562,
+                               191394.90625,
+                               306.0],
+                              ['Customer#000089378',
+                               89378,
+                               4562183,
+                               8759,
+                               191233.046875,
+                               309.0],
+                              ['Customer#000034388',
+                               34388,
+                               1175173,
+                               9057,
+                               181961.375,
+                               306.0],
+                              ['Customer#000063106',
+                               63106,
+                               3963201,
+                               8262,
+                               181576.0625,
+                               301.0],
+                              ['Customer#000069293',
+                               69293,
+                               2788903,
+                               9034,
+                               169350.375,
+                               324.0],
+                              ['Customer#000070001',
+                               70001,
+                               1835170,
+                               8497,
+                               154290.203125,
+                               302.0],
+                              ['Customer#000128612',
+                               128612,
+                               3176999,
+                               8985,
+                               147732.546875,
+                               303.0],
+                              ['Customer#000093476',
+                               93476,
+                               3532419,
+                               8859,
+                               144413.390625,
+                               303.0],
+                              ['Customer#000071884',
+                               71884,
+                               3733313,
+                               9397,
+                               130545.046875,
+                               311.0],
+                              ['Customer#000030758',
+                               30758,
+                               5346758,
+                               10232,
+                               122404.796875,
+                               315.0],
+                              ['Customer#000102956',
+                               102956,
+                               5198726,
+                               9421,
+                               113172.8203125,
+                               305.0],
+                              ['Customer#000138139',
+                               138139,
+                               1931971,
+                               8279,
+                               112962.78125,
+                               316.0],
+                              ['Customer#000078560',
+                               78560,
+                               5331079,
+                               9105,
+                               93830.7890625,
+                               301.0],
+                              ['Customer#000042976',
+                               42976,
+                               4560930,
+                               9724,
+                               88343.3828125,
+                               302.0],
+                              ['Customer#000028403',
+                               28403,
+                               3264738,
+                               9580,
+                               86446.7890625,
+                               308.0],
+                              ['Customer#000124535',
+                               124535,
+                               1834984,
+                               8520,
+                               61047.578125,
+                               308.0],
+                              ['Customer#000047398',
+                               47398,
+                               1962629,
+                               8820,
+                               50172.55859375,
+                               304.0],
+                              ['Customer#000007622',
+                               7622,
+                               3557954,
+                               9362,
+                               37621.171875,
+                               302.0],
+                              ['Customer#000027808',
+                               27808,
+                               3734721,
+                               9297,
+                               26797.470703125,
+                               323.0],
+                              ['Customer#000018508',
+                               18508,
+                               5791075,
+                               10037,
+                               16544.01953125,
+                               305.0],
+                              ['Customer#000101753',
+                               101753,
+                               4588775,
+                               10374,
+                               10228.76953125,
+                               302.0]],
+                     'types': ['VARCHAR',
+                               'BIGINT',
+                               'BIGINT',
+                               'DATE',
+                               'DOUBLE',
+                               'DOUBLE']},
+             'Q3': {'counters': [4, 2, 0, 0, 2, 2, 6569069],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [[1708744, 406285.375, 9194, 0],
+                             [3432737, 396873.59375, 9196, 0],
+                             [5645442, 390060.875, 9201, 0],
+                             [4746277, 389356.5625, 9187, 0],
+                             [5405825, 388245.75, 9195, 0],
+                             [340488, 382034.21875, 9201, 0],
+                             [3437922, 380195.0625, 9178, 0],
+                             [826277, 376878.21875, 9196, 0],
+                             [3527746, 376737.25, 9188, 0],
+                             [2759432, 375577.1875, 9188, 0]],
+                    'types': ['BIGINT', 'DOUBLE', 'DATE', 'INTEGER']},
+             'Q6': {'counters': [0, 0, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [[124264688.0]],
+                    'types': ['DOUBLE']}}}
+
+#: presto_tpu's records of G at geo_ml_queries.FULL (`... torch_geo_ml_common
+#: geo`)
+GEO_REFERENCE = {'auto': {'G1': {},
+          'G2': {},
+          'G3': {},
+          'G4': {},
+          'G4b': {'memo': ['executable'], 'mode': 'compiled'},
+          'G5': {'memo': ['executable'], 'mode': 'compiled'}},
+ 'compiled': {'G1': {'counters': None,
+                     'error': ['StaticFallback',
+                               'spatial join is dynamic-mode only'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'G2': {'counters': None,
+                     'error': ['StaticFallback',
+                               'spatial join is dynamic-mode only'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'G3': {'counters': None,
+                     'error': ['StaticFallback',
+                               'spatial join is dynamic-mode only'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'G4': {},
+              'G4b': {'memo': ['executable'], 'mode': 'compiled'},
+              'G5': {'memo': ['executable'], 'mode': 'compiled'}},
+ 'dynamic': {'G1': {'counters': [0, 0, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [[6206690]],
+                    'types': ['BIGINT']},
+             'G2': {'counters': [3, 0, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [[9899, 994534],
+                             [9892, 824780],
+                             [9898, 490442],
+                             [9893, 436362],
+                             [9894, 405643],
+                             [9891, 342618],
+                             [9890, 299714],
+                             [9895, 247201],
+                             [9897, 104164],
+                             [9896, 101286],
+                             [9976, 25332],
+                             [9973, 25270],
+                             [9958, 17618],
+                             [9907, 16942],
+                             [9946, 16407],
+                             [9909, 12885],
+                             [9906, 10673],
+                             [9971, 9567],
+                             [9926, 9427],
+                             [9905, 8445],
+                             [9997, 7779],
+                             [9953, 7266],
+                             [9964, 6918],
+                             [9914, 6799],
+                             [9948, 6197],
+                             [9990, 6111],
+                             [9925, 5802],
+                             [9901, 5546],
+                             [9924, 4904],
+                             [9933, 4844],
+                             [7217, 4547],
+                             [578, 4372],
+                             [4636, 4319],
+                             [9590, 3961],
+                             [6013, 3901],
+                             [9937, 3871],
+                             [9998, 3701],
+                             [9919, 3689],
+                             [5836, 3410],
+                             [8287, 3265],
+                             [3899, 2926],
+                             [8379, 2918],
+                             [4193, 2908],
+                             [9490, 2874],
+                             [4222, 2867],
+                             [9923, 2862],
+                             [9992, 2860],
+                             [4735, 2848],
+                             [6068, 2845],
+                             [5296, 2844],
+                             [8820, 2778],
+                             [4147, 2767],
+                             [2951, 2754],
+                             [3168, 2751],
+                             [5742, 2748],
+                             [6102, 2710],
+                             [6975, 2706],
+                             [9283, 2701],
+                             [9456, 2660],
+                             [5732, 2652],
+                             [1916, 2648],
+                             [7693, 2644],
+                             [465, 2620],
+                             [8620, 2613],
+                             [223, 2605],
+                             [8898, 2587],
+                             [9017, 2587],
+                             [3645, 2563],
+                             [244, 2560],
+                             [9994, 2557],
+                             [5635, 2543],
+                             [4939, 2488],
+                             [9689, 2486],
+                             [6457, 2482],
+                             [5902, 2469],
+                             [6306, 2466],
+                             [1, 2456],
+                             [4881, 2445],
+                             [3525, 2444],
+                             [222, 2433],
+                             [560, 2426],
+                             [7741, 2417],
+                             [7548, 2397],
+                             [883, 2364],
+                             [1951, 2361],
+                             [5801, 2351],
+                             [8736, 2339],
+                             [8973, 2332],
+                             [8276, 2328],
+                             [50, 2327],
+                             [5009, 2324],
+                             [3883, 2322],
+                             [5841, 2322],
+                             [3730, 2319],
+                             [8480, 2310],
+                             [7923, 2304],
+                             [5424, 2293],
+                             [2549, 2289],
+                             [8883, 2278],
+                             [3089, 2263]],
+                    'types': ['BIGINT', 'BIGINT']},
+             'G3': {'counters': [0, 0, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [[9591, 48900377, 4811776895]],
+                    'types': ['BIGINT', 'BIGINT', 'BIGINT']},
+             'G4': {'counters': None,
+                    'error': ['ValueError',
+                              'setting an array element with a sequence. The '
+                              'requested array has an inhomogeneous shape '
+                              'after 2 dimensions. The detected shape was '
+                              '(10000, 2) + inhomogeneous part.'],
+                    'memo': [],
+                    'mode': None,
+                    'rows': None,
+                    'types': None},
+             'G4b': {'counters': [1, 0, 0, 0, 0, 0, 0],
+                     'error': None,
+                     'memo': [],
+                     'mode': 'dynamic',
+                     'rows': [[0,
+                               0.1374012203028343,
+                               'POINT (1.7064647089829077 60.43652326312235)',
+                               'sha256:3fd94ee32ba5dad07761be7976d03db1ac5d453945086e31a837bf427d34e481',
+                               5,
+                               0.0],
+                              [1,
+                               0.7143460616566699,
+                               'POINT (63.26869198912948 51.70022929685876)',
+                               'sha256:fd5b98ca2881bd6b59fdb38df2d281cd783ce8ff008a42d2a448ed83267d32c4',
+                               5,
+                               0.0],
+                              [2,
+                               1151.658802928388,
+                               'POINT (54.37566692902349 91.68860525547878)',
+                               'sha256:e5c898bc9c70ed0321527298c5104cccb10853289989c300bd6654e9c4facf59',
+                               5,
+                               0.0],
+                              [3,
+                               993.3100304882846,
+                               'POINT (27.335675542155894 61.94673026230947)',
+                               'sha256:641e814a2ecc0a2752d3626a00af39bf05e7783bfe61861ed7f12ff9a932c263',
+                               5,
+                               0.0],
+                              [4,
+                               1957.4673795001522,
+                               'POINT (14.421678529837713 43.359832638327966)',
+                               'sha256:787364f36e114d403744c82efd69d82cb4fb782d6aa430217de7024795869bf2',
+                               5,
+                               0.0],
+                              [5,
+                               1024.7920660095424,
+                               'POINT (43.514112396040844 18.72656349056475)',
+                               'sha256:7dc13fb045898df411215928e2e95ecd5961e52af43722c8c83f8d0c1f1a0a48',
+                               5,
+                               0.0],
+                              [6,
+                               1828.4529812004685,
+                               'POINT (1.5594510851764345 16.72026726336715)',
+                               'sha256:c4b71fabc4d23df498e6edea0a1076c3ac2a43c1adb58fc09aef369059e1ca9f',
+                               5,
+                               0.0],
+                              [7,
+                               632.283740940996,
+                               'POINT (21.116339804463358 55.55515396480657)',
+                               'sha256:e9e74e2b686f5b88c5d1c208a8df9e5f28bede90977c3aaa5f01eb8f5771c517',
+                               5,
+                               0.0],
+                              [8,
+                               466.73151656357913,
+                               'POINT (93.81454749057481 70.61880803017002)',
+                               'sha256:b6275913d6ec057b6b4fe3c0d0d378331f607f318bd1ab7404290a3ba7327ead',
+                               5,
+                               0.0],
+                              [9,
+                               490.2795181188203,
+                               'POINT (93.90090039460057 70.05770762363186)',
+                               'sha256:3f5d49c1fe9e3bfb5106d66a9edc82e44c74678d2eaf649a00bdd513cdb313e4',
+                               5,
+                               0.0],
+                              [10,
+                               618.6029679049165,
+                               'POINT (52.4745837442633 50.27658072386516)',
+                               'sha256:10ce2f8a803d777dcdf6fe3c92b4d50e4f21f232ba018d6884ae5af1c808bc1e',
+                               5,
+                               0.0],
+                              [11,
+                               1733.7528968167017,
+                               'POINT (72.69758299176708 60.26444497004358)',
+                               'sha256:ee60fa636b1a4d26b850b26dbdef4946d436863ffbde4f5d4d1b55f8c5e1515b',
+                               5,
+                               0.0],
+                              [12,
+                               6.044560167997588,
+                               'POINT (78.850605241402 58.87728933535582)',
+                               'sha256:145c94d8a014b23aff8920ff2f240612d6d2d2c612905c9425fdc59d49a4d266',
+                               36,
+                               0.0],
+                              [13,
+                               9.80157401936691,
+                               'POINT (90.13319120839164 11.502690835465943)',
+                               'sha256:b01b207636330b2dc48c000bcf625bf96990453ec2fdb837783b2da07230105e',
+                               54,
+                               0.0]],
+                     'types': ['INTEGER',
+                               'DOUBLE',
+                               'VARCHAR',
+                               'VARCHAR',
+                               'BIGINT',
+                               'DOUBLE']},
+             'G5': {'counters': [0, 0, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [[716, 67809057.76828691]],
+                    'types': ['BIGINT', 'DOUBLE']}}}
+
+#: presto_tpu's records of M over the SF1 tables, `models` holding its M1
+#: blobs (`... torch_geo_ml_common ml 1 <cache dir>`)
+ML_REFERENCE_SF1 = {'auto': {'M1': {},
+          'M2': {'counters': [0, 1, 0, 0, 0, 0, 0],
+                 'memo': ['executable'],
+                 'mode': 'compiled'},
+          'M3': {}},
+ 'compiled': {'M1': {'counters': None,
+                     'error': ['StaticFallback',
+                               'learn_classifier is dynamic-mode only'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None},
+              'M2': {'counters': [0, 1, 0, 0, 0, 0, 0],
+                     'memo': ['executable'],
+                     'mode': 'compiled'},
+              'M3': {'counters': None,
+                     'error': ['StaticFallback',
+                               'classification_precision is dynamic-mode '
+                               'only'],
+                     'mode': None,
+                     'rows': None,
+                     'types': None}},
+ 'dynamic': {'M1': {'blobs': ['{"kind": "classifier", "w": '
+                              '[[-0.0003877704384208751, '
+                              '-0.00020116173028195282, '
+                              '0.0005889321687028284], [-0.20194721391230613, '
+                              '0.006697983256426921, 0.19524923065587882], '
+                              '[-0.14773319708175453, 0.03890726489499709, '
+                              '0.10882593218675739], [-0.0032340203073194865, '
+                              '0.006509029823135724, '
+                              '-0.0032750095158162375]], "b": '
+                              '[3.8353964187338416, -7.652976952914942, '
+                              '3.8175805341810802], "classes": ["A", "N", '
+                              '"R"]}',
+                              '{"kind": "regressor", "w": '
+                              '[0.13539226820848074, -2.489238585681414, '
+                              '0.011915871970709981], "b": '
+                              '25.559931663588085, "classes": null}'],
+                    'counters': [0, 0, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [['sha256:e5b3451cfce32d5fcf6c511d1569d65fd1716269a3ee5c0472dfacde0a573a5d',
+                              'sha256:f78385347aec17ecffd5e205d47d173f04756d5dc01e068cd94cc6d3d86354b3']],
+                    'types': ['VARBINARY', 'VARBINARY']},
+             'M2': {'counters': [2, 1, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [['A', 895560, 22854546.38133794],
+                             ['N', 3185506, 81239587.72421834],
+                             ['R', 1919535, 48938528.328013554]],
+                    'types': ['VARCHAR', 'BIGINT', 'DOUBLE']},
+             'M3': {'counters': [0, 0, 0, 0, 0, 0, 0],
+                    'error': None,
+                    'memo': [],
+                    'mode': 'dynamic',
+                    'rows': [[[0.24957133460465045,
+                               0.249576132721271,
+                               0.2495191058708174,
+                               0.24943863458340776,
+                               0.24936738721034318,
+                               0.24937580448980914,
+                               0.24937919583676188,
+                               0.2494892361502567,
+                               0.24931335128557255,
+                               0.24899632275399133],
+                              [1.0,
+                               0.9093109006676113,
+                               0.8183607130980823,
+                               0.7272302344185078,
+                               0.6359955875420178,
+                               0.5451535746385163,
+                               0.45412258994189286,
+                               0.36351495548145074,
+                               0.2725133515583162,
+                               0.09065571208978765],
+                              [0.0,
+                               0.1,
+                               0.2,
+                               0.3,
+                               0.4,
+                               0.5,
+                               0.6,
+                               0.7,
+                               0.8,
+                               0.9],
+                              'sha256:88b4266914171c43490c297ee687162f724e93eac1a5373bb9695335d1a9b055']],
+                    'types': ['ARRAY(DOUBLE)',
+                              'ARRAY(DOUBLE)',
+                              'ARRAY(DOUBLE)',
+                              'VARCHAR']}}}
+
+
 REFERENCE_COUNTERS = {SF: REFERENCE_COUNTERS_SF1, DS_CPU_CHECK_SF: {}}
 REFERENCE_MEMO = {SF: REFERENCE_MEMO_SF1, DS_CPU_CHECK_SF: {}}
 for _sf, _refs in ((SF, DS_REFERENCE_SF1),
@@ -4944,25 +5776,26 @@ def sass_atomics(lib):
     return {kern: sorted(ops) for kern, ops in out.items()}
 
 
-def fgs_inputs(k, n, G, offset, seed):
-    """vals [k, n] whose first element sits `offset` doubles into its
-    buffer (a contiguous view), and gid [n], from a seeded generator."""
+def fgs_inputs(k, n, G, offset, seed, dtype=None):
+    """vals [k, n] (f64, or `dtype`) whose first element sits `offset`
+    elements into its buffer (a contiguous view), and gid [n], from a
+    seeded generator."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    buf = torch.rand((k * n + offset,), dtype=torch.float64, device="cuda",
-                     generator=g) * 1e4
+    buf = torch.rand((k * n + offset,), dtype=dtype or torch.float64,
+                     device="cuda", generator=g) * 1e4
     vals = buf[offset:].view(k, n)
     gid = torch.randint(0, G, (n,), dtype=torch.int32, device="cuda",
                         generator=g)
     return vals, gid
 
 
-def fgs_bound(k, n, G):
+def fgs_bound(k, n, G, elem_bytes=8):
     """(ms, what bounds it): the least time for the function, reading
-    vals and gid once and writing the [k, G] result once, with one f64
-    add per value."""
-    byte_s = (k * n * 8 + n * 4 + k * G * 8) / HBM_BYTES_PER_S
+    vals (elem_bytes a value: 8 for f64, 4 for f32) and gid once and
+    writing the [k, G] f64 result once, with one f64 add per value."""
+    byte_s = (k * n * elem_bytes + n * 4 + k * G * 8) / HBM_BYTES_PER_S
     op_s = k * n / F64_FLOPS
     return max(byte_s, op_s) * 1e3, "bytes" if byte_s >= op_s else \
         "operations"
@@ -4994,7 +5827,7 @@ def fgs_check(vals, gid, G, sm):
     from presto_tpu_torch.exec import kernels as K
 
     k, n = vals.shape
-    plan = K.fused_group_sums_launch_shape(n, k, G, sm)
+    plan = K.fused_group_sums_launch_shape(n, k, G, sm, vals.element_size())
     out = K.fused_group_sums_cuda(vals, gid, G)
     plain = K.fused_group_sums_plain(vals, gid, G)
     same = all(torch.equal(out, K.fused_group_sums_cuda(vals, gid, G))
@@ -5005,7 +5838,10 @@ def fgs_check(vals, gid, G, sm):
     exact = torch.from_numpy(exact_group_sums(vals, gid, G)).cuda()
     vs_exact = {name: rel_err(x, exact, EXACT_RTOL, scale)
                 for name, x in (("kernel", out), ("plain", plain))}
-    row = {"k": k, "n": n, "groups": G, "path": plan.path,
+    row = {"k": k, "n": n, "groups": G, "dtype": str(vals.dtype)[6:],
+           "entry": ("fused_group_sums_f32in"
+                     if vals.dtype == torch.float32
+                     else "fused_group_sums_f64"), "path": plan.path,
            "plan": plan._asdict(), "max_abs_err": max_abs,
            "max_rel_err": max_rel, "ok": ok,
            "max_rel_err_vs_exact": {name: e[1]
@@ -5018,14 +5854,18 @@ def fgs_check(vals, gid, G, sm):
         iters = 20 if n > 100_000 else 200
 
         def library():
+            # index_add_ adds into the f64 table only from f64 values
             return torch.zeros((k, G), dtype=torch.float64,
-                               device="cuda").index_add_(1, gid, vals)
+                               device="cuda").index_add_(
+                1, gid, vals if vals.dtype == torch.float64
+                else vals.double())
 
         row["ms"] = cuda_ms(lambda: K.fused_group_sums_cuda(vals, gid, G), iters)
         row["plain_ms"] = cuda_ms(
             lambda: K.fused_group_sums_plain(vals, gid, G), iters)
         row["library_ms"] = cuda_ms(library, iters)
-        row["bound_ms"], row["bound_by"] = fgs_bound(k, n, G)
+        row["bound_ms"], row["bound_by"] = fgs_bound(k, n, G,
+                                                     vals.element_size())
         row["roofline_share"] = row["bound_ms"] / row["ms"]
     if not ok:
         raise AssertionError(
@@ -5050,8 +5890,10 @@ def phase_kernel():
 
     rows = []
     sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for i, (k, n, G, offset) in enumerate(FGS_SHAPES):
-        vals, gid = fgs_inputs(k, n, G, offset, seed=i)
+    shapes = [(s, torch.float64) for s in FGS_SHAPES] \
+        + [(s, torch.float32) for s in FGS_SHAPES_F32]
+    for i, ((k, n, G, offset), dtype) in enumerate(shapes):
+        vals, gid = fgs_inputs(k, n, G, offset, seed=i, dtype=dtype)
         row = fgs_check(vals, gid, G, sm)
         row["offset"] = offset
         emit({"phase": "kernel", "name": "fused_group_sums", **row})
@@ -5559,7 +6401,8 @@ class Capture:
 
     def __init__(self, sm):
         self.sm = sm
-        self.fgs_rows = {}  # (k, n, G) -> (query, fgs_check row, mode)
+        # (k, n, G) or (k, n, G, "f32") -> (query, fgs_check row, mode)
+        self.fgs_rows = {}
         self.bg_rows = {}  # (n, w, m) -> (query, bg_check row, mode)
 
     def run(self, session, qid, sql, mode):
@@ -5575,9 +6418,12 @@ class Capture:
 
         def fgs(vals, gid, n_groups):
             out = real[0](vals, gid, n_groups)
-            key = tuple(vals.shape) + (n_groups,)
+            # an f32-input launch is a shape of its own
+            key = tuple(vals.shape) + (n_groups,) + (
+                ("f32",) if vals.dtype == torch.float32 else ())
             self.paths.add(K.fused_group_sums_launch_shape(
-                key[1], key[0], n_groups, self.sm).path)
+                key[1], key[0], n_groups, self.sm,
+                vals.element_size()).path)
             if torch.cuda.is_current_stream_capturing():
                 return out
             self.shapes.append(("fused_group_sums", key))
@@ -6188,6 +7034,12 @@ def phase_slice(capture):
     emit({"phase": "zones_sketches_total", "card": card_line(),
           "seconds": time.perf_counter() - t0,
           "target_seconds": ZS_TARGET_SECONDS})
+    t0 = time.perf_counter()
+    guarded("geo_ml_f32", None, phase_geo_ml_f32, cats[SF], capture,
+            counters, launches, by_query)
+    emit({"phase": "geo_ml_f32_total", "card": card_line(),
+          "seconds": time.perf_counter() - t0,
+          "target_seconds": GM_TARGET_SECONDS})
     torch.cuda.synchronize()
     emit({"phase": "slice", "launches": launches,
           "launches_by_query": by_query})
@@ -6921,7 +7773,7 @@ class _CapturedSession:
 
 
 def corpus_run(tables, mode, capture, counters, statements, record,
-               warm_ids=(), same_rows=None):
+               warm_ids=(), same_rows=None, props=None):
     """One pass of a corpus's statements [(id, sql)] in a fresh session on
     the card, each under the Capture: every kernel's launch count set to
     0 just before and read just after, its wall time, its record
@@ -6929,14 +7781,15 @@ def corpus_run(tables, mode, capture, counters, statements, record,
     counters, memo entry) and the kernel shapes it met, each new shape
     then held against its plain version; the statements of warm_ids once
     more warm (a replay where the first run built a graph), their rows
-    held to the first run's (`same_rows(record, result)`).  Returns the
-    session and {id: run}."""
+    held to the first run's (`same_rows(record, result)`); `props` are
+    the session's properties.  Returns the session and {id: run}."""
     import torch
 
     import presto_tpu_torch
 
     session = presto_tpu_torch.connect(_fresh_catalog(tables),
-                                       device="cuda", execution_mode=mode)
+                                       device="cuda", execution_mode=mode,
+                                       **(props or {}))
     out = {}
     for sid, sql in statements:
         for fn in counters.values():
@@ -7377,6 +8230,176 @@ def phase_zones_sketches(cat, capture, counters, launches, by_query):
                    ZQ.GATHER_IDS, bad)
 
 
+GM_TARGET_SECONDS = 90.0  # the geo_ml_f32 phase's budget on the card
+#: M1's weights trained on the card's host against presto_tpu's frozen
+#: ones: the same numpy, its BLAS on another machine (a product of 98,000
+#: rows in another blocking order moves each weight by a few ulps of its
+#: 300 gradient steps; 1e-9 of the largest weight leaves a factor of
+#: 10^5 over that and is far below any weight's effect on a label)
+GM_MODEL_RTOL = 1e-9
+
+
+class _F32Launches:
+    """fused_group_sums_cuda's f32-input launches, set and read as a
+    kernel wrapper's count is (corpus_run sets every count to 0)."""
+
+    @property
+    def launches(self):
+        from presto_tpu_torch.exec import kernels as K
+
+        return K.fused_group_sums_cuda.launches_f32
+
+    @launches.setter
+    def launches(self, v):
+        from presto_tpu_torch.exec import kernels as K
+
+        K.fused_group_sums_cuda.launches_f32 = v
+
+
+def _memory_tables(tables: dict) -> list:
+    """geo_ml_queries' {name: (schema, columns)} as the port's memory
+    tables."""
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.catalog import MemoryTable
+
+    return [MemoryTable(name, {c: T.parse_type(t) for c, t in schema.items()},
+                        cols) for name, (schema, cols) in tables.items()]
+
+
+def gm_brute_force(tables) -> dict:
+    """G1's count by brute force on the card (geo_ml_queries.
+    brute_force_contains: boxes for the squares, a crossing count for the
+    polygons), with its seconds."""
+    import numpy as np
+    import torch
+
+    from presto_tpu_torch import geo_ml_queries as GQ
+
+    t0 = time.perf_counter()
+    x = np.ma.filled(tables["pts"][1]["x"], np.nan)
+    xy = np.stack([x, tables["pts"][1]["y"]], axis=1)
+    count = GQ.brute_force_contains(xy, GQ.square_boxes(tables),
+                                    GQ.polygon_wkts(tables), 32_768, torch,
+                                    "cuda")
+    torch.cuda.synchronize()
+    return {"count": count, "seconds": time.perf_counter() - t0}
+
+
+def phase_geo_ml_f32(cat, capture, counters, launches, by_query):
+    """The geospatial, ML and float32_compute corpus on the card
+    (presto_tpu_torch/geo_ml_queries.py), each statement under the
+    Capture (corpus_run; a warm run after the first, its rows held to the
+    first's):
+
+    - F32: TPC-H Q1, Q3, Q6 and Q18 at SF1 under float32_compute in
+      "dynamic" and "compiled", held to presto_tpu's SF1 records
+      (F32_REFERENCE_SF1: execution mode, counters and memo equal; rows
+      within geo_ml_queries.f32_tolerance, Q6's revenue within 1.86e-5,
+      and each float an f32 value exactly where presto_tpu's is);
+    - G at geo_ml_queries.FULL (4,000,000 points, 10,000 regions) in
+      "dynamic", "auto" and "compiled", held to presto_tpu's records
+      (GEO_REFERENCE), and G1 to a brute-force count on the card;
+    - M over the SF1 tables, `models` holding presto_tpu's M1 blobs, held
+      to its records (ML_REFERENCE_SF1; M1's blobs by their weights,
+      within GM_MODEL_RTOL, the card's host training with its own BLAS).
+
+    One `geo_ml_f32` line a statement and mode (corpus_verdict), a
+    `geo_ml_f32_kernels` line with fused_group_sums' f32-input launches
+    apart, and the brute-force line.  Q1 must launch fused_group_sums'
+    f32-input entry in both modes; G1, G2 or G3 block_gather."""
+    import numpy as np
+
+    from presto_tpu_torch import geo_ml_queries as GQ
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.catalog import MemoryTable
+    from presto_tpu_torch.exec.executor import SORT_STATS_KEYS
+    from presto_tpu_torch.tpch_queries import QUERIES
+
+    counters = {**counters, "fused_group_sums_f32in": _F32Launches()}
+    for mode in launches:
+        launches[mode].setdefault("fused_group_sums_f32in", 0)
+    n_li = cat.get("lineitem").row_count()
+    tpch = list(cat.tables.values())
+
+    def record(session, _sid, sql):
+        return GQ.record(session, sql, SORT_STATS_KEYS)
+
+    def same_rows(rec, result):
+        return [[GQ.value(v) for v in r] for r in result.rows] == rec["rows"]
+
+    runs = {mode: {} for mode in GQ.GEO_ML_MODES}
+    f32_ids = [(f"Q{q}", QUERIES[q]) for q in GQ.F32_QUERIES]
+    for mode in GQ.F32_MODES:
+        _s, got = corpus_run(tpch, mode, capture, counters, f32_ids, record,
+                             [sid for sid, _ in f32_ids], same_rows,
+                             {"float32_compute": True})
+        runs[mode].update(got)
+    tables = GQ.geo_tables(GQ.FULL)
+    geo = list(GQ.geo_queries(tables, GQ.FULL).items())
+    geo_tables = _memory_tables(tables)
+    for mode in GQ.GEO_ML_MODES:
+        _s, got = corpus_run(geo_tables, mode, capture, counters, geo,
+                             record, [sid for sid, _ in geo], same_rows)
+        runs[mode].update(got)
+    brute = gm_brute_force(tables)
+    emit({"phase": "geo_ml_f32_brute_force", "card": card_line(), **brute})
+    blobs = [b.encode() for b in ML_REFERENCE_SF1["dynamic"]["M1"]["blobs"]]
+    schema, cols = GQ.models_table(blobs)
+    models = MemoryTable("models", {c: T.parse_type(t)
+                                    for c, t in schema.items()}, cols)
+    ml = list(GQ.ML_QUERIES.items())
+    for mode in GQ.GEO_ML_MODES:
+        _s, got = corpus_run(tpch + [models], mode, capture, counters, ml,
+                             record, ("M2",), same_rows)
+        runs[mode].update(got)
+    del tables, geo_tables
+
+    want = {mode: {**(GQ.expand_reference(F32_REFERENCE_SF1, mode)
+                      if mode in GQ.F32_MODES else {}),
+                   **GQ.expand_reference(GEO_REFERENCE, mode),
+                   **GQ.expand_reference(ML_REFERENCE_SF1, mode)}
+            for mode in GQ.GEO_ML_MODES}
+
+    def differs(mode, sid, rec):
+        ref = want[mode][sid]
+        if sid.startswith("Q"):
+            return GQ.mismatch(sid, {**rec, "rows": None},
+                               {**ref, "rows": None}) or GQ.f32_mismatch(
+                int(sid[1:]), rec["rows"] or [], ref["rows"] or [], n_li)
+        return GQ.mismatch(sid, rec, ref, QUERY_RTOL,
+                           model_rtol=GM_MODEL_RTOL)
+
+    report = {"f32": {}, "models": {}}
+    for mode in GQ.F32_MODES:
+        for sid, _sql in f32_ids:
+            rec, ref = runs[mode][sid]["record"], want[mode][sid]
+            report["f32"][f"{mode} {sid}"] = {
+                "rows": rec["rows"] if sid == "Q6" else None,
+                "max_rel_difference_and_bound": GQ.f32_differences(
+                    int(sid[1:]), rec["rows"] or [], ref["rows"] or [],
+                    n_li)}
+    for mode in GQ.GEO_ML_MODES:
+        rec, ref = runs[mode]["M1"]["record"], want[mode]["M1"]
+        if rec.get("blobs") and ref.get("blobs"):
+            report["models"][mode] = [GQ.model_difference(x, y) for x, y
+                                      in zip(rec["blobs"], ref["blobs"])]
+    emit({"phase": "geo_ml_f32_differences", "card": card_line(),
+          "model_rtol": GM_MODEL_RTOL, **report})
+    bad = []
+    g1 = runs["dynamic"]["G1"]["record"]["rows"]
+    if g1 != [[brute["count"]]]:
+        bad.append(f"G1: {g1} against the brute-force {brute['count']}")
+    f32_in = {mode: runs[mode]["Q1"]["launches"]["fused_group_sums_f32in"]
+              for mode in GQ.F32_MODES}
+    if not all(f32_in.values()):
+        bad.append(f"Q1 launched no f32-input fused_group_sums: {f32_in}")
+    corpus_verdict("geo_ml_f32", runs, differs, counters, launches,
+                   by_query, ("Q1",), GQ.GATHER_IDS, bad,
+                   fused_group_sums_f32in={
+                       m: sum(g["launches"]["fused_group_sums_f32in"]
+                              for g in r.values()) for m, r in runs.items()})
+
+
 def division_strings(cat):
     """E10's strings (a DOUBLE column divided by 3, its round, truncate
     and log10, as VARCHAR) on the card in "dynamic" and "auto" against
@@ -7407,10 +8430,12 @@ def division_strings(cat):
 
 def exact_group_sums(vals, gid, G):
     """[k, G] f64 numpy: each group's sum of each value row, correctly
-    rounded (math.fsum on the host)."""
+    rounded (math.fsum on the host; f32 rows by exponent buckets)."""
     import numpy as np
 
     v, g = vals.cpu().numpy(), gid.cpu().numpy()
+    if v.dtype == np.float32:
+        return _exact_group_sums_f32(v, g, G)
     order = np.argsort(g, kind="stable")
     bounds = np.searchsorted(g[order], np.arange(G + 1))
     out = np.zeros((v.shape[0], G))
@@ -7418,6 +8443,30 @@ def exact_group_sums(vals, gid, G):
         vj = v[j][order]
         for c in range(G):
             out[j, c] = math.fsum(vj[bounds[c]:bounds[c + 1]])
+    return out
+
+
+def _exact_group_sums_f32(v, g, G):
+    """exact_group_sums of f32 rows without a Python step a value: the
+    values of one frexp exponent e are multiples of 2^(e-24) below 2^e in
+    magnitude, so fewer than 2^23 of them sum exactly in f64 in any order
+    (one bincount a row over (group, exponent) slots); math.fsum then
+    adds each group's few exponent sums, correctly rounded."""
+    import numpy as np
+
+    n = v.shape[1]
+    if n >= 1 << 23:
+        raise ValueError("more than 2^23 values a row: a bucket's sum "
+                         "could round")
+    out = np.zeros((v.shape[0], G))
+    for j in range(v.shape[0]):
+        x = v[j].astype(np.float64)
+        e = np.frexp(x)[1]
+        lo = int(e.min(initial=0))
+        width = int(e.max(initial=0)) - lo + 1
+        slots = np.bincount(g.astype(np.int64) * width + (e - lo), weights=x,
+                            minlength=G * width).reshape(G, width)
+        out[j] = [math.fsum(row) for row in slots]
     return out
 
 
@@ -7753,25 +8802,37 @@ def main() -> int:
                           {"fused_group_sums": K.fused_group_sums_cuda,
                            "block_gather": G.block_gather_cuda})
     guarded("block_gather_shapes", None, phase_bg_shapes, capture)
-    q1_rows = [row for q, row, mode in capture.fgs_rows.values()
-               if q == "Q1" and mode == "compiled"]
-    if FAILED or not (bg_rows and q1_rows and launches and ds_launches):
+    q1_rows = {}  # by dtype: Q1's compiled shape, else its dynamic one
+    for q, row, mode in capture.fgs_rows.values():
+        if q == "Q1" and (mode == "compiled" or row["dtype"] not in q1_rows):
+            q1_rows[row["dtype"]] = row
+    if FAILED or not (bg_rows and len(q1_rows) == 2 and launches
+                      and ds_launches):
         return finish(1, t0)
     kernels = []
     # each kernel at its main path's shape: the input Q1's compiled run
-    # gives fused_group_sums, Q3's orders-at-lineitem gather for
-    # block_gather; launches: the compiled runs of the 22 TPC-H queries,
-    # the relational, function and collection corpora and the 99 TPC-DS
-    # queries
-    for name, src, replaces, row in (
+    # gives fused_group_sums (f64 rows, and f32 ones under
+    # float32_compute: the f32-input entry), Q3's orders-at-lineitem
+    # gather for block_gather; launches: the compiled runs of the 22
+    # TPC-H queries, the relational, function, collection and other
+    # corpora and the 99 TPC-DS queries, the f32-input entry's apart
+    f32_launches = launches.get("fused_group_sums_f32in", 0)
+    for name, src, replaces, row, n in (
             ("fused_group_sums", "fused_group_sums.cu",
-             "presto_tpu/exec/kernels.py:1484", q1_rows[0]),
+             "presto_tpu/exec/kernels.py:1484", q1_rows["float64"],
+             launches["fused_group_sums"] - f32_launches
+             + ds_launches["compiled"]["fused_group_sums"]),
+            ("fused_group_sums_f32in", "fused_group_sums.cu",
+             "presto_tpu/exec/kernels.py:1558", q1_rows["float32"],
+             f32_launches),
             ("block_gather", "block_gather.cu",
-             "presto_tpu/exec/gather.py:160", bg_rows[0])):
+             "presto_tpu/exec/gather.py:160", bg_rows[0],
+             launches["block_gather"]
+             + ds_launches["compiled"]["block_gather"])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"presto_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": launches[name] + ds_launches["compiled"][name],
+            "launches": n,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

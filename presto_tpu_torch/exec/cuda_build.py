@@ -30,6 +30,9 @@ SIGNATURES = {
         "fused_group_sums_f64": (
             ctypes.c_int,
             [_P, _P, ctypes.c_longlong, *[ctypes.c_int] * 8, _P, _P, _P]),
+        "fused_group_sums_f32in": (
+            ctypes.c_int,
+            [_P, _P, ctypes.c_longlong, *[ctypes.c_int] * 8, _P, _P, _P]),
         "fused_group_sums_bounds": (
             None, [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_int)]),

@@ -83,15 +83,31 @@ COLUMNS, FUNCTIONS, SESSION, CATALOGS, SCHEMAS and STATS, over memory
 tables; every scanned table is checked against the session's access
 control (security.py) when a statement is planned.
 
+float32_compute (the session property): DOUBLE columns scan as float32
+from a second per-table cache that holds them alone (scan_batch),
+expressions follow jnp's promotion (functions/decimals.py
+jax_float_promote, true_div), sums accumulate as the reference's do (the
+fused prepass in f64 from rows stacked as f32, through
+fused_group_sums' f32-input entry on the card, one fusable aggregate
+enough; the global and grouped segment sums in f32), f32 keys order as
+the reference's CPU path does, and writes store the f32-rounded values.
+
+The plan node SpatialJoin (`_exec_spatialjoin`, dynamic executor alone:
+the static one raises StaticFallback, as the reference's does): grid
+candidates on the host and the exact predicate on the device
+(functions/geospatial.py), the matches gathered through
+kernels.gather_batch.  The aggregates of functions/ml.py (ML_AGGS:
+learn_classifier, learn_regressor, evaluate_classifier_predictions and
+classification_*), built on the host from the rows (exec/host_aggs.py),
+dynamic executor alone.
+
 Not ported yet, and raising NotImplementedError when reached: chunked
 and distributed execution, batched compiled execution, PREPARE,
 EXECUTE, DEALLOCATE and DESCRIBE INPUT/OUTPUT (the serving tier),
 materialized views, EXPLAIN (TYPE DISTRIBUTED), EXPLAIN ANALYZE under
 execution_mode "compiled", writes to file connectors and streamed
-writes (exec/writer.py), float32_compute, the plan node SpatialJoin,
-and the aggregates of functions/ml.py (learn_*, classification_*,
-evaluate_classifier_predictions) and the $hll_* / $kll_* states of
-chunked and distributed execution.  Not ported either, and changing no
+writes (exec/writer.py), and the $hll_* / $kll_* states of chunked and
+distributed execution.  Not ported either, and changing no
 result: sort-order materialization (it serves chunked
 execution), runtime-domain stripe pruning (df_splits_pruned: its tables
 are not ported), the host summaries of the cluster side channel, spill
@@ -174,6 +190,16 @@ HOST_AGGS = frozenset((
     "approx_set", "merge", "qdigest_agg", "tdigest_agg", "map_union_sum",
     "approx_most_frequent", "reduce_agg"))
 
+#: the aggregates of functions/ml.py: a model trained per group, and the
+#: evaluation summaries, built on the host from the rows
+#: (exec/host_aggs.py) in the dynamic executor alone, as COLLECTION_AGGS
+#: are
+ML_AGGS = frozenset((
+    "learn_classifier", "learn_regressor", "evaluate_classifier_predictions",
+    "classification_miss_rate", "classification_fall_out",
+    "classification_precision", "classification_recall",
+    "classification_thresholds"))
+
 #: every aggregate _agg_column computes
 PORTED_AGGS = frozenset((
     "count", "count_if", "sum", "avg", "min", "max", *_VARIANCE_AGGS,
@@ -181,7 +207,8 @@ PORTED_AGGS = frozenset((
     "approx_percentile", "min_by", "max_by", "geometric_mean",
     "arbitrary", "any_value", "bool_and", "every", "bool_or",
     *_BIVARIATE_AGGS, "skewness", "kurtosis", "entropy",
-    "bitwise_and_agg", "bitwise_or_agg", *COLLECTION_AGGS, *HOST_AGGS))
+    "bitwise_and_agg", "bitwise_or_agg", *COLLECTION_AGGS, *HOST_AGGS,
+    *ML_AGGS))
 
 
 def _merge_sort_stats(stats, counts: dict) -> None:
@@ -215,13 +242,6 @@ def execute_query(session, text: str) -> QueryResult:
 MV_PREFIX = "__mv__"
 
 _OK = ([("result", T.BOOLEAN)], [(True,)])
-
-
-def _refuse_unported_properties(session) -> None:
-    """Raise for a session property whose execution path is not ported,
-    before any statement runs a query under it."""
-    if session.properties.get("float32_compute", False):
-        raise NotImplementedError("float32_compute is not ported")
 
 
 def _dispatch_statement(session, text: str, stmt, mon) -> QueryResult:
@@ -322,7 +342,6 @@ def _dispatch_statement(session, text: str, stmt, mon) -> QueryResult:
         # the PageSink write pipeline (exec/writer.py)
         from presto_tpu_torch.exec import writer as W
 
-        _refuse_unported_properties(session)
         return W.run_write(session, text, stmt, mon)
     if isinstance(stmt, ast.ShowCreateTable):
         from presto_tpu_torch.exec import writer as W
@@ -356,7 +375,6 @@ def _dispatch_statement(session, text: str, stmt, mon) -> QueryResult:
     props = session.properties
     if props.get("distributed", False):
         raise NotImplementedError("distributed execution is not ported")
-    _refuse_unported_properties(session)
     mode = props.get("execution_mode", "auto")
     if mode == "chunked":
         raise NotImplementedError("execution_mode=chunked is not ported")
@@ -425,7 +443,6 @@ def execute_plan_to_host(session, stmt):
     suffix `_i`."""
     from presto_tpu_torch.exec import writer as W
 
-    _refuse_unported_properties(session)
     plan = plan_statement(session, stmt)
     batch = Executor(session).evaluate(plan)
     out = plan.root
@@ -483,7 +500,6 @@ def explain_analyze_text(session, stmt, mon) -> str:
             "EXPLAIN ANALYZE under execution_mode='compiled' reads XLA's "
             "cost analysis in presto_tpu, which has no counterpart in "
             "presto_tpu_torch yet")
-    _refuse_unported_properties(session)
     mon.stats.execution_mode = "dynamic"
     mon.collect_node_stats = True  # ANALYZE implies per-node stats
     with mon.phase("plan"):
@@ -601,9 +617,12 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
         scan_nodes: list = []
         _collect_tablescans(plan.root, scan_nodes)
         bound = _static_root_bound(plan.root)
+        f32 = bool(session.properties.get("float32_compute", False))
         batches = [scan_batch(session.catalog.get(n.table), n,
-                              session.device) for n in scan_nodes]
-        meta_box: list = []  # the fetch layout, set by every run
+                              session.device, f32) for n in scan_nodes]
+        # the fetch layout and whether a root column has another length
+        # than the root, set by every run
+        meta_box: list = []
         counts_box: list = [sort_counts]  # the counters, set by every run
 
         def program(*batches):
@@ -622,14 +641,18 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
             guard = torch.stack([g.reshape(()) for g in ex.guards]).any() \
                 if ex.guards else torch.zeros((), dtype=torch.bool,
                                               device=session.device)
-            if out.capacity > _PACK_FETCH_MAX or any(
+            ragged = any(c.data.shape[0] != out.capacity
+                         for c in out.columns.values())
+            if out.capacity > _PACK_FETCH_MAX or ragged or any(
                     c.data.ndim > 1 for c in out.columns.values()):
                 # a root over a scan-sized capacity: to_numpy's selective
-                # fetch pulls only the live rows
-                meta_box[:] = [None]
+                # fetch pulls only the live rows (and a column of another
+                # length, a constant point or feature row, raises there
+                # as the reference's fetch does)
+                meta_box[:] = [None, ragged]
                 return out, guard
             (buf, side), meta = K.pack_fetch(out, guard)
-            meta_box[:] = [meta]
+            meta_box[:] = [meta, False]
             flat = K.flat_fetch(buf, side)
             return flat, flat[buf.shape[0] - 1] != 0
 
@@ -641,11 +664,18 @@ def run_compiled(session, text: str, stmt, mon=None) -> QueryResult:
     out, guard = exe()
     if mon is not None:
         _merge_sort_stats(mon.stats, counts_box[0])
-    meta = meta_box[0]
+    meta, ragged = meta_box
     ex = Executor(session)
     if meta is None:
         tripped = bool(guard)
-        result = None if tripped else ex.run_batch(plan, out)
+        try:
+            result = None if tripped else ex.run_batch(plan, out)
+        except IndexError:
+            if ragged:
+                # the reference memoizes its executable before the fetch
+                # that raises on a column of another length
+                cache.put(key, entry, exe.pool_bytes, exe)
+            raise
     else:
         datas, sel, tripped = K.unpack_fetch(
             K.split_flat_fetch(out.cpu().numpy(), meta), meta)
@@ -968,7 +998,8 @@ class Executor:
         if self.scan_inputs is not None:
             return self._rf_apply(node, self.scan_inputs[id(node)])
         return self._rf_apply(node, scan_batch(
-            self.session.catalog.get(node.table), node, self.device))
+            self.session.catalog.get(node.table), node, self.device,
+            bool(self.session.properties.get("float32_compute", False))))
 
     def _exec_values(self, node: P.Values) -> Batch:
         """Literal rows (a SELECT without FROM, VALUES lists) as a batch
@@ -1305,13 +1336,17 @@ class Executor:
         aggregate.  Returns {} when not worthwhile; callers fall through
         to _agg_column per aggregate.
 
-        The gate is the reference's interpreter-path gate: its Pallas
-        interpreter keeps f64, as this package's kernel does on every
-        device, so float32_compute plays no part here."""
+        The gate is the reference's: under float32_compute one fusable
+        aggregate is enough, and so is one f32 value row.  The kernel
+        sums in f64 on every device, as the reference's interpreter
+        does; under the property, when every value row is f32, the rows
+        are stacked as f32 (a mask row's 0 and 1 are exact there) and go
+        to the kernel's f32-input entry, so that nothing makes an f64
+        copy of them."""
         if not self.session.properties.get("pallas_fused_agg", True):
             return {}
         n = b.capacity
-        if n < 32_768 or not (1 <= n_groups <= 4096) or len(aggs) < 2:
+        if n < 32_768 or not (1 <= n_groups <= 4096) or len(aggs) < 1:
             return {}
 
         def fusable(a):
@@ -1325,10 +1360,13 @@ class Executor:
             return False
 
         chosen = {sym: a for sym, a in aggs.items() if fusable(a)}
-        if len(chosen) < 2:
+        f32_mode = bool(self.session.properties.get("float32_compute",
+                                                    False))
+        if len(chosen) < (1 if f32_mode else 2):
             return {}
         rows: List[torch.Tensor] = []
         plan: Dict[str, tuple] = {}
+        value_dtypes = set()
         for sym, a in chosen.items():
             mask = b.sel
             if a.filter is not None:
@@ -1347,18 +1385,21 @@ class Executor:
             else:
                 col = to_column(eval_expr(a.args[0], b, self.ctx), n,
                                 self.device)
-                if not col.data.is_floating_point():
+                if col.data.dtype not in (torch.float64, torch.float32):
                     continue
+                value_dtypes.add(col.data.dtype)
                 valid = mask if col.valid is None else (mask & col.valid)
                 vi = len(rows)
                 rows.append(torch.where(valid, col.data, 0.0))
                 ci = len(rows)
                 rows.append(valid)
                 plan[sym] = (a.fn, vi, ci, a.type)
-        if len(plan) < 2:
+        if len(plan) < (1 if torch.float32 in value_dtypes else 2):
             return {}
+        stack_t = torch.float32 if value_dtypes == {torch.float32} \
+            else torch.float64
         sums = K.fused_group_sums(
-            torch.stack([r.to(torch.float64) for r in rows]),
+            torch.stack([r.to(stack_t) for r in rows]),
             gid.clamp(0, n_groups - 1).to(torch.int32).contiguous(),
             n_groups)
         out: Dict[str, Column] = {}
@@ -1397,8 +1438,6 @@ class Executor:
                                         order).to(torch.int64),
                           None, T.BIGINT)
         if a.fn not in PORTED_AGGS:
-            # learn_*, classification_* and
-            # evaluate_classifier_predictions (functions/ml.py)
             raise NotImplementedError(
                 f"aggregate {a.fn} is not ported to presto_tpu_torch")
         col = to_column(eval_expr(a.args[0], b, self.ctx), b.capacity,
@@ -1421,6 +1460,10 @@ class Executor:
             if self.static:
                 raise StaticFallback(f"{a.fn} is dynamic-mode only")
             return self._host_agg(b, a, order, col, mask, valid, nonempty)
+        if a.fn in ML_AGGS:
+            if self.static:
+                raise StaticFallback(f"{a.fn} is dynamic-mode only")
+            return self._ml_agg(b, a, order, col, valid, nonempty)
         if a.fn == "count":
             return Column(cnt, None, T.BIGINT)
         if a.fn == "approx_distinct":
@@ -1681,6 +1724,65 @@ class Executor:
                                    init, lam[0], lam[1], a.type, n_groups)
             return to_column(_colval_from_pylist(states, a.type),
                              n_groups, self.device)
+        return CL.tuples_to_dict_column(out, nonempty, a.type, self.device)
+
+    def _ml_agg(self, b: Batch, a: ir.AggCall, order: K.GroupOrder,
+                col: Column, valid, nonempty) -> Column:
+        """learn_classifier, learn_regressor, evaluate_classifier_predictions
+        and the classification_* family, from the rows read back to the
+        host (exec/host_aggs.py; reference: their branches of
+        _agg_column and _classification_host)."""
+        n_groups = order.n_groups
+        gid = order.gid.cpu().numpy()
+        vh = valid.cpu().numpy()
+        cap = b.capacity
+
+        def host_column(e):
+            return to_column(eval_expr(e, b, self.ctx), cap, self.device)
+
+        if a.fn in ("learn_classifier", "learn_regressor"):
+            fv = eval_expr(a.args[1], b, self.ctx)
+            feats = fv.data.cpu().numpy()
+            labels = col.data.cpu().numpy()
+            if col.dictionary is not None:
+                labels = col.dictionary.values[
+                    np.clip(labels, 0, len(col.dictionary) - 1)]
+            elif col.type.is_decimal:
+                labels = labels.astype(np.float64) \
+                    / (10 ** col.type.decimal_scale)
+            if fv.valid is not None:  # rows with NULL features skip
+                vh = vh & fv.valid.cpu().numpy()
+            out = HA.learn(a.fn, gid, vh, labels, feats, n_groups)
+        elif a.fn == "evaluate_classifier_predictions":
+            pcol = host_column(a.args[1])
+            if pcol.valid is not None:
+                vh = vh & pcol.valid.cpu().numpy()
+            out = HA.evaluate_predictions(
+                gid, vh, col.data.cpu().numpy(), col.dictionary,
+                pcol.data.cpu().numpy(), pcol.dictionary, n_groups)
+        else:  # classification_*(buckets, truth, prediction[, weight])
+            bk = eval_expr(a.args[0], b, self.ctx).data
+            buckets = int(bk.reshape(-1)[0]) if isinstance(
+                bk, torch.Tensor) else int(bk)
+            if buckets < 2:
+                raise ExecutionError(f"{a.fn}: buckets must be >= 2")
+            tcol = host_column(a.args[1])
+            pcol = host_column(a.args[2])
+            truth = tcol.data.cpu().numpy().astype(bool)
+            pred = pcol.data.cpu().numpy().astype(np.float64)
+            wts = None  # unit weights
+            if len(a.args) > 3:
+                wts = host_column(a.args[3]).data.cpu().numpy() \
+                    .astype(np.float64)
+            vh = b.sel.cpu().numpy()
+            for c in (tcol, pcol):
+                if c.valid is not None:
+                    vh = vh & c.valid.cpu().numpy()
+            if np.any(vh & ((pred < 0) | (pred > 1))):
+                raise ExecutionError(
+                    f"{a.fn}: predictions must be in [0, 1]")
+            out = HA.classification(a.fn, gid, vh, truth, pred, wts,
+                                    buckets, n_groups)
         return CL.tuples_to_dict_column(out, nonempty, a.type, self.device)
 
     def _approx_percentile_host(self, b: Batch, a: ir.AggCall,
@@ -2240,6 +2342,93 @@ class Executor:
                                                     self.ctx))
         return out
 
+    def _exec_spatialjoin(self, node: P.SpatialJoin) -> Batch:
+        """Grid-indexed spatial inner join (reference: _exec_spatialjoin,
+        after SpatialJoinOperator over PagesRTreeIndex).  The candidate
+        pairs come from a uniform grid on the host and the exact
+        predicate runs on the session's device (functions/geospatial.py);
+        the matches gather both sides through kernels.gather_batch.  The
+        dynamic executor alone: the match count is data-dependent."""
+        if self.static:
+            raise StaticFallback("spatial join is dynamic-mode only")
+        from presto_tpu_torch.functions import geospatial as GEO
+
+        left = self.exec_node(node.left)
+        right = self.exec_node(node.right)
+        lrows = np.flatnonzero(left.sel.cpu().numpy())
+        rrows = np.flatnonzero(right.sel.cpu().numpy())
+
+        def coords(batch, rows, sym):
+            c = batch.columns[sym]
+            v = c.data.cpu().numpy().astype(np.float64)[rows]
+            if c.valid is not None:
+                v = np.where(c.valid.cpu().numpy()[rows], v, np.nan)
+            return v
+
+        px = coords(left, lrows, node.probe_x)
+        py = coords(left, lrows, node.probe_y)
+        # NULL coordinates (NaN after masking) match nothing: drop them
+        # before the grid, where a NaN would poison the cell arithmetic
+        pkeep = np.isfinite(px) & np.isfinite(py)
+        lrows, px, py = lrows[pkeep], px[pkeep], py[pkeep]
+        if node.kind == "contains":
+            gc = right.columns[node.build_geom]
+            if gc.dictionary is None:
+                raise ExecutionError("spatial join build side must be a "
+                                     "geometry/varchar column")
+            if gc.valid is not None:  # a NULL geometry matches nothing
+                rrows = rrows[gc.valid.cpu().numpy()[rrows]]
+            codes = np.clip(gc.data.cpu().numpy()[rrows], 0,
+                            len(gc.dictionary) - 1)
+            entries = gc.dictionary.values
+            # parse and index each DISTINCT referenced entry once: a
+            # low-cardinality geometry column must not replicate its edge
+            # arrays per row, and unreferenced entries must not poison
+            # the join
+            uniq, inv = np.unique(codes, return_inverse=True)
+            geoms = []
+            for c in uniq:
+                g = entries[int(c)]
+                g = g if isinstance(g, tuple) else GEO.parse_wkt(str(g))
+                if g[0] not in ("polygon",):
+                    raise ExecutionError(
+                        f"spatial join build over {g[0]} geometries is "
+                        "not supported (polygons only)")
+                geoms.append(g)
+            li, gi = GEO.grid_contains_join(px, py, geoms, self.device)
+            # expand each geometry's matches to the build ROWS sharing
+            # its code
+            order = np.argsort(inv, kind="stable")
+            starts = np.searchsorted(inv[order], np.arange(len(uniq)))
+            ends = np.searchsorted(inv[order], np.arange(len(uniq)),
+                                   side="right")
+            counts = ends[gi] - starts[gi]
+            li = np.repeat(li, counts)
+            flat = (np.arange(int(counts.sum()), dtype=np.int64)
+                    - np.repeat(np.concatenate(
+                        [[0], np.cumsum(counts)[:-1]]) if len(counts)
+                        else np.empty(0, np.int64), counts)
+                    + np.repeat(starts[gi], counts))
+            ri = order[flat]
+        else:
+            bx = coords(right, rrows, node.build_x)
+            by = coords(right, rrows, node.build_y)
+            bkeep = np.isfinite(bx) & np.isfinite(by)
+            rrows, bx, by = rrows[bkeep], bx[bkeep], by[bkeep]
+            li, ri = GEO.grid_distance_join(px, py, bx, by, node.radius,
+                                            node.strict, self.device)
+        lb = K.gather_batch(left, upload(lrows[li].astype(np.int64),
+                                         self.device))
+        rb = K.gather_batch(right, upload(rrows[ri].astype(np.int64),
+                                          self.device))
+        merged = dict(lb.columns)
+        merged.update(rb.columns)
+        out = Batch(merged, torch.ones((len(li),), dtype=torch.bool,
+                                       device=self.device))
+        if node.filter is not None:
+            out = Batch(merged, eval_predicate(node.filter, out, self.ctx))
+        return out
+
     # ---- window and set operations -----------------------------------
     def _exec_window(self, node: P.Window) -> Batch:
         return execute_window(self, node)
@@ -2526,22 +2715,42 @@ def _leaf_views(b: Batch) -> Batch:
                   for sym, c in b.columns.items()}, view(b.sel))
 
 
-def scan_batch(table, node: P.TableScan, device: torch.device) -> Batch:
+def scan_batch(table, node: P.TableScan, device: torch.device,
+               f32: bool = False) -> Batch:
     """Read + upload a table's columns, with a per-table, per-device
-    column cache (upload and dictionary-encode once per process)."""
+    column cache (upload and dictionary-encode once per process).
+    f32=True hands out DOUBLE columns as float32 (the float32_compute
+    session property) from a second cache that holds those columns
+    alone, so no other column is uploaded twice (reference:
+    scan_batch)."""
     caches = table.__dict__.setdefault("_device_cols", {})
     cache = caches.setdefault(str(device), {})
+    f32cache = None
+    if f32:
+        f32cache = table.__dict__.setdefault("_device_cols_f32", {}) \
+            .setdefault(str(device), {})
+
+    def cache_for(colname):
+        t = table.schema.get(colname)  # virtual pushdown: not in schema
+        if f32 and t is not None and t.name == "DOUBLE":
+            return f32cache
+        return cache
+
     needed = [c for c in dict.fromkeys(node.assignments.values())
-              if c not in cache]
+              if c not in cache_for(c)]
     if needed:
         data = table.read(needed)
         for c in needed:
             t = table.schema.get(c, T.BOOLEAN)  # virtual pushdown: BOOLEAN
-            cache[c] = column_from_numpy(data[c], t, device)
+            col = column_from_numpy(data[c], t, device)
+            if f32 and t.name == "DOUBLE":
+                col = Column(col.data.to(torch.float32), col.valid,
+                             col.type, col.dictionary)
+            cache_for(c)[c] = col
     cols = {}
     n = table.row_count() if not node.assignments else None
     for sym, src in node.assignments.items():
-        c = cache[src]
+        c = cache_for(src)[src]
         cols[sym] = Column(c.data, c.valid, node.types[sym], c.dictionary)
         n = c.data.shape[0]
     # one all-live sel per table and capacity: two scans of a table hand

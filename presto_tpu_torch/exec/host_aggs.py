@@ -287,3 +287,139 @@ def percentile_column(outs, array_out: bool, typ: T.Type, nonempty,
     if typ.is_integer:
         vals = np.rint(vals)
     return Column(upload(vals.astype(typ.numpy_dtype()), device), ok, typ)
+
+
+# ---------------------------------------------------------------------------
+# the ML aggregates (reference: the learn_*, evaluate_classifier_predictions
+# and classification_* branches of _agg_column): each group's rows in row
+# order, as the reference's boolean masks select them
+# ---------------------------------------------------------------------------
+
+
+def _group_slices(gid, valid, n_groups):
+    """Each group's valid rows, ascending."""
+    rows, _, starts = CL.rows_by_group(gid, valid, n_groups)
+    return [rows[starts[g]:starts[g + 1]] for g in range(n_groups)]
+
+
+def learn(fn: str, gid, valid, labels: np.ndarray, feats: np.ndarray,
+          n_groups: int) -> list:
+    """learn_classifier / learn_regressor: one model blob a group (b""
+    for a group without rows), trained by functions/ml.py on the group's
+    labels and feature rows."""
+    from presto_tpu_torch.functions import ml as ML
+
+    blobs = []
+    for rows in _group_slices(gid, valid, n_groups):
+        if not len(rows):
+            blobs.append(b"")
+        elif fn == "learn_classifier":
+            blobs.append(ML.train_classifier(labels[rows], feats[rows]))
+        else:
+            blobs.append(ML.train_regressor(
+                labels[rows].astype(np.float64), feats[rows]))
+    return blobs
+
+
+def _label_ids(data: np.ndarray, dictionary, index: dict) -> np.ndarray:
+    """Each row's label as an id into `index` ({value: id}, extended
+    with the values not in it yet): equal Python values (1 and 1.0 too)
+    share an id, as the reference's `==` of host values does."""
+    if dictionary is not None:
+        codes = np.clip(data, 0, max(len(dictionary) - 1, 0))
+        uniq, inverse = np.unique(codes, return_inverse=True)
+        values = CL.host_values(uniq, dictionary) if len(uniq) else []
+    else:
+        uniq, inverse = np.unique(data, return_inverse=True)
+        values = CL.host_values(uniq, None)
+    ids = np.fromiter((index.setdefault(v, len(index)) for v in values),
+                      np.int64, len(values))
+    return ids[inverse.reshape(-1)] if len(values) else \
+        np.zeros(len(data), np.int64)
+
+
+def evaluate_predictions(gid, valid, truth, truth_dict, pred, pred_dict,
+                         n_groups: int) -> list:
+    """evaluate_classifier_predictions(truth, prediction): each group's
+    accuracy and per-label precision and recall as text, labels in repr
+    order (reference: presto-ml EvaluateClassifierPredictionsAggregation).
+    The labels are compared as ids of their host values (_label_ids), so
+    the per-row work is integer numpy."""
+    index: dict = {}
+    t_all = _label_ids(truth, truth_dict, index)
+    p_all = _label_ids(pred, pred_dict, index)
+    labels = list(index)
+    texts = []
+    for rows in _group_slices(gid, valid, n_groups):
+        n = len(rows)
+        if n == 0:
+            texts.append("")
+            continue
+        t, p = t_all[rows], p_all[rows]
+        correct = int((t == p).sum())
+        lines = [f"Accuracy: {correct}/{n} ({100.0 * correct / n:.2f}%)"]
+        ap_all = np.bincount(t, minlength=len(labels))
+        pp_all = np.bincount(p, minlength=len(labels))
+        tp_all = np.bincount(t[t == p], minlength=len(labels))
+        present = np.flatnonzero((ap_all > 0) | (pp_all > 0))
+        for i in sorted(present.tolist(), key=lambda i: repr(labels[i])):
+            lab = labels[i]
+            tp, pp, ap = int(tp_all[i]), int(pp_all[i]), int(ap_all[i])
+            if pp:
+                lines.append(f"Precision({lab}): {tp}/{pp} "
+                             f"({100.0 * tp / pp:.2f}%)")
+            if ap:
+                lines.append(f"Recall({lab}): {tp}/{ap} "
+                             f"({100.0 * tp / ap:.2f}%)")
+        texts.append("\n".join(lines))
+    return texts
+
+
+def classification(fn: str, gid, valid, truth: np.ndarray,
+                   pred: np.ndarray, wts: Optional[np.ndarray],
+                   buckets: int, n_groups: int) -> list:
+    """classification_{miss_rate, fall_out, precision, recall,
+    thresholds}: a tuple of doubles a group at the thresholds
+    i / buckets (a prediction at or above one counts as a positive
+    call); an undefined ratio is None.  wts None: every row weighs 1."""
+    th = np.arange(buckets) / buckets
+    weighted = wts is not None
+    out_rows = []
+    for rows in _group_slices(gid, valid, n_groups):
+        if not len(rows):
+            out_rows.append(())
+            continue
+        t, p = truth[rows], pred[rows]
+        if weighted:
+            w = wts[rows]
+            pos = p[:, None] >= th[None, :]  # (rows, buckets)
+            tp = (w[:, None] * (pos & t[:, None])).sum(0)
+            fp = (w[:, None] * (pos & ~t[:, None])).sum(0)
+            fn_ = (w[:, None] * (~pos & t[:, None])).sum(0)
+            tn = (w[:, None] * (~pos & ~t[:, None])).sum(0)
+        else:
+            # unit weights: the sums are counts, exact in float64 in any
+            # order, so each row adds to the thresholds at or below its
+            # prediction through one bincount of how many it passes
+            passed = np.where(np.isnan(p), 0,  # NaN passes no threshold
+                              np.searchsorted(th, p, side="right"))
+            pos_t = np.bincount(passed[t], minlength=buckets + 1)
+            pos_f = np.bincount(passed[~t], minlength=buckets + 1)
+            tp = np.cumsum(pos_t[::-1])[::-1][1:].astype(np.float64)
+            fp = np.cumsum(pos_f[::-1])[::-1][1:].astype(np.float64)
+            fn_ = float(t.sum()) - tp
+            tn = float((~t).sum()) - fp
+        with np.errstate(invalid="ignore", divide="ignore"):
+            if fn == "classification_thresholds":
+                out = th
+            elif fn == "classification_precision":
+                out = tp / (tp + fp)
+            elif fn == "classification_recall":
+                out = tp / (tp + fn_)
+            elif fn == "classification_miss_rate":
+                out = fn_ / (tp + fn_)
+            else:  # fall_out
+                out = fp / (fp + tn)
+        out_rows.append(tuple(None if np.isnan(x) else float(x)
+                              for x in np.broadcast_to(out, th.shape)))
+    return out_rows

@@ -65,6 +65,15 @@ def refuse_limbs(d: torch.Tensor) -> None:
                          f"shapes=[({n},), ({n}, 2), ()]")
 
 
+def refuse_point_keys(d: torch.Tensor) -> None:
+    """A sort key of (n, k) float64 rows (a POINTS or FEATURES column,
+    functions/geospatial.py and ml.py): the reference's sort operand
+    applies an integer bitwise op to the float rows and raises this."""
+    raise TypeError(f"xor does not accept dtype {d.dtype}".replace(
+        "torch.", "") + " at position 0. Accepted dtypes at position 0 "
+        "are subtypes of integer, bool.")
+
+
 def pack_keys(cols: List[Column], sel: torch.Tensor,
               extra_cols: Optional[List[Column]] = None):
     """Pack key columns into a single integer key per row — int32 when
@@ -474,6 +483,23 @@ class GroupOrder:
 
 _SEGMENT_CHUNK = 8192  # rows a first-level sum adds, as fused_group_sums
 
+SUM_WINDOW = 32  # terms a level of window_sum32 adds
+
+
+def window_sum32(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of a 1-D tensor in the order of presto_tpu's jnp.sum
+    on the CPU (XLA's tree reduction rewrite): windows of SUM_WINDOW
+    terms, level by level, each level's zero padding split low and high
+    as XLA pads.  However a level adds its windows, a term passes at
+    most SUM_WINDOW - 1 additions there, so the sum's error bound does
+    not grow with the row count as a running sum's does."""
+    while x.shape[0] > SUM_WINDOW:
+        m = -(-x.shape[0] // SUM_WINDOW)
+        pad = m * SUM_WINDOW - x.shape[0]
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(m, SUM_WINDOW).sum(1)
+    return x.sum()
+
 
 def segment_sum(x: torch.Tensor, gid: torch.Tensor, n_groups: int,
                 order: Optional[GroupOrder] = None) -> torch.Tensor:
@@ -483,8 +509,10 @@ def segment_sum(x: torch.Tensor, gid: torch.Tensor, n_groups: int,
     the input dtype (bool -> int64).  Float sums add in GroupOrder's
     fixed order, so they are bit-identical from run to run on the card
     as on the CPU; pass `order` to share one grouping's sort between
-    several sums."""
+    several sums.  A global f32 sum adds in window_sum32's order."""
     if n_groups == 1:
+        if x.dtype == torch.float32:
+            return window_sum32(x)[None]
         return x.sum(dtype=_acc_dtype(x))[None].to(_out_dtype(x))
     if n_groups == 0:
         return torch.zeros((0,), dtype=_out_dtype(x), device=x.device)
@@ -976,6 +1004,8 @@ def sort_perm(batch: Batch,
             # a null-flag operand per key instead of in-band sentinels
             operands.append(torch.where(valid, int(nf), int(not nf))
                             .to(torch.int32))
+        if col.data.ndim == 2 and not col.type.is_decimal:
+            refuse_point_keys(col.data)
         if col.data.ndim == 2:
             # long decimal (Int128 limbs): the signed hi limb, then the
             # biased lo limb; DESC by bitwise NOT, an exact
@@ -1405,22 +1435,30 @@ def _slices(k: int, most: int) -> Tuple[int, int]:
     return -(-k // slices), slices
 
 
+def fgs_vectors(n: int, elem_bytes: int) -> int:
+    """The 16-byte vectors of E = 16 / elem_bytes values each that the
+    register path reads from every value row, whatever the row's
+    alignment (the C code's `vecs`): (n - E + 1) // E, 0 below E."""
+    e = 16 // elem_bytes
+    return (n - e + 1) // e if n >= e else 0
+
+
 def fused_group_sums_launch_shape(n: int, k: int, n_groups: int,
-                                  sm_count: int) -> FgsPlan:
-    """The launch plan for vals [k, n] and n_groups groups on a card of
-    sm_count SMs.  It follows the shape alone: up to
-    _FGS_REGISTER_GROUPS groups the atomic-free register path (bit
-    identical from run to run on one card, for one 16-byte alignment of
-    vals), above it the shared-table path; either
+                                  sm_count: int,
+                                  elem_bytes: int = 8) -> FgsPlan:
+    """The launch plan for vals [k, n] of elem_bytes-wide values (8: f64,
+    4: f32) and n_groups groups on a card of sm_count SMs.  It follows
+    the shape alone: up to _FGS_REGISTER_GROUPS groups the atomic-free
+    register path (bit identical from run to run on one card, for one
+    16-byte alignment of vals), above it the shared-table path; either
     way each slice of value rows reads gid once and only its own rows.
     Raises ValueError when one row of the table would not fit a block's
     shared memory."""
     if n_groups <= _FGS_REGISTER_GROUPS:
         slots = 1 << (n_groups - 1).bit_length()
         kc, slices = _slices(k, fgs_register_slice_rows(slots))
-        pairs = max(n - 1, 0) // 2
         blocks = min(-(-sm_count * _FGS_REGISTER_BLOCKS_PER_SM // slices),
-                     -(-pairs // _FGS_THREADS))
+                     -(-fgs_vectors(n, elem_bytes) // _FGS_THREADS))
         return FgsPlan("registers", slots, kc, slices,
                        max(blocks, 1) if n else 0, 0)
     row_bytes = 8 * n_groups
@@ -1443,10 +1481,10 @@ def fused_group_sums(vals: torch.Tensor, gid: torch.Tensor,
                      n_groups: int) -> torch.Tensor:
     """ONE pass computing k segmented sums that share group ids.
 
-    vals [k, n] float (dead rows already zeroed), gid [n] int32 in
-    [0, n_groups); returns [k, n_groups] f64.  CPU tensors take the
-    plain version; everything else goes to the CUDA kernel, which
-    launches or raises."""
+    vals [k, n] f64 or f32 (dead rows already zeroed), gid [n] int32 in
+    [0, n_groups); returns [k, n_groups] f64: the f64 sums of the values
+    as stored.  CPU tensors take the plain version; everything else goes
+    to the CUDA kernel, which launches or raises."""
     if vals.device.type == "cpu" and gid.device.type == "cpu":
         return fused_group_sums_plain(vals, gid, n_groups)
     return fused_group_sums_cuda(vals, gid, n_groups)
@@ -1455,15 +1493,20 @@ def fused_group_sums(vals: torch.Tensor, gid: torch.Tensor,
 def fused_group_sums_cuda(vals: torch.Tensor, gid: torch.Tensor,
                           n_groups: int) -> torch.Tensor:
     """Launch csrc/fused_group_sums.cu on the current stream: vals [k, n]
-    f64 and gid [n] int32, contiguous, on one CUDA device; 1 <= k and
-    1 <= n_groups.  Raises on anything else and when the launch fails;
-    counts each launch in `fused_group_sums_cuda.launches`."""
+    f64 (entry point fused_group_sums_f64) or f32 (fused_group_sums_f32in,
+    which reads the f32 values and sums them in f64) and gid [n] int32,
+    contiguous, on one CUDA device; 1 <= k and 1 <= n_groups.  Raises on
+    anything else and when the launch fails; counts each launch in
+    `fused_group_sums_cuda.launches`, and the f32 ones also in
+    `fused_group_sums_cuda.launches_f32`."""
     if vals.device.type != "cuda" or gid.device != vals.device:
         raise ValueError(f"fused_group_sums: vals on {vals.device}, gid on "
                          f"{gid.device}; both must be on one CUDA device")
-    if vals.dtype != torch.float64 or gid.dtype != torch.int32:
+    if vals.dtype not in (torch.float64, torch.float32) \
+            or gid.dtype != torch.int32:
         raise TypeError(f"fused_group_sums: vals {vals.dtype} (needs "
-                        f"float64), gid {gid.dtype} (needs int32)")
+                        f"float64 or float32), gid {gid.dtype} (needs "
+                        "int32)")
     if vals.ndim != 2 or gid.ndim != 1 or vals.shape[1] != gid.shape[0]:
         raise ValueError(f"fused_group_sums: shapes {tuple(vals.shape)} and "
                          f"{tuple(gid.shape)} do not match [k, n] and [n]")
@@ -1475,14 +1518,17 @@ def fused_group_sums_cuda(vals: torch.Tensor, gid: torch.Tensor,
     from presto_tpu_torch.exec import cuda_build
 
     sm = torch.cuda.get_device_properties(vals.device).multi_processor_count
-    plan = fused_group_sums_launch_shape(n, k, n_groups, sm)
+    f32 = vals.dtype == torch.float32
+    plan = fused_group_sums_launch_shape(n, k, n_groups, sm,
+                                         vals.element_size())
     lib = cuda_build.load("fused_group_sums")
+    entry = lib.fused_group_sums_f32in if f32 else lib.fused_group_sums_f64
     partials = torch.empty((plan.blocks, k, n_groups), dtype=torch.float64,
                            device=vals.device)
     out = torch.empty((k, n_groups), dtype=torch.float64, device=vals.device)
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     with torch.cuda.device(vals.device):  # the runtime launches on it
-        rc = lib.fused_group_sums_f64(
+        rc = entry(
             vals.data_ptr(), gid.data_ptr(), n, k, n_groups,
             _FGS_PATHS[plan.path], plan.group_slots, plan.rows_per_slice,
             plan.slices, plan.blocks, plan.smem_bytes, partials.data_ptr(),
@@ -1491,7 +1537,9 @@ def fused_group_sums_cuda(vals: torch.Tensor, gid: torch.Tensor,
         raise RuntimeError("fused_group_sums kernel failed: "
                            + cuda_build.error_string(lib, rc))
     fused_group_sums_cuda.launches += 1
+    fused_group_sums_cuda.launches_f32 += f32
     return out
 
 
 fused_group_sums_cuda.launches = 0
+fused_group_sums_cuda.launches_f32 = 0

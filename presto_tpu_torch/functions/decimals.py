@@ -64,23 +64,49 @@ def _f64(x):
     return x.to(torch.float64) if _is_tensor(x) else float(x)
 
 
+def strong_f64(v) -> bool:
+    """Whether v is a float64 that the reference holds as a strongly
+    typed value: an f64 tensor (a 0-d one too), or a numpy float64 (the
+    port's host value of a constant the reference computes with jnp and
+    an astype(float64)).  A Python float is weakly typed in both."""
+    return (_is_tensor(v) and v.dtype == torch.float64) \
+        or type(v) is np.float64
+
+
+def jax_float_promote(x, y):
+    """x and y with an f32 tensor widened to f64 where the other side is
+    a strong f64 (see strong_f64), 0-d too: jnp promotes so, while
+    torch keeps f32 when the f64 side is 0-d or a scalar.  It matters
+    under float32_compute, whose DOUBLE columns are f32."""
+    if _is_tensor(x) and x.dtype == torch.float32 and strong_f64(y):
+        x = x.to(torch.float64)
+    if _is_tensor(y) and y.dtype == torch.float32 and strong_f64(x):
+        y = y.to(torch.float64)
+    return x, y
+
+
 def true_div(x, y):
-    """x / y in IEEE float64 division on every device, as XLA divides.
-    torch divides a CUDA tensor by a host scalar by multiplying with the
-    scalar's reciprocal, and a scalar by a tensor through the tensor's
-    reciprocal, either one ulp off at times (5.0 / 3 gives
-    1.6666666666666665 so), so a scalar side becomes a 0-d tensor on the
-    other's device.  A 0-d CPU tensor beside a CUDA tensor is a host
-    scalar to torch as well: it moves to the other's device."""
+    """x / y in IEEE division on every device, as XLA divides, in the
+    dtype jnp's promotion gives: float32 where a side is an f32 tensor
+    (a float32_compute DOUBLE column) and no side is a strong f64
+    (strong_f64), else float64.  torch divides a CUDA tensor by a host
+    scalar by multiplying with the scalar's reciprocal, and a scalar by a
+    tensor through the tensor's reciprocal, either one ulp off at times
+    (5.0 / 3 gives 1.6666666666666665 so), so a scalar side becomes a 0-d
+    tensor on the other's device.  A 0-d CPU tensor beside a CUDA tensor
+    is a host scalar to torch as well: it moves to the other's device."""
     if not _is_tensor(x) and not _is_tensor(y):
         with np.errstate(divide="ignore", invalid="ignore"):
             return (np.float64(x) / np.float64(y)).item()
     dev = next((v.device for v in (x, y)
                 if _is_tensor(v) and v.device.type != "cpu"),
                (x if _is_tensor(x) else y).device)
+    f32 = any(_is_tensor(v) and v.dtype == torch.float32 for v in (x, y)) \
+        and not any(strong_f64(v) for v in (x, y))
+    dt = torch.float32 if f32 else torch.float64
     x, y = (v.to(device=dev if v.ndim == 0 else v.device,
-                 dtype=torch.float64) if _is_tensor(v) else torch.full(
-        (), float(v), dtype=torch.float64, device=dev) for v in (x, y))
+                 dtype=dt) if _is_tensor(v) else torch.full(
+        (), float(v), dtype=dt, device=dev) for v in (x, y))
     return torch.div(x, y)
 
 

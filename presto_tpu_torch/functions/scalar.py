@@ -3,8 +3,8 @@
 Reference: presto_tpu/functions/scalar.py, with the modules it imports
 at its end (the last registration of a name wins, as there).  This
 module holds the core and imports functions/scalar_ext.py,
-scalar_ext2.py and datetime_tz.py at its end, in the reference's
-order.  312 names:
+scalar_ext2.py, datetime_tz.py, geospatial.py and ml.py at its end, in
+the reference's order.  329 names:
 - arithmetic (add, sub, mul, div, mod, neg) over the numeric types
   (DECIMAL's through functions/decimals.py: short decimals as scaled
   int64, long ones as Int128 limbs), DATE and TIMESTAMP +- INTERVAL,
@@ -65,9 +65,16 @@ order.  312 names:
   P4HLL or QDIGEST, EMPTY_APPROX_SET, VALUE_AT_QUANTILE,
   VALUES_AT_QUANTILES, QUANTILE_AT_VALUE, SCALE_TDIGEST,
   DESTRUCTURE_TDIGEST, and the CASTs of a sketch to and from VARBINARY
-  (its bytes) and VARCHAR (base64).
-Not ported: the $hll_reg and $hll_rho of distributed approx_distinct,
-and the modules geospatial.py and ml.py.  The planner resolves only
+  (its bytes) and VARCHAR (base64);
+- geospatial (functions/geospatial.py): ST_Point, ST_GeometryFromText,
+  ST_AsText, ST_X, ST_Y, ST_Contains, ST_Within, ST_Distance,
+  ST_Intersects, ST_Area, ST_Envelope, ST_Centroid, ST_NPoints,
+  ST_Length (a point column as an (n, 2) float64 tensor, a geometry as
+  a parsed host tuple);
+- ML (functions/ml.py): FEATURES, CLASSIFY, REGRESS over the model
+  blobs of the learn_* aggregates.
+Not ported: the $hll_reg and $hll_rho of distributed approx_distinct.
+The planner resolves only
 registered names, so any other function raises NotImplementedError
 with its name (plan/planner.py `_call`).
 
@@ -350,7 +357,7 @@ def _emit_arith(name):
                     valid)
             x, y = (DEC.decimal_to_double(v).data for v in (a, b))
             return ColVal(DEC.true_div(x, y), valid, T.DOUBLE)
-        x, y = a.data, b.data
+        x, y = DEC.jax_float_promote(a.data, b.data)
         if name == "add":
             r = x + y
         elif name == "sub":
@@ -361,9 +368,8 @@ def _emit_arith(name):
             if out_t.is_integer:
                 r = _int_div(x, y)
             else:
+                # in jnp's result dtype: f32 under float32_compute
                 r = DEC.true_div(x, y)
-                if _is_tensor(r):
-                    r = r.to(torch_dtype(out_t))
         else:
             raise AssertionError(name)
         return ColVal(r, valid, out_t)
@@ -541,8 +547,8 @@ def _emit_cmp(name):
         if DEC.is_long(a.type) or DEC.is_long(b.type):
             return DEC.emit_long_compare(name, a, b, _PYOPS[name],
                                          all_valid(a, b))
-        return ColVal(_PYOPS[name](a.data, b.data), all_valid(a, b),
-                      T.BOOLEAN)
+        return ColVal(_PYOPS[name](*DEC.jax_float_promote(a.data, b.data)),
+                      all_valid(a, b), T.BOOLEAN)
 
     return emit
 
@@ -3423,3 +3429,5 @@ register("destructure_tdigest",
 from presto_tpu_torch.functions import scalar_ext as _scalar_ext  # noqa: E402,F401,E501
 from presto_tpu_torch.functions import scalar_ext2 as _scalar_ext2  # noqa: E402,F401,E501
 from presto_tpu_torch.functions import datetime_tz as _datetime_tz  # noqa: E402,F401,E501
+from presto_tpu_torch.functions import geospatial as _geospatial  # noqa: E402,F401,E501
+from presto_tpu_torch.functions import ml as _ml  # noqa: E402,F401,E501

@@ -5,7 +5,10 @@ by a tensor) through the reciprocal, one ulp off at times, where XLA
 divides; the port divides two tensors on one device instead
 (functions/decimals.py::true_div).  This test runs the function corpus
 (F1 to F11: the scalar functions, and the aggregates whose estimates
-divide) and the extended corpus (E1 to E9) on
+divide), the extended corpus (E1 to E9), the geospatial and ML corpus
+(geo_ml_queries.py's G at its SMALL size and M: the ray cast's edge
+intersections, segment distances, DECIMAL features) and TPC-H Q1 and Q6
+under float32_compute on
 the CPU at SF0.01, in "dynamic" and in "auto" (the static pass), with
 Tensor.__truediv__, __rtruediv__, __itruediv__, Tensor.div, torch.div
 and torch.true_divide wrapped to raise on a true division (no
@@ -27,8 +30,11 @@ import torch
 import presto_tpu_torch
 from presto_tpu_torch import function_ext_queries as FQ
 from presto_tpu_torch import function_queries as FN
+from presto_tpu_torch import geo_ml_queries as GQ
 from presto_tpu_torch.catalog import tpch_catalog
 from presto_tpu_torch.functions import decimals as DEC
+from presto_tpu_torch.tpch_queries import QUERIES as TPCH
+from tests import torch_geo_ml_common as C
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
 
@@ -138,3 +144,39 @@ def test_corpus_divides_no_tensor_by_a_host_scalar(qid, mode, catalog):
     s = presto_tpu_torch.connect(catalog, device="cpu", execution_mode=mode)
     with no_host_scalar_division():
         s.sql(_QUERIES[qid])
+
+
+@pytest.mark.parametrize("mode", ("dynamic", "auto"))
+@pytest.mark.parametrize("qid", [1, 6])
+def test_float32_compute_divides_no_tensor_by_a_host_scalar(qid, mode,
+                                                            catalog):
+    s = presto_tpu_torch.connect(catalog, device="cpu", execution_mode=mode,
+                                 float32_compute=True)
+    with no_host_scalar_division():
+        s.sql(TPCH[qid])
+
+
+@pytest.mark.parametrize("mode", ("dynamic", "auto"))
+def test_geo_corpus_divides_no_tensor_by_a_host_scalar(mode):
+    tables = GQ.geo_tables(GQ.SMALL)
+    cat = C.register("port", C.empty_catalog("port"), tables)
+    s = presto_tpu_torch.connect(cat, device="cpu", execution_mode=mode)
+    with no_host_scalar_division():
+        for sid, sql in GQ.geo_queries(tables, GQ.SMALL).items():
+            if sid != "G4":  # raises presto_tpu's ValueError
+                s.sql(sql)
+
+
+@pytest.mark.parametrize("mode", ("dynamic", "auto"))
+def test_ml_corpus_divides_no_tensor_by_a_host_scalar(mode):
+    cat = tpch_catalog(0.01)
+    s = presto_tpu_torch.connect(cat, device="cpu", execution_mode=mode)
+    with no_host_scalar_division():
+        blobs = s.sql(GQ.M1).rows[0]
+        C.register("port", cat, {"models": GQ.models_table(blobs)})
+        for sid in ("M2", "M3"):
+            s.sql(GQ.ML_QUERIES[sid])
+        # a DECIMAL feature divides by its scale through true_div
+        s.sql("SELECT sum(regress(features(CAST(l_discount AS "
+              "DECIMAL(4, 2)), l_tax, l_linenumber), m.rm)) FROM lineitem "
+              "CROSS JOIN models m")

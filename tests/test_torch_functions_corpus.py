@@ -30,7 +30,8 @@ import presto_tpu_torch
 from presto_tpu.catalog import tpch_catalog as ref_tpch_catalog
 from presto_tpu_torch.catalog import tpch_catalog
 from presto_tpu_torch.exec.executor import (COLLECTION_AGGS, HOST_AGGS,
-                                            PORTED_AGGS, plan_statement)
+                                            ML_AGGS, PORTED_AGGS,
+                                            plan_statement)
 from presto_tpu_torch.function_queries import EXACT_FLOAT_COLUMNS, QUERIES
 from presto_tpu_torch.plan import ir
 from presto_tpu_torch.sql.parser import parse
@@ -135,8 +136,9 @@ def test_corpus_reaches_every_ported_name(runs):
     for sql in QUERIES.values():
         _reached(plan_statement(session, parse(sql)).root, calls, aggs)
     assert set(SCALAR_NAMES) <= calls, set(SCALAR_NAMES) - calls
-    # (the host aggregates of a later slice are the zone/sketch corpus')
-    new_aggs = PORTED_AGGS - COLLECTION_AGGS - HOST_AGGS - {
+    # (the host aggregates of a later slice are the zone/sketch corpus',
+    # the ML aggregates of the next the geo/ML corpus')
+    new_aggs = PORTED_AGGS - COLLECTION_AGGS - HOST_AGGS - ML_AGGS - {
         "count", "count_if", "sum", "avg", "min", "max", "stddev",
         "stddev_samp", "stddev_pop", "variance", "var_samp", "var_pop"}
     assert len(new_aggs) == 23

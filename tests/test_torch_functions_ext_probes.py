@@ -249,13 +249,9 @@ def test_decimal_mod_result_type():
 # ---------------------------------------------------------------------------
 
 #: presto_tpu's registry names the port still lacks, by the module that
-#: defines them
+#: defines them: the HyperLogLog states of chunked and distributed
+#: execution (functions/geospatial.py and ml.py are ported now)
 STILL_MISSING = {
-    "geospatial": {"st_area", "st_astext", "st_centroid", "st_contains",
-                   "st_distance", "st_envelope", "st_geometryfromtext",
-                   "st_intersects", "st_length", "st_npoints", "st_point",
-                   "st_within", "st_x", "st_y"},
-    "ml": {"classify", "features", "regress"},
     "sketches": {"$hll_reg", "$hll_rho"},
 }
 
@@ -266,7 +262,7 @@ def test_registry_holds_every_name_but_the_listed_ones():
     missing = set(REF) - set(S.REGISTRY)
     listed = set().union(*STILL_MISSING.values())
     assert missing == listed
-    assert [len(v) for v in STILL_MISSING.values()] == [14, 3, 2]
+    assert [len(v) for v in STILL_MISSING.values()] == [2]
     assert not set(S.REGISTRY) - set(REF)
 
 
@@ -277,9 +273,9 @@ def test_this_slice_adds_153_names():
     ext_names = {n for n in REF if getattr(REF[n].emit, "__module__", "")
                  in (RX.__name__, RX2.__name__)}
     assert ext_names <= set(S.REGISTRY)
-    # and the later slice of datetime_tz.py (12 names) and the sketch
-    # readers (6)
-    assert len(S.REGISTRY) == 141 + 153 + 18
+    # and the later slices: datetime_tz.py (12 names) and the sketch
+    # readers (6); geospatial.py (14) and ml.py (3)
+    assert len(S.REGISTRY) == 141 + 153 + 18 + 17
 
 
 @pytest.mark.parametrize("sql,module", [
@@ -288,9 +284,23 @@ def test_this_slice_adds_153_names():
      "st_geometryfromtext"),
     ("SELECT st_x(st_point(1, 2))", "st_point")])
 def test_names_of_later_slices_raise(sql, module):
-    s = presto_tpu_torch.connect(Catalog(), device="cpu")
-    with pytest.raises(NotImplementedError, match=module):
-        s.sql(sql)
+    """These names came with a later slice (functions/geospatial.py and
+    ml.py): they run now and do what presto_tpu does, a value or its
+    error (a bare constant feature row or point cannot be fetched as one
+    row in presto_tpu, IndexError)."""
+    import presto_tpu
+    from presto_tpu.catalog import Catalog as RCatalog
+
+    def outcome(session):
+        try:
+            return ("rows", session.sql(sql).rows)
+        except Exception as e:  # the reference's error is the record
+            return ("error", type(e).__name__, str(e))
+
+    mine = outcome(presto_tpu_torch.connect(Catalog(), device="cpu"))
+    theirs = outcome(presto_tpu.connect(RCatalog()))
+    assert module in sql
+    assert mine == theirs
 
 
 def test_str2_product_bound_raises_as_in_the_reference():

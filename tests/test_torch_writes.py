@@ -494,19 +494,25 @@ def test_statement_not_ported_raises(sql):
     assert "f" not in port.catalog
 
 
-@pytest.mark.parametrize("props,match", [
-    ({"execution_mode": "chunked"}, "chunked execution"),
-    ({"distributed": True}, "distributed execution"),
-    ({"chunked_rows_threshold": 10}, "chunked execution"),
-    ({"float32_compute": True}, "float32_compute")])
-def test_streamed_and_unported_writes_raise(props, match):
+_CTAS = "CREATE TABLE c AS SELECT a, b FROM src WHERE a > 1"
+
+
+@pytest.mark.parametrize("props,match,sql", [
+    ({"execution_mode": "chunked"}, "chunked execution", _CTAS),
+    ({"distributed": True}, "distributed execution", _CTAS),
+    ({"chunked_rows_threshold": 10}, "chunked execution", _CTAS),
+    ({"distributed": True}, "distributed execution",
+     "INSERT INTO src SELECT a, b, s FROM src WHERE a > 1")])
+def test_streamed_and_unported_writes_raise(props, match, sql):
     """Where presto_tpu streams a single-scan write (chunked or
     distributed execution, or "auto" above chunked_rows_threshold rows)
-    the port raises, and writes nothing."""
+    the port raises, and writes nothing: no table created, no row
+    inserted."""
     _ref, port = _pair(**props)
     with pytest.raises(NotImplementedError, match=match):
-        port.sql("CREATE TABLE c AS SELECT a, b FROM src WHERE a > 1")
+        port.sql(sql)
     assert "c" not in port.catalog
+    assert port.catalog.get("src").row_count() == 40
 
 
 def test_explain_analyze_in_compiled_mode_raises():
